@@ -1,0 +1,169 @@
+"""The scene registry: the counterpart of ``raytracing_tpu.models.scenes``
+for every scene whose textures are solid or checker. The constants are the
+JAX package's, and ``bouncing_spheres`` draws from the same
+``np.random.default_rng(seed)`` stream, so both packages build identical
+tables. (``simple_light``, ``perlin_sphere`` and ``earth`` need noise or
+image textures, which the megakernel port does not shade yet.)
+"""
+from __future__ import annotations
+
+from dataclasses import replace
+from typing import Callable, Dict, Tuple
+
+import numpy as np
+
+from ..render.camera import CameraConfig
+from ..scene.builder import SceneBuilder
+from ..scene.types import Scene
+
+SceneFn = Callable[..., Tuple[Scene, CameraConfig]]
+SCENES: Dict[str, SceneFn] = {}
+
+SKY = (0.7, 0.8, 1.0)
+
+
+def register(name: str):
+    def deco(fn: SceneFn):
+        SCENES[name] = fn
+        return fn
+
+    return deco
+
+
+def build(name: str, device="cpu", **kwargs) -> Tuple[Scene, CameraConfig]:
+    """Build a registry scene by name on ``device``; keyword arguments
+    override the scene's own (``seed``) or its CameraConfig fields."""
+    if name not in SCENES:
+        raise KeyError(f"unknown scene '{name}'; available: {sorted(SCENES)}")
+    return SCENES[name](device=device, **kwargs)
+
+
+def _cfg(cfg: CameraConfig, overrides: dict) -> CameraConfig:
+    return replace(cfg, **overrides) if overrides else cfg
+
+
+@register("bouncing_spheres")
+def bouncing_spheres(device="cpu", seed: int = 42, **cam_overrides):
+    """Checker ground + 22×22 seeded grid of small spheres (80% moving
+    lambertian / 15% metal / 5% glass) + 3 big spheres."""
+    b = SceneBuilder()
+    ground = b.lambertian(b.checker(0.32, (0.2, 0.3, 0.1), (0.9, 0.9, 0.9)))
+    b.sphere((0.0, -1000.0, -1.0), 1000.0, ground)
+
+    rng = np.random.default_rng(seed)
+    for a in range(-11, 11):
+        for bb in range(-11, 11):
+            choose_mat = rng.random()
+            center = np.array([a + 0.9 * rng.random(), 0.2, bb + 0.9 * rng.random()])
+            if np.linalg.norm(center - np.array([4.0, 0.2, 0.0])) > 0.9:
+                if choose_mat < 0.8:
+                    albedo = rng.random(3) * rng.random(3)
+                    mat = b.lambertian(tuple(albedo))
+                    center2 = center + np.array([0.0, rng.uniform(0.0, 0.5), 0.0])
+                    b.sphere(tuple(center), 0.2, mat, center2=tuple(center2))
+                elif choose_mat < 0.95:
+                    albedo = rng.uniform(0.5, 1.0, 3)
+                    mat = b.metal(tuple(albedo), rng.uniform(0.0, 0.5))
+                    b.sphere(tuple(center), 0.2, mat)
+                else:
+                    b.sphere(tuple(center), 0.2, b.dielectric(1.5))
+
+    b.sphere((0.0, 1.0, 0.0), 1.0, b.dielectric(1.5))
+    b.sphere((-4.0, 1.0, 0.0), 1.0, b.lambertian((0.4, 0.2, 0.1)))
+    b.sphere((4.0, 1.0, 0.0), 1.0, b.metal((0.7, 0.6, 0.5), 0.0))
+
+    cfg = CameraConfig(
+        aspect_ratio=16.0 / 9.0, image_width=400, samples_per_pixel=50,
+        max_depth=20, background=SKY, vfov=20.0, lookfrom=(13.0, 2.0, 3.0),
+        lookat=(0.0, 0.0, 0.0), vup=(0.0, 1.0, 0.0), defocus_angle=0.6,
+        focus_dist=10.0,
+    )
+    return b.compile(device), _cfg(cfg, cam_overrides)
+
+
+@register("checkered_spheres")
+def checkered_spheres(device="cpu", **cam_overrides):
+    """Two r=10 checkered spheres."""
+    b = SceneBuilder()
+    mat = b.lambertian(b.checker(0.32, (0.2, 0.3, 0.1), (0.9, 0.9, 0.9)))
+    b.sphere((0.0, -10.0, 0.0), 10.0, mat)
+    b.sphere((0.0, 10.0, 0.0), 10.0, mat)
+    cfg = CameraConfig(
+        aspect_ratio=16.0 / 9.0, image_width=400, samples_per_pixel=50,
+        max_depth=20, background=SKY, vfov=20.0, lookfrom=(13.0, 2.0, 3.0),
+        lookat=(0.0, 0.0, 0.0), defocus_angle=0.0,
+    )
+    return b.compile(device), _cfg(cfg, cam_overrides)
+
+
+@register("quads")
+def quads(device="cpu", **cam_overrides):
+    """Five colored quads."""
+    b = SceneBuilder()
+    b.quad((-3, -2, 5), (0, 0, -4), (0, 4, 0), b.lambertian((1.0, 0.2, 0.2)))
+    b.quad((-2, -2, 0), (4, 0, 0), (0, 4, 0), b.lambertian((0.2, 1.0, 0.2)))
+    b.quad((3, -2, 1), (0, 0, 4), (0, 4, 0), b.lambertian((0.2, 0.2, 1.0)))
+    b.quad((-2, 3, 1), (4, 0, 0), (0, 0, 4), b.lambertian((1.0, 0.5, 0.0)))
+    b.quad((-2, -3, 5), (4, 0, 0), (0, 0, -4), b.lambertian((0.2, 0.8, 0.8)))
+    cfg = CameraConfig(
+        aspect_ratio=1.0, image_width=400, samples_per_pixel=100,
+        max_depth=50, background=SKY, vfov=80.0, lookfrom=(0.0, 0.0, 9.0),
+        lookat=(0.0, 0.0, 0.0), defocus_angle=0.0,
+    )
+    return b.compile(device), _cfg(cfg, cam_overrides)
+
+
+@register("cornell_box")
+def cornell_box(device="cpu", **cam_overrides):
+    """Cornell box with two unrotated blocks."""
+    b = SceneBuilder()
+    red = b.lambertian((0.65, 0.05, 0.05))
+    white = b.lambertian((0.73, 0.73, 0.73))
+    green = b.lambertian((0.12, 0.45, 0.15))
+    light = b.diffuse_light((15.0, 15.0, 15.0))
+    b.quad((555, 0, 0), (0, 555, 0), (0, 0, 555), green)
+    b.quad((0, 0, 0), (0, 555, 0), (0, 0, 555), red)
+    b.quad((343, 554, 332), (-130, 0, 0), (0, 0, -105), light)
+    b.quad((0, 0, 0), (555, 0, 0), (0, 0, 555), white)
+    b.quad((555, 555, 555), (-555, 0, 0), (0, 0, -555), white)
+    b.quad((0, 0, 555), (555, 0, 0), (0, 555, 0), white)
+    b.box((130, 0, 65), (295, 165, 230), white)
+    b.box((265, 0, 295), (430, 330, 460), white)
+    cfg = CameraConfig(
+        aspect_ratio=1.0, image_width=600, samples_per_pixel=100,
+        max_depth=50, background=(0.0, 0.0, 0.0), vfov=40.0,
+        lookfrom=(278.0, 278.0, -800.0), lookat=(278.0, 278.0, 0.0),
+        defocus_angle=0.0,
+    )
+    return b.compile(device), _cfg(cfg, cam_overrides)
+
+
+@register("single_sphere")
+def single_sphere(device="cpu", **cam_overrides):
+    """Single lambertian sphere on a ground sphere, 200×100 @ 16 spp,
+    depth 8."""
+    b = SceneBuilder()
+    b.sphere((0.0, 0.0, -1.0), 0.5, b.lambertian((0.5, 0.5, 0.5)))
+    b.sphere((0.0, -100.5, -1.0), 100.0, b.lambertian((0.5, 0.5, 0.5)))
+    cfg = CameraConfig(
+        aspect_ratio=2.0, image_width=200, samples_per_pixel=16, max_depth=8,
+        background=SKY, vfov=90.0, lookfrom=(0.0, 0.0, 0.0),
+        lookat=(0.0, 0.0, -1.0), defocus_angle=0.0, focus_dist=1.0,
+    )
+    return b.compile(device), _cfg(cfg, cam_overrides)
+
+
+@register("three_spheres")
+def three_spheres(device="cpu", **cam_overrides):
+    """Lambertian / metal / dielectric trio, 400×225 @ 64 spp, depth 16."""
+    b = SceneBuilder()
+    b.sphere((0.0, -100.5, -1.0), 100.0, b.lambertian((0.8, 0.8, 0.0)))
+    b.sphere((0.0, 0.0, -1.2), 0.5, b.lambertian((0.1, 0.2, 0.5)))
+    b.sphere((-1.0, 0.0, -1.0), 0.5, b.dielectric(1.5))
+    b.sphere((1.0, 0.0, -1.0), 0.5, b.metal((0.8, 0.6, 0.2), 0.3))
+    cfg = CameraConfig(
+        aspect_ratio=16.0 / 9.0, image_width=400, samples_per_pixel=64,
+        max_depth=16, background=SKY, vfov=90.0, lookfrom=(0.0, 0.0, 0.0),
+        lookat=(0.0, 0.0, -1.0), defocus_angle=0.0, focus_dist=1.0,
+    )
+    return b.compile(device), _cfg(cfg, cam_overrides)

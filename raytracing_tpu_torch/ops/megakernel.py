@@ -1,0 +1,147 @@
+"""The megakernel forward trace: scene tables for K1 and the phased trace
+that drives it, the counterpart of ``raytracing_tpu.ops.megakernel``
+(``MegaScene``, ``build_mega_scene``, ``trace_megakernel`` with the block
+layout).
+
+A trace runs its phases in turn, each one K1 launch of ``phase_depths[k]``
+bounces. Between phases the rays are compacted alive-first with a stable
+sort, so later phases trace the survivors at full occupancy; the phase
+offset feeds the RNG bounce counter, so every phase schedule traces the
+same paths and counts the same segments. Static ``phase_prefixes`` limit
+a later phase to its first P rays; the trailing ``ok`` flag says whether
+every live ray was inside its prefix.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..scene import flatten as fl
+from ..scene.types import Scene
+from . import megakernel_block as mb
+
+BLOCK = 1024  # launches are multiples of this many rays
+
+
+@dataclass
+class MegaScene:
+    """The tables K1 reads, on one device."""
+    sph_sweep: torch.Tensor   # (ns_it, 8) f32: cx cy cz vx vy vz r² 0
+    quad_sweep: torch.Tensor  # (nq_it, 16) f32
+    resolve: torch.Tensor     # (RESOLVE_FIELDS, P) f32: unified-table rows
+    n_sph: int                # real spheres
+    n_quad: int               # real quads
+    n_sph_pad: int            # first quad column of ``resolve``
+    moving: bool              # any sphere with nonzero velocity
+    has_noise: bool           # any primitive with a noise texture
+    has_image: bool           # any primitive with an image texture
+
+
+def build_mega_scene(scene: Scene, device=None) -> MegaScene:
+    """Flatten ``scene`` into K1's tables on ``device`` (default: the
+    scene's own device)."""
+    if device is None:
+        device = scene.spheres.radius.device
+    table, ns_pad, _, supported = fl.unified_table(scene)
+    if not supported:
+        raise ValueError("scene is not expressible in the megakernel's tables "
+                         "(checker of non-solid textures, or bilinear image filtering)")
+    sph, quad, n_sph, n_quad, _ = fl.sweep_tables(scene)
+    tkind = table[fl.U_TKIND]
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return MegaScene(
+        sph_sweep=t(sph), quad_sweep=t(quad), resolve=t(table[:fl.RESOLVE_FIELDS]),
+        n_sph=n_sph, n_quad=n_quad, n_sph_pad=ns_pad,
+        moving=bool(np.any(sph[:, 3:6] != 0.0)),
+        has_noise=bool(np.any(tkind == fl.TK_NOISE)),
+        has_image=bool(np.any(tkind == fl.TK_IMAGE)),
+    )
+
+
+def pack_rays(o, d, time, pixel_ids, sample_ids, active0=None):
+    """Camera rays → K1's ray state: ``ray_f (N_F, B)`` with unit
+    throughput, zero radiance and the alive flag, and ``ray_i (2, B)``."""
+    ray_f = torch.empty((mb.N_F, o.shape[0]), dtype=torch.float32, device=o.device)
+    ray_f[mb.OX:mb.OZ + 1] = o.T
+    ray_f[mb.DX:mb.DZ + 1] = d.T
+    ray_f[mb.TM] = time
+    ray_f[mb.TR:mb.TB + 1] = 1.0
+    ray_f[mb.RR:mb.RB + 1] = 0.0
+    ray_f[mb.ACT] = 1.0 if active0 is None else active0.to(torch.float32)
+    return ray_f, torch.stack([pixel_ids, sample_ids]).to(torch.int32)
+
+
+def trace_megakernel(mega: MegaScene, o: torch.Tensor, d: torch.Tensor,
+                     time: torch.Tensor, pixel_ids: torch.Tensor,
+                     sample_ids: torch.Tensor, background, max_depth: int, seed: int,
+                     phase_depths=None, active0=None, want_counts: bool = False,
+                     phase_prefixes=None, block_fn=mb.trace_block):
+    """Trace B rays (a multiple of BLOCK) through K1.
+
+    Returns ``(radiance (B, 3), segments)`` in camera order, ``segments``
+    an int64 0-d tensor on the rays' device; then ``counts (B,) i32`` (per
+    ray bounces) with ``want_counts``, and the ``ok`` flag (0-d bool
+    tensor) with ``phase_prefixes``. ``phase_prefixes`` holds one entry
+    per phase: None, or a BLOCK multiple up to B; the first must be None.
+    ``block_fn`` is the K1 implementation (``trace_block``; pass
+    ``trace_block_torch`` to run the plain version on any device)."""
+    B = o.shape[0]
+    if B % BLOCK:
+        raise ValueError(f"megakernel batch must be a multiple of {BLOCK}, got {B}")
+    dev = o.device
+    phases = list(phase_depths) if phase_depths is not None else [max_depth]
+    if phase_prefixes is not None:
+        if len(phase_prefixes) != len(phases) or phase_prefixes[0] is not None:
+            raise ValueError("phase_prefixes: one entry per phase, the first None")
+        for p in phase_prefixes[1:]:
+            if p is not None and not (0 < p <= B and p % BLOCK == 0):
+                raise ValueError(f"prefix must be a {BLOCK}-multiple in (0, {B}], got {p}")
+
+    ray_f, ray_i = pack_rays(o, d, time, pixel_ids, sample_ids, active0)
+    perm = torch.arange(B, device=dev)  # camera index of each current lane
+    counts = torch.zeros(B, dtype=torch.int32, device=dev) if want_counts else None
+    segments = torch.zeros((), dtype=torch.int64, device=dev)
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+
+    offset = 0
+    for pi, pd in enumerate(phases):
+        last = pi == len(phases) - 1
+        n = B
+        if phase_prefixes is not None and phase_prefixes[pi] is not None:
+            n = phase_prefixes[pi]
+            # exact iff every ray past the prefix is already dead
+            ok = ok & ~torch.any(ray_f[mb.ACT, n:] > 0.0)
+        rad, bc, state = block_fn(
+            mega, ray_f[:, :n].contiguous(), ray_i[:, :n].contiguous(), seed, offset,
+            max_depth=pd, background=background, want_state=not last)
+        segments = segments + bc.sum()
+        if counts is not None:
+            counts[:n] += bc
+        if last:
+            ray_f[mb.RR:mb.RB + 1, :n] = rad
+            break
+        ray_f[:, :n] = state
+        offset += pd
+        # alive-first stable compaction
+        order = torch.argsort((ray_f[mb.ACT] <= 0.0).to(torch.uint8), stable=True)
+        ray_f = ray_f[:, order]
+        ray_i = ray_i[:, order]
+        perm = perm[order]
+        if counts is not None:
+            counts = counts[order]
+
+    radiance = torch.empty((B, 3), dtype=torch.float32, device=dev)
+    radiance[perm] = ray_f[mb.RR:mb.RB + 1].T
+    out = [radiance, segments]
+    if counts is not None:
+        cam_counts = torch.empty_like(counts)
+        cam_counts[perm] = counts
+        out.append(cam_counts)
+    if phase_prefixes is not None:
+        out.append(ok)
+    return tuple(out)

@@ -1,0 +1,334 @@
+"""K1, the block megakernel: one phase of up to ``max_depth`` bounces for
+every ray of a launch. It replaces the Pallas kernel
+``raytracing_tpu/ops/megakernel_block.py`` ``make_megakernel_block``.
+
+Per bounce and ray: the closest hit over every sphere row (moving center
+at ray time, roots searched in a·t space, strict < so the lowest index
+wins ties) and then every quad row; the winner's attributes from the
+resolve table; solid or checker albedo; lambertian, metal, dielectric or
+light; the next direction from PCG4D keyed on (pix, smp, (b + b_off)·4 + 2,
+seed).
+
+Two implementations compute it:
+
+* ``csrc/megakernel_block.cu``, a CUDA C++ kernel for sm_90a, one thread
+  per ray (see the note at the top of that file);
+* :func:`trace_block_torch`, the plain PyTorch version, vectorized over
+  rays and over primitives in chunks.
+
+:func:`trace_block` is the wrapper: tensors on the CPU go to the plain
+version, tensors on a CUDA device launch the kernel, anything else
+raises. Each kernel launch adds one to :data:`launches`.
+
+Ray state is two tensors: ``ray_f (N_F, n) f32`` with rows
+``OX OY OZ DX DY DZ TM TR TG TB RR RG RB ACT`` (origin, direction, time,
+throughput, radiance, alive flag) and ``ray_i (2, n) i32`` with rows
+``PIX SMP`` (the RNG identity). Outputs are ``rad (3, n) f32``,
+``bounces (n,) i32`` and, with ``want_state``, the new ``ray_f``.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from ..core import rng as rng_mod
+from ..scene import flatten as fl
+
+OX, OY, OZ, DX, DY, DZ, TM, TR, TG, TB, RR, RG, RB, ACT = range(14)
+N_F = 14
+PIX, SMP = 0, 1
+
+BIG = 3.0e38
+T_MIN = 1e-3
+MT_METAL = 1.0
+MT_DIELECTRIC = 2.0
+MT_LIGHT = 3.0
+
+# the kernel stages both sweep tables in one block's shared memory
+MAX_SHARED_BYTES = 232448
+# primitives per vectorized step of the plain version's sweep
+PLAIN_CHUNK = 128
+
+launches = 0  # K1 kernel launches in this process (plain-version calls excluded)
+
+
+def _sweep_rows(mega):
+    """Rows the sweeps visit: none for a kind the scene does not have."""
+    n_sph_rows = mega.sph_sweep.shape[0] if mega.n_sph > 0 else 0
+    n_quad_rows = mega.quad_sweep.shape[0] if mega.n_quad > 0 else 0
+    return n_sph_rows, n_quad_rows
+
+
+def trace_block(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
+                b_off: int, *, max_depth: int, background,
+                want_state: bool = True, want_ids: bool = False,
+                depth_cap=None):
+    """Trace one phase of ``max_depth`` bounces. Returns
+    ``(rad (3, n), bounces (n,) i32, state (N_F, n) or None)``."""
+    if want_ids or depth_cap is not None:
+        raise NotImplementedError("K1 port: want_ids and depth_cap are not ported yet")
+    if mega.has_noise or mega.has_image:
+        raise NotImplementedError("K1 port: noise and image textures are not ported yet")
+    n = ray_f.shape[1]
+    if ray_f.shape != (N_F, n) or ray_f.dtype != torch.float32:
+        raise ValueError(f"ray_f must be ({N_F}, n) float32, got {tuple(ray_f.shape)} {ray_f.dtype}")
+    if ray_i.shape != (2, n) or ray_i.dtype != torch.int32:
+        raise ValueError(f"ray_i must be (2, n) int32, got {tuple(ray_i.shape)} {ray_i.dtype}")
+    dev = ray_f.device
+    tables = (mega.sph_sweep, mega.quad_sweep, mega.resolve)
+    if any(t.device != dev for t in (ray_i, *tables)):
+        raise ValueError("scene tables and ray state must be on one device")
+    if dev.type == "cpu":
+        return trace_block_torch(mega, ray_f, ray_i, seed, b_off,
+                                 max_depth=max_depth, background=background,
+                                 want_state=want_state)
+    if dev.type != "cuda":
+        raise ValueError(f"K1 runs on CUDA tensors (kernel) or CPU tensors (plain version), not {dev}")
+    if not all(t.is_contiguous() for t in (ray_f, ray_i, *tables)):
+        raise ValueError("K1 needs contiguous tensors")
+    n_sph_rows, n_quad_rows = _sweep_rows(mega)
+    smem = (n_sph_rows * 8 + n_quad_rows * 16) * 4
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(f"sweep tables need {smem} B of shared memory; K1 stages at most "
+                         f"{MAX_SHARED_BYTES} B (tiling larger scenes is not ported yet)")
+    if n >= 2 ** 31 // N_F:
+        raise ValueError(f"K1 launch of {n} rays exceeds its 32-bit indexing")
+
+    from .. import _kernels
+
+    lib = _kernels.library().lib
+    rad = torch.empty((3, n), dtype=torch.float32, device=dev)
+    bounces = torch.empty((n,), dtype=torch.int32, device=dev)
+    state = torch.empty((N_F, n), dtype=torch.float32, device=dev) if want_state else None
+    if n == 0:
+        return rad, bounces, state
+    global launches
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rt_trace_block(
+            mega.sph_sweep.data_ptr(), n_sph_rows,
+            mega.quad_sweep.data_ptr(), n_quad_rows,
+            mega.resolve.data_ptr(), mega.resolve.shape[1],
+            ray_f.data_ptr(), ray_i.data_ptr(), n,
+            rad.data_ptr(), bounces.data_ptr(),
+            state.data_ptr() if want_state else None,
+            ctypes.c_uint32(seed), ctypes.c_uint32(b_off), max_depth,
+            mega.n_sph_pad, float(background[0]), float(background[1]),
+            float(background[2]), int(mega.moving), stream)
+    launches += 1
+    if err != 0:
+        raise RuntimeError(f"K1 launch failed: {lib.rt_error_string(err).decode()}")
+    return rad, bounces, state
+
+
+# --------------------------------------------------------------------------
+# plain PyTorch version
+# --------------------------------------------------------------------------
+
+def _closest_hit(mega, ox, oy, oz, dx, dy, dz, tm):
+    """(t, ib): nearest hit distance (BIG on a miss) and winner column
+    (-1 on a miss), with the kernel's arithmetic and tie order."""
+    a = dx * dx + dy * dy + dz * dz
+    inv_a = 1.0 / a
+    ta = (T_MIN * a)[:, None]
+    n = ox.shape[0]
+    ib = torch.full((n,), -1, dtype=torch.int64, device=ox.device)
+    n_sph_rows, n_quad_rows = _sweep_rows(mega)
+    inf = math.inf
+    c = [x[:, None] for x in (ox, oy, oz, dx, dy, dz, tm)]
+    rox, roy, roz, rdx, rdy, rdz, rtm = c
+    sb = torch.full((n,), BIG, dtype=torch.float32, device=ox.device)
+    for j0 in range(0, n_sph_rows, PLAIN_CHUNK):
+        s_tab = mega.sph_sweep[j0:j0 + PLAIN_CHUNK].T
+        if mega.moving:
+            ocx = (rox - s_tab[0]) - rtm * s_tab[3]
+            ocy = (roy - s_tab[1]) - rtm * s_tab[4]
+            ocz = (roz - s_tab[2]) - rtm * s_tab[5]
+        else:
+            ocx, ocy, ocz = rox - s_tab[0], roy - s_tab[1], roz - s_tab[2]
+        half_b = ocx * rdx + ocy * rdy + ocz * rdz
+        cq = ocx * ocx + ocy * ocy + (ocz * ocz - s_tab[6])
+        disc = half_b * half_b - a[:, None] * cq
+        sq = torch.sqrt(disc)  # NaN on a miss: every comparison below fails
+        nhb = -half_b
+        s0 = nhb - sq
+        s1 = nhb + sq
+        s = torch.where(s0 > ta, s0, s1)
+        s = torch.where(s > ta, s, inf)
+        smin, arg = torch.min(s, dim=1)  # first index among equal minima
+        imp = smin < sb
+        sb = torch.where(imp, smin, sb)
+        ib = torch.where(imp, arg + j0, ib)
+    t = torch.where(ib >= 0, sb * inv_a, BIG)
+    for j0 in range(0, n_quad_rows, PLAIN_CHUNK):
+        q = mega.quad_sweep[j0:j0 + PLAIN_CHUNK].T
+        nx, ny, nz = q[0], q[1], q[2]
+        denom = nx * rdx + ny * rdy + nz * rdz
+        safe = torch.where(torch.abs(denom) < 1e-8, 1.0, denom)
+        tq = (q[3] - (nx * rox + ny * roy + nz * roz)) / safe
+        px = rox + tq * rdx - q[4]
+        py = roy + tq * rdy - q[5]
+        pz = roz + tq * rdz - q[6]
+        wx, wy, wz, ux, uy, uz, vx, vy, vz = q[7:16]
+        alpha = (wx * (py * vz - pz * vy) + wy * (pz * vx - px * vz)
+                 + wz * (px * vy - py * vx))
+        beta = (wx * (uy * pz - uz * py) + wy * (uz * px - ux * pz)
+                + wz * (ux * py - uy * px))
+        imp = ((torch.abs(denom) >= 1e-8) & (tq > T_MIN)
+               & (alpha >= 0.0) & (alpha <= 1.0) & (beta >= 0.0) & (beta <= 1.0))
+        tmin_q, arg = torch.min(torch.where(imp, tq, inf), dim=1)
+        better = tmin_q < t
+        t = torch.where(better, tmin_q, t)
+        ib = torch.where(better, arg + j0 + mega.n_sph_pad, ib)
+    return t, ib
+
+
+def trace_block_torch(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
+                      b_off: int, *, max_depth: int, background,
+                      want_state: bool = True):
+    """Plain PyTorch K1 with the kernel's inputs, outputs and arithmetic
+    (each multiply and add rounded on its own, as the kernel is built with
+    ``-fmad=false``). Runs on any device."""
+    ox, oy, oz, dx, dy, dz, tm, thr_r, thr_g, thr_b, rad_r, rad_g, rad_b, act = ray_f.unbind(0)
+    pix, smp = ray_i[PIX], ray_i[SMP]
+    bg_r, bg_g, bg_b = (float(x) for x in background)
+    active = act > 0.5
+    bounces = torch.zeros(ray_f.shape[1], dtype=torch.int32, device=ray_f.device)
+    res = mega.resolve
+    ns_pad = mega.n_sph_pad
+    for b in range(max_depth):
+        if not bool(active.any()):
+            break
+        t, ib = _closest_hit(mega, ox, oy, oz, dx, dy, dz, tm)
+        hit = t < BIG
+        miss = active & ~hit
+        rad_r = rad_r + torch.where(miss, thr_r * bg_r, 0.0)
+        rad_g = rad_g + torch.where(miss, thr_g * bg_g, 0.0)
+        rad_b = rad_b + torch.where(miss, thr_b * bg_b, 0.0)
+
+        px = ox + t * dx
+        py = oy + t * dy
+        pz = oz + t * dz
+
+        at = res[:, ib.clamp(min=0)]  # misses read column 0, masked below
+        is_quad = ib >= ns_pad
+        cxt = at[fl.U_G0] + tm * at[fl.U_G3]
+        cyt = at[fl.U_G1] + tm * at[fl.U_G4]
+        czt = at[fl.U_G2] + tm * at[fl.U_G5]
+        r_att = at[fl.U_G6]
+        inv_r = 1.0 / torch.where(r_att != 0.0, r_att, 1.0)
+        own_x = torch.where(is_quad, at[fl.U_G0], (px - cxt) * inv_r)
+        own_y = torch.where(is_quad, at[fl.U_G1], (py - cyt) * inv_r)
+        own_z = torch.where(is_quad, at[fl.U_G2], (pz - czt) * inv_r)
+        front = (dx * own_x + dy * own_y + dz * own_z) < 0.0
+        sgn = torch.where(front, 1.0, -1.0)
+        nx = own_x * sgn
+        ny = own_y * sgn
+        nz = own_z * sgn
+
+        mt = at[fl.U_MTYPE]
+        prm = at[fl.U_PARAM]
+        ts = at[fl.U_TSCALE]
+        cells = (torch.floor(ts * px).to(torch.int32)
+                 + torch.floor(ts * py).to(torch.int32)
+                 + torch.floor(ts * pz).to(torch.int32))
+        use2 = (at[fl.U_TKIND] == fl.TK_CHECKER) & ((cells & 1) != 0)
+        ar = torch.where(use2, at[fl.U_A2R], at[fl.U_AR])
+        ag = torch.where(use2, at[fl.U_A2G], at[fl.U_AG])
+        ab = torch.where(use2, at[fl.U_A2B], at[fl.U_AB])
+
+        ctr = (b + b_off) * rng_mod.N_STREAMS + rng_mod.STREAM_SCATTER
+        v0, v1, v2, _ = rng_mod.pcg4d(pix, smp, torch.full_like(pix, ctr, dtype=torch.int64),
+                                      torch.full_like(pix, seed, dtype=torch.int64))
+        u0 = rng_mod.to_unit_float(v0)
+        u1 = rng_mod.to_unit_float(v1)
+        u2 = rng_mod.to_unit_float(v2)
+
+        zdir = 1.0 - 2.0 * u0
+        rho = torch.sqrt(torch.clamp(1.0 - zdir * zdir, min=0.0))
+        phi_s = (2.0 * math.pi) * u1
+        rux = rho * torch.cos(phi_s)
+        ruy = rho * torch.sin(phi_s)
+        ruz = zdir
+
+        # lambertian
+        ldx = nx + rux
+        ldy = ny + ruy
+        ldz = nz + ruz
+        degen = (torch.abs(ldx) < 1e-8) & (torch.abs(ldy) < 1e-8) & (torch.abs(ldz) < 1e-8)
+        ldx = torch.where(degen, nx, ldx)
+        ldy = torch.where(degen, ny, ldy)
+        ldz = torch.where(degen, nz, ldz)
+
+        # metal
+        d_dot_on = dx * nx + dy * ny + dz * nz
+        rdx = dx - 2.0 * d_dot_on * nx
+        rdy = dy - 2.0 * d_dot_on * ny
+        rdz = dz - 2.0 * d_dot_on * nz
+        rlen = 1.0 / torch.sqrt(rdx * rdx + rdy * rdy + rdz * rdz + 1e-30)
+        mdx = rdx * rlen + prm * rux
+        mdy = rdy * rlen + prm * ruy
+        mdz = rdz * rlen + prm * ruz
+        metal_ok = (mdx * nx + mdy * ny + mdz * nz) > 0.0
+
+        # dielectric
+        dinv = 1.0 / torch.sqrt(dx * dx + dy * dy + dz * dz + 1e-30)
+        udx = dx * dinv
+        udy = dy * dinv
+        udz = dz * dinv
+        ri = torch.where(front, 1.0 / prm, prm)
+        cos_t = torch.clamp(-(udx * nx + udy * ny + udz * nz), max=1.0)
+        sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+        cannot = ri * sin_t > 1.0
+        r0 = (1.0 - ri) / (1.0 + ri)
+        r0 = r0 * r0
+        x1 = 1.0 - cos_t
+        x2 = x1 * x1
+        reflectance = r0 + (1.0 - r0) * (x1 * (x2 * x2))
+        use_reflect = cannot | (reflectance > u2)
+        rpx = ri * (udx + cos_t * nx)
+        rpy = ri * (udy + cos_t * ny)
+        rpz = ri * (udz + cos_t * nz)
+        par = -torch.sqrt(torch.abs(1.0 - (rpx * rpx + rpy * rpy + rpz * rpz)))
+        u_dot_n = udx * nx + udy * ny + udz * nz
+        gdx = torch.where(use_reflect, udx - 2.0 * u_dot_n * nx, rpx + par * nx)
+        gdy = torch.where(use_reflect, udy - 2.0 * u_dot_n * ny, rpy + par * ny)
+        gdz = torch.where(use_reflect, udz - 2.0 * u_dot_n * nz, rpz + par * nz)
+
+        is_metal = mt == MT_METAL
+        is_diel = mt == MT_DIELECTRIC
+        is_light = mt == MT_LIGHT
+        ndx = torch.where(is_diel, gdx, torch.where(is_metal, mdx, ldx))
+        ndy = torch.where(is_diel, gdy, torch.where(is_metal, mdy, ldy))
+        ndz = torch.where(is_diel, gdz, torch.where(is_metal, mdz, ldz))
+        att_r = torch.where(is_diel, 1.0, ar)
+        att_g = torch.where(is_diel, 1.0, ag)
+        att_b = torch.where(is_diel, 1.0, ab)
+
+        hit_mask = active & hit
+        emit = hit_mask & is_light
+        rad_r = rad_r + torch.where(emit, thr_r * ar, 0.0)
+        rad_g = rad_g + torch.where(emit, thr_g * ag, 0.0)
+        rad_b = rad_b + torch.where(emit, thr_b * ab, 0.0)
+
+        live = hit_mask & ((is_metal & metal_ok) | (~is_metal & ~is_light))
+        thr_r = torch.where(live, thr_r * att_r, thr_r)
+        thr_g = torch.where(live, thr_g * att_g, thr_g)
+        thr_b = torch.where(live, thr_b * att_b, thr_b)
+        ox = torch.where(live, px, ox)
+        oy = torch.where(live, py, oy)
+        oz = torch.where(live, pz, oz)
+        dx = torch.where(live, ndx, dx)
+        dy = torch.where(live, ndy, dy)
+        dz = torch.where(live, ndz, dz)
+        bounces = bounces + active.to(torch.int32)
+        active = live
+
+    rad = torch.stack([rad_r, rad_g, rad_b])
+    state = None
+    if want_state:
+        state = torch.stack([ox, oy, oz, dx, dy, dz, tm, thr_r, thr_g, thr_b,
+                             rad_r, rad_g, rad_b, active.to(torch.float32)])
+    return rad, bounces, state

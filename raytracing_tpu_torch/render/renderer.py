@@ -1,0 +1,216 @@
+"""Top-level renderer: launches of (pixel block × sample chunk) rays
+through the megakernel trace, accumulated into the image. The counterpart
+of ``raytracing_tpu.render.renderer`` for the phased megakernel schedule.
+
+The JAX package fuses every launch into one jitted loop; here the launches
+are a Python loop that never waits on the device until the image is
+copied to the host at the end.
+"""
+from __future__ import annotations
+
+import time as _time
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core.color import to_u8_image
+from ..ops.megakernel import build_mega_scene, trace_megakernel
+from ..scene.types import Scene
+from . import camera as cam_mod
+from .camera import CameraConfig, CameraParams
+
+
+@dataclass
+class RenderResult:
+    radiance: Optional[np.ndarray]  # (H, W, 3) f32 mean radiance (None with transfer="u8")
+    segments: int                   # ray-scene queries traced
+    seconds: float                  # wall time of the launches and the copy to the host
+    launches: int
+    u8: Optional[np.ndarray] = None  # (H, W, 3) u8, quantized on the device
+    ok: Optional[bool] = None        # phase-prefix validity (None: no prefixes)
+
+    @property
+    def image_u8(self) -> np.ndarray:
+        if self.u8 is not None:
+            return self.u8
+        return to_u8_image(torch.from_numpy(self.radiance)).numpy()
+
+
+def _default_phases(cfg: CameraConfig, phase_depths):
+    if phase_depths is None and cfg.max_depth > 6:
+        return [2, 3, cfg.max_depth - 5]
+    return phase_depths
+
+
+def chunk_rays(cfg: CameraConfig, derived, pixel_start: int, sample_start: int,
+               seed: int, *, n_block: int, spp_chunk: int, has_moving: bool, device):
+    """Camera rays of one launch: n_block contiguous pixels × spp_chunk
+    samples, laid out sample-major. Returns (o, d, time, pixel_ids,
+    sample_ids, valid, alive): ``valid`` marks samples below spp,
+    ``alive`` the rays that start alive (padded samples and the clamped
+    duplicates of the last pixel start dead)."""
+    pix_raw = pixel_start + torch.arange(n_block, device=device)
+    pix = torch.clamp(pix_raw, max=cfg.n_pixels - 1)
+    pixel_ids = pix.repeat(spp_chunk)
+    sample_ids = sample_start + torch.arange(spp_chunk, device=device).repeat_interleave(n_block)
+    valid = sample_ids < cfg.samples_per_pixel
+    alive = valid & (pix_raw < cfg.n_pixels).repeat(spp_chunk)
+    o, d, t = cam_mod.generate_rays(cfg, derived, pixel_ids, sample_ids, seed,
+                                    motion_blur=has_moving)
+    return o, d, t, pixel_ids, sample_ids, valid, alive
+
+
+def _render_chunk(mega, cfg: CameraConfig, derived, pixel_start: int,
+                  sample_start: int, seed: int, *, n_block: int, spp_chunk: int,
+                  has_moving: bool, phases, phase_prefixes=None,
+                  want_counts: bool = False):
+    """One launch. Returns (radiance summed over the chunk's samples
+    (n_block, 3), segments, ok or None); with ``want_counts`` only the
+    per-ray bounce counts."""
+    o, d, t, pixel_ids, sample_ids, valid, alive = chunk_rays(
+        cfg, derived, pixel_start, sample_start, seed, n_block=n_block,
+        spp_chunk=spp_chunk, has_moving=has_moving, device=mega.sph_sweep.device)
+    out = trace_megakernel(mega, o, d, t, pixel_ids, sample_ids, cfg.background,
+                           cfg.max_depth, seed, phase_depths=phases, active0=alive,
+                           want_counts=want_counts, phase_prefixes=phase_prefixes)
+    if want_counts:
+        return out[2]
+    radiance = torch.where(valid[:, None], out[0], 0.0)
+    rad = radiance.reshape(spp_chunk, n_block, 3).sum(dim=0)
+    return rad, out[1], (out[2] if phase_prefixes is not None else None)
+
+
+class Renderer:
+    """Renders a scene on the device its tensors live on, through the
+    phased megakernel schedule."""
+
+    def __init__(self, cfg: CameraConfig, *, hit_method: str = "mega",
+                 max_rays_per_launch: int = 1 << 18, phase_depths=None,
+                 transfer: str = "f32", phase_prefixes=None,
+                 strict_prefixes: bool = True):
+        if hit_method != "mega":
+            raise ValueError(f"the port renders through the megakernel only, got hit_method={hit_method!r}")
+        if transfer not in ("f32", "u8"):
+            raise ValueError(f"transfer must be 'f32' or 'u8', got {transfer!r}")
+        self.cfg = cfg
+        self.transfer = transfer
+        self.phase_depths = _default_phases(cfg, phase_depths)
+        self.phase_prefixes = tuple(phase_prefixes) if phase_prefixes is not None else None
+        self.strict_prefixes = strict_prefixes
+        # a launch is n_block pixels (a 1024-multiple, padding rays start
+        # dead) × spp_chunk samples, at most max_rays_per_launch rays
+        # unless one 1024-padded block of pixels alone exceeds it
+        self.n_block = -(-min(cfg.n_pixels, max_rays_per_launch) // 1024) * 1024
+        self.spp_chunk = max(1, min(cfg.samples_per_pixel,
+                                    max_rays_per_launch // self.n_block))
+        self._mega = None
+        self._mega_scene = None
+
+    def _get_mega(self, scene: Scene):
+        if self._mega is None or scene is not self._mega_scene:
+            self._mega = build_mega_scene(scene)
+            self._mega_scene = scene
+        return self._mega
+
+    def _launches(self):
+        """(pixel_start, sample_start) of every launch, in render order."""
+        n_blocks = -(-self.cfg.n_pixels // self.n_block)
+        n_schunks = -(-self.cfg.samples_per_pixel // self.spp_chunk)
+        return [(b * self.n_block, s * self.spp_chunk)
+                for s in range(n_schunks) for b in range(n_blocks)]
+
+    def _chunk_kwargs(self, scene: Scene):
+        return dict(n_block=self.n_block, spp_chunk=self.spp_chunk,
+                    has_moving=scene.flags.has_moving, phases=self.phase_depths)
+
+    def plan_phase_prefixes(self, scene: Scene, seed: int = 0, margin_blocks: int = 1):
+        """Untimed planning pass: trace every launch's ray stream for its
+        per-ray bounce counts and return the per-phase live-ray prefixes
+        for ``Renderer(..., phase_prefixes=...)`` on the same scene, config,
+        batching and seed, with ``margin_blocks`` blocks of slack. None for
+        a single-phase schedule."""
+        mega = self._get_mega(scene)
+        cfg = self.cfg
+        phases = self.phase_depths
+        if phases is None or len(phases) < 2:
+            return None
+        dev = mega.sph_sweep.device
+        derived = cam_mod.derive(cfg, CameraParams.from_config(cfg, dev))
+        d = cfg.max_depth
+        nb_max = torch.zeros(d + 1, dtype=torch.int64, device=dev)
+        for pixel_start, sample_start in self._launches():
+            cnt = _render_chunk(mega, cfg, derived, pixel_start, sample_start, seed,
+                                **self._chunk_kwargs(scene), want_counts=True)
+            hist = torch.bincount(torch.clamp(cnt, 0, d).to(torch.int64), minlength=d + 1)
+            # rays with at least k bounces, for every k
+            nb_max = torch.maximum(nb_max, torch.flip(torch.cumsum(torch.flip(hist, [0]), 0), [0]))
+        nb_max = nb_max.cpu().numpy()
+        B = self.n_block * self.spp_chunk
+        out = [None]
+        start = 0
+        for pdep in phases[:-1]:
+            start += pdep
+            live = int(nb_max[min(start + 1, d)])
+            out.append(max(1024, min(B, (-(-live // 1024) + margin_blocks) * 1024)))
+        return tuple(out)
+
+    def _checked(self, result: RenderResult) -> RenderResult:
+        """An undersized prefix (ok=False) dropped live paths: raise unless
+        the caller opted into inspecting it with ``strict_prefixes=False``."""
+        if self.strict_prefixes and result.ok is False:
+            raise RuntimeError(
+                "phase_prefixes exceeded: a phase's static live prefix was smaller "
+                "than its live ray set, so the render dropped paths "
+                "(RenderResult.ok=False). Re-plan with larger prefixes, or pass "
+                "strict_prefixes=False to inspect the flagged result.")
+        return result
+
+    def render(self, scene: Scene, params: Optional[CameraParams] = None,
+               seed: int = 0) -> RenderResult:
+        cfg = self.cfg
+        mega = self._get_mega(scene)
+        dev = mega.sph_sweep.device
+        if params is None:
+            params = CameraParams.from_config(cfg, dev)
+        if dev.type == "cuda":
+            from .. import _kernels
+
+            _kernels.library()  # build outside the timed region
+        launches = self._launches()
+        n_blocks = -(-cfg.n_pixels // self.n_block)
+        kw = self._chunk_kwargs(scene)
+
+        t0 = _time.perf_counter()
+        derived = cam_mod.derive(cfg, params)
+        accum = torch.zeros((n_blocks * self.n_block, 3), dtype=torch.float32, device=dev)
+        seg_parts = []
+        ok = torch.ones((), dtype=torch.bool, device=dev)
+        for pixel_start, sample_start in launches:
+            rad, seg, ok_c = _render_chunk(mega, cfg, derived, pixel_start, sample_start,
+                                           seed, **kw, phase_prefixes=self.phase_prefixes)
+            accum[pixel_start:pixel_start + self.n_block] += rad
+            seg_parts.append(seg)
+            if ok_c is not None:
+                ok = ok & ok_c
+        mean = (accum[:cfg.n_pixels] / cfg.samples_per_pixel).reshape(
+            cfg.image_height, cfg.image_width, 3)
+        img = to_u8_image(mean) if self.transfer == "u8" else mean
+        segs = torch.stack(seg_parts)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        img_h = img.cpu().numpy()
+        seconds = _time.perf_counter() - t0
+        segments = int(segs.cpu().numpy().astype(np.int64).sum())
+        ok_h = bool(ok) if self.phase_prefixes is not None else None
+        if self.transfer == "u8":
+            return self._checked(RenderResult(None, segments, seconds, len(launches),
+                                              u8=img_h, ok=ok_h))
+        return self._checked(RenderResult(img_h, segments, seconds, len(launches), ok=ok_h))
+
+
+def render(scene: Scene, cfg: CameraConfig, params: Optional[CameraParams] = None,
+           seed: int = 0, max_rays_per_launch: int = 1 << 20) -> RenderResult:
+    """One-shot functional API over :class:`Renderer`."""
+    return Renderer(cfg, max_rays_per_launch=max_rays_per_launch).render(scene, params, seed)

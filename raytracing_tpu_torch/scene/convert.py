@@ -1,0 +1,59 @@
+"""Build port objects from plain arrays keyed by field path.
+
+``scene_from_arrays`` takes a dict of numpy arrays keyed by the field
+paths of ``raytracing_tpu``'s ``Scene`` (``"spheres.center"``,
+``"textures.child"``, ``"atlas.sizes"``, ...) and returns a port
+:class:`Scene`; ``camera_params_from_arrays`` does the same for
+``CameraParams``. With them a scene built by either package computes on
+the same parameters in the other. Keys for fields the port has no use for
+(``perlin.*``, ``bvh.*``) are ignored.
+"""
+from __future__ import annotations
+
+from dataclasses import fields
+
+import numpy as np
+import torch
+
+from ..render.camera import CameraParams
+from .types import (
+    TEX_CHECKER,
+    TEX_IMAGE,
+    TEX_NOISE,
+    ImageAtlas,
+    Materials,
+    Quads,
+    Scene,
+    SceneFlags,
+    Spheres,
+    Textures,
+)
+
+_GROUPS = {"spheres": Spheres, "quads": Quads, "materials": Materials,
+           "textures": Textures, "atlas": ImageAtlas}
+
+
+def scene_from_arrays(d: dict, device="cpu", image_bilinear: bool = False) -> Scene:
+    """``{"spheres.center": array, ...}`` → :class:`Scene` on ``device``.
+    The flags are derived from the arrays."""
+    parts = {}
+    for group, cls in _GROUPS.items():
+        parts[group] = cls(**{
+            f.name: torch.from_numpy(np.array(d[f"{group}.{f.name}"])).to(device)
+            for f in fields(cls)})
+    ttype = np.asarray(d["textures.ttype"])
+    flags = SceneFlags(
+        has_checker=bool(np.any(ttype == TEX_CHECKER)),
+        has_image=bool(np.any(ttype == TEX_IMAGE)),
+        has_noise=bool(np.any(ttype == TEX_NOISE)),
+        has_moving=bool(np.any(np.asarray(d["spheres.velocity"]) != 0)),
+        image_bilinear=image_bilinear,
+    )
+    return Scene(**parts, flags=flags)
+
+
+def camera_params_from_arrays(d: dict, device="cpu") -> CameraParams:
+    """``{"lookfrom": (3,), ..., "focus_dist": ()}`` → :class:`CameraParams`."""
+    return CameraParams(**{
+        f.name: torch.tensor(np.asarray(d[f.name], np.float32), device=device)
+        for f in fields(CameraParams)})

@@ -1,0 +1,103 @@
+"""Struct-of-arrays scene schema: dataclasses of tensors, the counterpart
+of ``raytracing_tpu.scene.types`` (which uses ``flax.struct``).
+
+Geometry is flat per-primitive columns (spheres, quads); materials and
+textures are integer-tagged parameter tables. The tags and the field
+layout are the JAX package's, so a scene converts between the two field
+by field (scene/convert.py).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
+
+# Material type tags
+MAT_LAMBERTIAN = 0
+MAT_METAL = 1
+MAT_DIELECTRIC = 2
+MAT_DIFFUSE_LIGHT = 3
+
+# Texture type tags
+TEX_SOLID = 0
+TEX_CHECKER = 1
+TEX_IMAGE = 2
+TEX_NOISE = 3
+
+
+@dataclass
+class Spheres:
+    """Static and moving spheres. ``center`` is the t=0 center and
+    ``velocity`` the offset per unit time. Padded rows have radius 0."""
+    center: torch.Tensor    # (N, 3) f32
+    velocity: torch.Tensor  # (N, 3) f32
+    radius: torch.Tensor    # (N,)  f32
+    mat_id: torch.Tensor    # (N,)  i32
+
+
+@dataclass
+class Quads:
+    """Parallelograms Q + s·u + t·v, s, t ∈ [0, 1]. Padded rows have
+    u = v = 0."""
+    q: torch.Tensor       # (M, 3) f32
+    u: torch.Tensor       # (M, 3) f32
+    v: torch.Tensor       # (M, 3) f32
+    mat_id: torch.Tensor  # (M,)  i32
+
+
+@dataclass
+class Materials:
+    mtype: torch.Tensor   # (K,) i32, MAT_* tag
+    tex_id: torch.Tensor  # (K,) i32, albedo (or emission) texture
+    fuzz: torch.Tensor    # (K,) f32, metal fuzz radius
+    ior: torch.Tensor     # (K,) f32, dielectric refraction index
+
+
+@dataclass
+class Textures:
+    ttype: torch.Tensor     # (T,) i32, TEX_* tag
+    rgb: torch.Tensor       # (T, 3) f32, solid color
+    scale: torch.Tensor     # (T,) f32, checker inv_scale or noise scale
+    child: torch.Tensor     # (T, 2) i32, checker (even, odd) texture ids
+    image_id: torch.Tensor  # (T,) i32, index into the image atlas
+
+
+@dataclass
+class ImageAtlas:
+    """Image texels stacked and padded to the largest (H, W); ``sizes``
+    holds each image's true (height, width)."""
+    texels: torch.Tensor  # (n_img, Hmax, Wmax, 3) f32
+    sizes: torch.Tensor   # (n_img, 2) i32
+
+
+class SceneFlags(NamedTuple):
+    """Facts about a compiled scene that let the renderer skip work."""
+    has_checker: bool = True
+    has_image: bool = True
+    has_noise: bool = True
+    has_moving: bool = True  # any sphere with nonzero velocity
+    image_bilinear: bool = False
+
+
+@dataclass
+class Scene:
+    """A compiled scene: geometry, materials, textures and flags."""
+    spheres: Spheres
+    quads: Quads
+    materials: Materials
+    textures: Textures
+    atlas: ImageAtlas
+    flags: SceneFlags = SceneFlags()
+
+    @property
+    def n_spheres(self) -> int:
+        return self.spheres.radius.shape[0]
+
+    @property
+    def n_quads(self) -> int:
+        return self.quads.mat_id.shape[0]
+
+    @property
+    def n_primitives(self) -> int:
+        return self.n_spheres + self.n_quads

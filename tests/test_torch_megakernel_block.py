@@ -1,0 +1,195 @@
+"""K1's plain PyTorch version against the JAX Pallas kernel
+(``make_megakernel_block(..., interpret=True)``) on two 1024-ray blocks:
+all 14 outputs, at phase offset 0 and at b_off > 0.
+
+Bars (tests/test_megakernel.py): radiance max |Δ| < 1e-5 on three_spheres
+and cornell_box, mean |Δ| < 2e-3 on bouncing_spheres; segments within
+max(4, s/200). The 10 state columns and the bounce counts are held per
+ray: a ray agrees when each of them is within 1e-3·max(1, |ref|). XLA on
+the CPU contracts multiply-adds into FMAs, which the port (like the TPU)
+does not, and a grazing hit amplifies that last-bit difference into a
+different path, so a few rays may disagree: at most max(4, n/200) on the
+exact scenes, and 5% on bouncing_spheres, whose 488 small spheres graze
+often (measured: 0, 3 and ~2.8%).
+"""
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from raytracing_tpu.models.scenes import build as jbuild
+from raytracing_tpu.ops.megakernel import build_mega_scene as jmega
+from raytracing_tpu.ops.megakernel_block import make_megakernel_block
+from raytracing_tpu.render import camera as jcam
+from raytracing_tpu_torch.ops import megakernel_block as mb
+from raytracing_tpu_torch.ops.megakernel import build_mega_scene as pmega
+from torch_parity import port_scene, segments_close
+
+torch.set_num_threads(2)
+B = 2048
+DEPTH = 6
+SEED = 5
+STATE_ROWS = [mb.OX, mb.OY, mb.OZ, mb.DX, mb.DY, mb.DZ, mb.TR, mb.TG, mb.TB, mb.ACT]
+CSRC = Path(mb.__file__).resolve().parents[1] / "csrc"
+
+
+def _inputs(name):
+    """Camera rays mid-path: random throughput, some radiance already
+    gathered and 10% of the rays dead."""
+    scene, cfg = jbuild(name, image_width=32, samples_per_pixel=2, max_depth=DEPTH)
+    r = np.random.default_rng(1)
+    pix = np.minimum(np.arange(B) % 1024, cfg.n_pixels - 1).astype(np.int32)
+    smp = (np.arange(B) // 1024).astype(np.int32)
+    params = jcam.CameraParams.from_config(cfg)
+    o, d, tm = (np.asarray(x) for x in jcam.generate_rays(
+        cfg, jcam.derive(cfg, params), jnp.asarray(pix), jnp.asarray(smp),
+        jnp.uint32(SEED), motion_blur=True))
+    thr = r.uniform(0.2, 1.0, (3, B)).astype(np.float32)
+    rad = np.where(r.random((3, B)) < 0.1, r.random((3, B)), 0.0).astype(np.float32)
+    act = (r.random(B) < 0.9).astype(np.float32)
+    ray_f = np.stack([*o.T, *d.T, tm, *thr, *rad, act]).astype(np.float32)
+    return scene, cfg, ray_f, np.stack([pix, smp])
+
+
+def _jax_k1(scene, cfg, ray_f, ray_i, b_off):
+    mega = jmega(scene)
+    run = make_megakernel_block(mega, max_depth=DEPTH, background=cfg.background,
+                                interpret=True)
+    f = [jnp.asarray(x.reshape(-1, 128)) for x in ray_f]
+    i = [jnp.asarray(x.reshape(-1, 128)) for x in ray_i]
+    out = run(mega.sph_sweep, mega.quad_sweep, mega.tabt_rep, mega.noise_rep,
+              mega.atlas_rep, *f[:mb.TM + 1], *i, *f[mb.TR:], jnp.asarray([SEED, b_off], jnp.uint32))
+    return [np.asarray(x).reshape(-1) for x in out]
+
+
+@pytest.mark.parametrize("name,b_off", [
+    ("three_spheres", 0), ("cornell_box", 0), ("bouncing_spheres", 0),
+    ("three_spheres", 3), ("bouncing_spheres", 3),
+])
+def test_plain_k1_matches_pallas_kernel(name, b_off):
+    scene, cfg, ray_f, ray_i = _inputs(name)
+    ref = _jax_k1(scene, cfg, ray_f, ray_i, b_off)
+    mega = pmega(port_scene(scene))
+    rad, bc, state = mb.trace_block(mega, torch.from_numpy(ray_f), torch.from_numpy(ray_i),
+                                    SEED, b_off, max_depth=DEPTH, background=cfg.background)
+    assert mb.launches == 0  # CPU tensors ran the plain version
+    rad, bc, state = rad.numpy(), bc.numpy(), state.numpy()
+
+    diff = np.abs(rad - np.stack(ref[0:3]))
+    if name == "bouncing_spheres":
+        assert diff.mean() < 2e-3, diff.mean()
+    else:
+        assert diff.max() < 1e-5, diff.max()
+    assert segments_close(ref[3].sum(), bc.sum()), (ref[3].sum(), bc.sum())
+
+    bad = ref[3] != bc
+    for k, row in enumerate(STATE_ROWS):
+        r_ = ref[4 + k]
+        bad |= np.abs(state[row] - r_) > 1e-3 * np.maximum(1.0, np.abs(r_))
+    np.testing.assert_array_equal(state[mb.TM], ray_f[mb.TM])
+    np.testing.assert_array_equal(state[mb.RR:mb.RB + 1], rad)
+    limit = B // 20 if name == "bouncing_spheres" else max(4, B // 200)
+    assert bad.sum() <= limit, f"{bad.sum()} rays disagree"
+
+
+HOST_HARNESS = r"""
+#include "megakernel_block.cu"
+extern "C" void host_trace(const float* sph, int n_sph_rows, const float* quad,
+    int n_quad_rows, const float* resolve, int n_res_cols, const float* ray_f,
+    const int* ray_i, int n, float* out_rad, int* out_bc, float* out_state,
+    uint32_t seed, uint32_t b_off, int max_depth, int ns_pad, float bg_r,
+    float bg_g, float bg_b, int moving) {
+  TraceParams p{sph, n_sph_rows, quad, n_quad_rows, resolve, n_res_cols, ray_f,
+                ray_i, n, out_rad, out_bc, out_state, seed, b_off, max_depth,
+                ns_pad, bg_r, bg_g, bg_b};
+  const float4* s = reinterpret_cast<const float4*>(sph);
+  const float4* q = reinterpret_cast<const float4*>(quad);
+  for (int i = 0; i < n; ++i) {
+    if (moving) trace_ray<true>(p, s, q, i); else trace_ray<false>(p, s, q, i);
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_k1(tmp_path_factory):
+    """The kernel source's per-ray math (csrc/megakernel_block.cu without
+    __CUDACC__) built for the host with a C++ compiler, one ray at a time."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler to build the kernel's per-ray math")
+    d = tmp_path_factory.mktemp("k1host")
+    (d / "harness.cpp").write_text(HOST_HARNESS)
+    so = d / "libk1host.so"
+    subprocess.run([cxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
+                    f"-I{CSRC}", str(d / "harness.cpp"), "-o", str(so)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+    lib.host_trace.argtypes = [P, I, P, I, P, I, P, P, I, P, P, P, U, U, I, I, F, F, F, I]
+    lib.host_trace.restype = None
+    return lib
+
+
+@pytest.mark.parametrize("name", ["three_spheres", "cornell_box", "bouncing_spheres"])
+def test_kernel_source_on_the_host_matches_plain(host_k1, name):
+    """The CUDA source's arithmetic, compiled for the CPU without FMA
+    contraction, against the plain version: same bars as above (host
+    libm and PyTorch may differ by an ulp in sin/cos)."""
+    scene, cfg, ray_f, ray_i = _inputs(name)
+    mega = pmega(port_scene(scene))
+    f, i = torch.from_numpy(ray_f), torch.from_numpy(ray_i)
+    rad = torch.empty(3, B)
+    bc = torch.empty(B, dtype=torch.int32)
+    state = torch.empty(mb.N_F, B)
+    n_sph_rows, n_quad_rows = mb._sweep_rows(mega)
+    host_k1.host_trace(
+        mega.sph_sweep.data_ptr(), n_sph_rows, mega.quad_sweep.data_ptr(), n_quad_rows,
+        mega.resolve.data_ptr(), mega.resolve.shape[1], f.data_ptr(), i.data_ptr(), B,
+        rad.data_ptr(), bc.data_ptr(), state.data_ptr(), SEED, 3, DEPTH, mega.n_sph_pad,
+        *cfg.background, int(mega.moving))
+    ref = mb.trace_block_torch(mega, f, i, SEED, 3, max_depth=DEPTH, background=cfg.background)
+    diff = (rad - ref[0]).abs()
+    if name == "bouncing_spheres":
+        assert diff.mean() < 2e-3
+    else:
+        assert diff.max() < 1e-5
+    assert segments_close(ref[1].sum(), bc.sum())
+    rows = STATE_ROWS
+    bad = ((state[rows] - ref[2][rows]).abs() > 1e-3 * ref[2][rows].abs().clamp(min=1)).any(0)
+    assert int((bad | (bc != ref[1])).sum()) <= max(4, B // 200)
+
+
+def test_phase_offset_feeds_the_rng():
+    """b_off changes every scatter draw: the same rays trace other paths."""
+    scene, cfg, ray_f, ray_i = _inputs("three_spheres")
+    mega = pmega(port_scene(scene))
+    args = (mega, torch.from_numpy(ray_f), torch.from_numpy(ray_i), SEED)
+    kw = dict(max_depth=DEPTH, background=cfg.background)
+    s0 = mb.trace_block(*args, 0, **kw)[2]
+    s3 = mb.trace_block(*args, 3, **kw)[2]
+    alive = ray_f[mb.ACT] > 0
+    assert (s0[mb.DX].numpy() != s3[mb.DX].numpy())[alive].mean() > 0.5
+
+
+def test_wrapper_refuses_what_k1_does_not_port():
+    scene, cfg, ray_f, ray_i = _inputs("three_spheres")
+    mega = pmega(port_scene(scene))
+    f, i = torch.from_numpy(ray_f), torch.from_numpy(ray_i)
+    kw = dict(max_depth=2, background=cfg.background)
+    with pytest.raises(NotImplementedError):
+        mb.trace_block(mega, f, i, 0, 0, want_ids=True, **kw)
+    with pytest.raises(NotImplementedError):
+        mb.trace_block(mega, f, i, 0, 0, depth_cap=4, **kw)
+    with pytest.raises(ValueError):
+        mb.trace_block(mega, f[:, :5], i, 0, 0, **kw)
+    with pytest.raises(ValueError):
+        mb.trace_block(mega, f, i.to(torch.int64), 0, 0, **kw)
+    mega.has_noise = True
+    with pytest.raises(NotImplementedError):
+        mb.trace_block(mega, f, i, 0, 0, **kw)

@@ -1,0 +1,78 @@
+"""raytracing_tpu_torch scenes against raytracing_tpu: the port's builder
+and flatten must produce exactly the JAX package's arrays and K1 tables,
+both for scenes built by the port's registry and for JAX-built scenes
+converted through scene_from_arrays."""
+import numpy as np
+import pytest
+import torch
+
+from raytracing_tpu.models.scenes import build as jbuild
+from raytracing_tpu.ops.megakernel import build_mega_scene as jmega
+from raytracing_tpu.scene import flatten as jfl
+from raytracing_tpu_torch.models.scenes import build as pbuild
+from raytracing_tpu_torch.ops.megakernel import build_mega_scene as pmega
+from raytracing_tpu_torch.scene import flatten as pfl
+from raytracing_tpu_torch.scene.builder import SceneBuilder
+from torch_parity import port_scene, scene_arrays
+
+torch.set_num_threads(2)
+SCENES = ["bouncing_spheres", "three_spheres", "checkered_spheres", "quads",
+          "cornell_box", "single_sphere"]
+
+
+def _tables(flatten, scene):
+    sph, quad, ns, nq, ns_pad = flatten.sweep_tables(scene)
+    table, ns_pad_u, nq_u, supported = flatten.unified_table(scene)
+    return dict(sph=sph, quad=quad, counts=np.array([ns, nq, ns_pad, ns_pad_u, nq_u]),
+                resolve=table[:pfl.RESOLVE_FIELDS], table=table,
+                supported=np.array(supported), kid=flatten.global_id_map(scene))
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_tables_equal_jax(name):
+    sj, cfg_j = jbuild(name)
+    sp, cfg_p = pbuild(name)
+    assert cfg_p == type(cfg_p)(**vars(cfg_j))
+    ref = _tables(jfl, sj)
+    # the port's own builder: the same scene arrays ...
+    arrays_j = scene_arrays(sj)
+    for key, value in scene_arrays(sp).items():
+        np.testing.assert_array_equal(value, arrays_j[key], err_msg=key)
+    assert sp.flags == type(sp.flags)(*sj.flags)
+    # ... and the same tables, from its own scene and from the JAX scene
+    for scene in (sp, port_scene(sj)):
+        out = _tables(pfl, scene)
+        for key in ref:
+            np.testing.assert_array_equal(out[key], ref[key], err_msg=key)
+
+
+@pytest.mark.parametrize("name", ["three_spheres", "cornell_box"])
+def test_mega_scene_matches_jax_kernel_tables(name):
+    """K1's inputs: sweep tables as in the JAX MegaScene, and the plain
+    resolve table equal to one row of each field of its ×8 replicated
+    table (spheres are not reordered in these small scenes)."""
+    sj, _ = jbuild(name)
+    mj = jmega(sj)
+    mp = pmega(port_scene(sj))
+    np.testing.assert_array_equal(mp.sph_sweep.numpy(), np.asarray(mj.sph_sweep))
+    np.testing.assert_array_equal(mp.quad_sweep.numpy(), np.asarray(mj.quad_sweep))
+    p = mp.resolve.shape[1]
+    rep = np.asarray(mj.tabt_rep)[: 8 * pfl.RESOLVE_FIELDS: 8, :p]
+    np.testing.assert_array_equal(mp.resolve.numpy(), rep)
+    assert (mp.n_sph, mp.n_quad, mp.n_sph_pad) == (mj.n_sph, mj.n_quad, mj.n_sph_pad)
+
+
+def test_translate_box_and_noise_flags():
+    b = SceneBuilder()
+    white = b.lambertian((0.7, 0.7, 0.7))
+    with b.translate((130, 0, 65)):
+        b.box((0, 0, 0), (165, 165, 165), white)
+        with b.translate((1, 2, 3)):
+            b.sphere((0, 0, 0), 1.0, b.lambertian(b.noise(4.0)), center2=(0, 1, 0))
+    scene = b.compile()
+    assert scene.n_quads == 8 and b.n_quads == 6
+    np.testing.assert_array_equal(scene.quads.q[0].numpy(), [130, 0, 230])
+    np.testing.assert_array_equal(scene.spheres.center[0].numpy(), [131, 2, 68])
+    assert scene.flags.has_noise and scene.flags.has_moving
+    mega = pmega(scene)
+    assert mega.has_noise and mega.moving

@@ -1,0 +1,88 @@
+"""Where the time of the port's bench render goes, on one CUDA device.
+
+    python3 tools/profile_torch_render.py
+
+Renders the bench workload (bouncing_spheres 400x225, 100 spp, depth 20,
+seed 7, schedule [2,2,3,4,9] with planned prefixes) through
+raytracing_tpu_torch: five timed renders, then one render under
+torch.profiler (device time by kernel, device busy share), then CUDA-event
+timings of one launch's camera rays and of one whole launch. Prints the
+card's name, power limit and max SM clock first.
+"""
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from raytracing_tpu_torch import Renderer, _kernels, build  # noqa: E402
+from raytracing_tpu_torch.render import camera as cam  # noqa: E402
+from raytracing_tpu_torch.render import renderer as rmod  # noqa: E402
+
+SEED = 7
+
+
+def event_ms(fn, reps=20):
+    """(device ms, host ms) per call of ``fn`` over ``reps`` calls."""
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, 1e3 * (time.perf_counter() - t0) / reps
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip())
+    _kernels.library()
+    scene, cfg = build("bouncing_spheres", device=dev, image_width=400,
+                       samples_per_pixel=100, max_depth=20)
+    kw = dict(max_rays_per_launch=1 << 18, transfer="u8", phase_depths=[2, 2, 3, 4, 9])
+    pref = Renderer(cfg, **kw).plan_phase_prefixes(scene, seed=SEED)
+    r = Renderer(cfg, **kw, phase_prefixes=pref)
+    for _ in range(2):
+        r.render(scene, seed=SEED)
+    print("render seconds", [r.render(scene, seed=SEED).seconds for _ in range(5)])
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        r.render(scene, seed=SEED)
+        wall = time.perf_counter() - t0
+    rows = sorted(((e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+    device_ms = sum(x[0] for x in rows) / 1e3
+    print(f"profiled render: wall {wall * 1e3:.2f} ms, device {device_ms:.2f} ms, "
+          f"busy share {device_ms / (wall * 1e3):.3f}")
+    for dt, key, count in rows[:20]:
+        print(f"  {dt / 1e3:9.3f} ms {count:6d}  {key[:100]}")
+
+    mega = r._get_mega(scene)
+    derived = cam.derive(cfg, cam.CameraParams.from_config(cfg, dev))
+    chunk = dict(n_block=r.n_block, spp_chunk=r.spp_chunk, has_moving=True, device=dev)
+    d_ms, h_ms = event_ms(lambda: rmod.chunk_rays(cfg, derived, 0, 0, SEED, **chunk))
+    print(f"camera rays per launch: device span {d_ms:.3f} ms, host {h_ms:.3f} ms")
+    d_ms, h_ms = event_ms(lambda: rmod._render_chunk(
+        mega, cfg, derived, 0, 0, SEED, **r._chunk_kwargs(scene), phase_prefixes=pref))
+    print(f"whole launch: device span {d_ms:.3f} ms, host {h_ms:.3f} ms")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
