@@ -5,12 +5,20 @@
 
 Phase 1 builds the CUDA kernels from raytracing_tpu_torch/csrc with nvcc.
 Phase 2 holds K1 against its plain PyTorch version on the card
-(three_spheres, cornell_box, bouncing_spheres). Phase 3 renders the bench
-workload (bouncing_spheres 400x225, 100 spp, depth 20, seed 7) through
-Renderer with the [2,2,3,4,9] schedule and planned prefixes, counts K1's
-launches in that render and checks the segment count; it also holds a
-small render on the card against the same render on the CPU. Phase 4
-times K1 and its plain version on one full-width launch.
+(three_spheres, cornell_box, bouncing_spheres), recorded ids included.
+Phase 3 renders the bench workload (bouncing_spheres 400x225, 100 spp,
+depth 20, seed 7) through Renderer with the [2,2,3,4,9] schedule and
+planned prefixes, counts the kernels' launches in that render and checks
+the segment count; it also holds a small render on the card against the
+same render on the CPU. Phase 4 times K1 and its plain version on one
+full-width launch. Phase 5 holds K3 and K2 (the decision replay) against
+their plain versions on small scenes and on one full-width depth-20
+chunk of the fwd+bwd workload (B = 360,448), and times them and the two
+table reductions. Phase 6 runs the fwd+bwd bench
+(raytracing_tpu_torch.bench: the steps of bench_fwd_bwd) and counts the
+kernels' launches in one of its sweeps.
+Phase 7 drives replay_trace_kernel (K3 forward, K2 backward by
+autograd) on that chunk and counts its launches.
 
 Prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}. Exits
@@ -27,6 +35,18 @@ from pathlib import Path
 
 BENCH_SEGMENTS = 24_280_645  # bench workload's traced segments (JAX reference)
 SEED = 7
+
+# Bounds: the larger of operations over the card's FP32 peak and bytes
+# over its memory rate (NVIDIA's H100 SXM data sheet, dense FP32 and HBM3).
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# FP32 operations, counted from the kernel sources (each add, multiply,
+# compare, select, sqrt, divide, sin or cos as one; about ±20%):
+K1_OPS_PER_SPHERE_ROW = 33   # moving sphere: oc 9, b 5, c 6, disc 3, sqrt, roots 3, tests 6
+K1_OPS_PER_QUAD_ROW = 45
+K1_OPS_SHADE = 150           # resolve, texture, PCG4D, scatter, bookkeeping per segment
+K3_OPS_PER_SEGMENT = 300     # bounce_fwd with PCG4D
+K2_OPS_PER_SEGMENT = 950     # bounce_fwd twice (sweep and recompute) + bounce_bwd
 
 
 def segments_close(ref: int, s: int) -> bool:
@@ -49,7 +69,7 @@ def first_launch(scene, cfg, n_block, spp_chunk, dev):
 
 def compare(torch, mb, exact, ref, out, n):
     """(ok, stats) for K1 outputs ``out`` against ``ref`` (each (rad,
-    bounces, state)), with the JAX reference's bars."""
+    bounces, state[, ids])), with the JAX reference's bars."""
     diff = (out[0] - ref[0]).abs()
     s_ref, s_out = int(ref[1].sum()), int(out[1].sum())
     stats = dict(max_abs_err=float(diff.max()), mean_abs_err=float(diff.mean()),
@@ -62,6 +82,9 @@ def compare(torch, mb, exact, ref, out, n):
         bad = ((o - r).abs() > 1e-3 * torch.clamp(r.abs(), min=1.0)).any(0) | (ref[1] != out[1])
         stats["state_rays_disagreeing"] = int(bad.sum())
         ok &= stats["state_rays_disagreeing"] <= (n // 20 if not exact else max(4, n // 200))
+    if len(ref) > 3:
+        stats["ids_differing"] = int((out[3] != ref[3]).sum())
+        ok &= stats["ids_differing"] == 0  # K1 is bit-equal to its plain version
     return bool(ok), stats
 
 
@@ -78,7 +101,28 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def onehot_reduce(torch, rk, g, ids, L, prefixes):
+    """The JAX reference's table reduction, a one-hot matmul per bounce in
+    full f32: timed beside the port's index_add_ reduction."""
+    acc = torch.zeros((L, rk.NG), dtype=torch.float32, device=g.device)
+    rows = torch.arange(L, device=g.device)
+    for b in range(g.shape[0]):
+        P = prefixes[b]
+        acc += (rows[:, None] == ids[b, :P].clamp(min=0)[None, :]).float() @ g[b, :, :P].T
+    tbar = torch.zeros((L, rk.rf.N_FIELDS), dtype=torch.float32, device=g.device)
+    tbar[:, rk._TCOLS] = acc[:, rk._GSLOTS]
+    return tbar
+
+
+def bound(ops, nbytes):
+    """(bound_ms, bound_by): the least time for ``ops`` FP32 operations
+    and ``nbytes`` of memory traffic."""
+    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -87,8 +131,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from raytracing_tpu_torch import Renderer, _kernels, build
+    from raytracing_tpu_torch import bench as pbench
+    from raytracing_tpu_torch.diff import replay_fast as rf
+    from raytracing_tpu_torch.diff import replay_kernel as rk
     from raytracing_tpu_torch.ops import megakernel_block as mb
     from raytracing_tpu_torch.ops.megakernel import build_mega_scene, trace_megakernel
+    from raytracing_tpu_torch.render import camera as cam
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -100,13 +148,19 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
+    def zero_counts():
+        mb.launches = rk.fwd_launches = rk.bwd_launches = 0
+
+    def counts():
+        return dict(K1=mb.launches, K3=rk.fwd_launches, K2=rk.bwd_launches)
+
     # ---- phase 1: build ----
     t0 = time.perf_counter()
     k = _kernels.library()
     print(f"phase 1 build: nvcc {k.build_seconds:.2f} s, load {time.perf_counter() - t0:.2f} s "
           f"({k.path.name})")
     for line in k.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if any(w in line for w in ("registers", "spill", "Compiling entry", "stack frame")):
             print(f"  ptxas: {line.strip()}")
 
     failures = []
@@ -120,7 +174,7 @@ def main() -> int:
         _, (ray_f, ray_i) = first_launch(scene, cfg, n_block, 2, dev)
         for b_off in (0, 3):
             args = (mega, ray_f, ray_i, SEED, b_off)
-            kw = dict(max_depth=6, background=cfg.background)
+            kw = dict(max_depth=6, background=cfg.background, want_ids=True)
             out = mb.trace_block(*args, **kw)
             torch.cuda.synchronize()
             ref = mb.trace_block_torch(*args, **kw)
@@ -140,19 +194,20 @@ def main() -> int:
     print(f"phase 3 plan: prefixes {pref} in {time.perf_counter() - t0:.2f} s")
     r = Renderer(cfg, **kw, phase_prefixes=pref)
     r.render(scene, seed=SEED)  # warm-up: allocator and CUDA libraries
-    mb.launches = 0
+    zero_counts()
     res = r.render(scene, seed=SEED)
-    k1_launches = mb.launches
+    render_counts = counts()
     runs = [res] + [r.render(scene, seed=SEED) for _ in range(2)]
     best = min(runs, key=lambda x: x.seconds)
     img = res.u8
-    render_ok = (res.ok is True and k1_launches > 0
+    # one K1 launch per phase of every chunk: 5 × 50 = 250
+    render_ok = (res.ok is True and render_counts == dict(K1=5 * res.launches, K3=0, K2=0)
                  and segments_close(BENCH_SEGMENTS, res.segments)
                  and all(x.segments == res.segments for x in runs)
                  and img.shape == (cfg.image_height, cfg.image_width, 3)
                  and 20 < float(img.mean()) < 235)
     print(f"phase 3 render: {'ok' if render_ok else 'FAIL'} segments {res.segments} "
-          f"(reference {BENCH_SEGMENTS}) launches {res.launches} k1_launches {k1_launches} "
+          f"(reference {BENCH_SEGMENTS}) launches {res.launches} kernel launches {render_counts} "
           f"ok {res.ok} seconds {[round(x.seconds, 4) for x in runs]} "
           f"best {best.seconds:.4f} s {best.segments / best.seconds:.4g} rays/s "
           f"image mean {float(img.mean()):.2f} [{card}]")
@@ -161,7 +216,7 @@ def main() -> int:
 
     small = dict(image_width=48, samples_per_pixel=2, max_depth=8)
     s_gpu, c_gpu = build("bouncing_spheres", device=dev, **small)
-    s_cpu, c_cpu = build("bouncing_spheres", **small)
+    s_cpu, c_cpu = build("bouncing_spheres", device="cpu", **small)
     g = Renderer(c_gpu, phase_depths=[2, 2, 4]).render(s_gpu, seed=SEED)
     c = Renderer(c_cpu, phase_depths=[2, 2, 4]).render(s_cpu, seed=SEED)
     mean_err = float(abs(g.radiance - c.radiance).mean())
@@ -183,8 +238,15 @@ def main() -> int:
     ok4, stats = compare(torch, mb, False, ref, out, B)
     ms = cuda_ms(torch, lambda: mb.trace_block(*args, **kw4), 5)
     plain_ms = cuda_ms(torch, lambda: mb.trace_block_torch(*args, **kw4), 2)
+    n_sph_rows, n_quad_rows = mb._sweep_rows(mega)
+    k1_bound = bound(stats["segments"] * (K1_OPS_PER_SPHERE_ROW * n_sph_rows
+                                          + K1_OPS_PER_QUAD_ROW * n_quad_rows + K1_OPS_SHADE),
+                     B * (mb.N_F * 4 * 2 + 8 + 12 + 4)
+                     + 4 * (mega.sph_sweep.numel() + mega.quad_sweep.numel()
+                            + mega.resolve.numel() + mega.kid_map.numel()))
     print(f"phase 4 single launch B={B} depth {cfg.max_depth}: {'ok' if ok4 else 'FAIL'} "
-          f"{json.dumps(stats)} kernel {ms:.3f} ms plain {plain_ms:.3f} ms [{card}]")
+          f"{json.dumps(stats)} kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
+          f"bound {k1_bound[0]:.4f} ms ({k1_bound[1]}) [{card}]")
     if not ok4:
         failures.append("phase 4 single launch")
 
@@ -203,13 +265,186 @@ def main() -> int:
     if not ph_ok:
         failures.append("phase 4 phased launch")
 
-    print(json.dumps({"kernels": [{
-        "name": "K1 megakernel_block", "route": "cuda",
-        "source": "raytracing_tpu_torch/csrc/megakernel_block.cu",
-        "replaces": "raytracing_tpu/ops/megakernel_block.py:155",
-        "launches": k1_launches, "max_abs_err": stats["max_abs_err"],
-        "mean_abs_err": stats["mean_abs_err"], "ms": ms, "plain_ms": plain_ms,
-    }]}))
+    # ---- phase 5: K3 and K2 against their plain versions ----
+    def replay_inputs(scene_r, cfg_r, spp_chunk, phases):
+        """A decision pass on the card (K1, compacted ids, counts) over
+        one chunk, then its rays sorted by recorded length as
+        replay_grads_sorted sorts them: the replay kernels' inputs."""
+        n_pix = cfg_r.n_pixels
+        npix_pad = -(-n_pix // 1024) * 1024
+        n = npix_pad * spp_chunk
+        D = cfg_r.max_depth
+        pix_r = torch.clamp(torch.arange(npix_pad, device=dev), max=n_pix - 1).repeat(spp_chunk)
+        smp_r = torch.arange(spp_chunk, device=dev).repeat_interleave(npix_pad)
+        act_r = (torch.arange(npix_pad, device=dev) < n_pix).repeat(spp_chunk)
+        der = cam.derive(cfg_r, cam.CameraParams.from_config(cfg_r, dev))
+        o_r, d_r, t_r = cam.generate_rays(cfg_r, der, pix_r, smp_r, SEED,
+                                          motion_blur=scene_r.flags.has_moving)
+        _, seg, ids, cnt = trace_megakernel(
+            build_mega_scene(scene_r), o_r, d_r, t_r, pix_r, smp_r, cfg_r.background, D, SEED,
+            phase_depths=phases, active0=act_r, want_ids=True, want_counts=True)
+        order = torch.argsort((D - cnt.long()) * n + torch.arange(n, device=dev))
+        len_s = cnt[order]
+        ray_f_r = rk.pack_replay_rays(o_r[order], d_r[order], t_r[order], len_s > 0)
+        ray_i_r = torch.stack([pix_r[order], smp_r[order]]).to(torch.int32)
+        rad_bar = torch.from_numpy(
+            np.random.default_rng(3).normal(size=(3, n)).astype(np.float32)).to(dev)
+        table = rf.build_replay_table(scene_r).detach()
+        kw_r = dict(seed=SEED, n_sph=scene_r.n_spheres, has_moving=scene_r.flags.has_moving,
+                    background=cfg_r.background)
+        return (table, ids[:, order].contiguous(), ray_f_r, ray_i_r, rk.tile_maxlen(len_s, D),
+                rad_bar, kw_r, int(seg), len_s)
+
+    for name, exact in (("three_spheres", True), ("cornell_box", True),
+                        ("bouncing_spheres", False)):
+        scene_r, cfg_r = build(name, device=dev, image_width=64, samples_per_pixel=2,
+                               max_depth=6)
+        table, ids, rfr, rir, ml, rbar, kw_r, seg, _ = replay_inputs(scene_r, cfg_r, 2,
+                                                                     [2, 2, 2])
+        rad_k3, bc_k3 = rk.replay_fwd(table, ids, rfr, rir, ml, **kw_r)
+        g_k2 = rk.replay_bwd(table, ids, rfr, rir, rbar, ml, **kw_r)
+        torch.cuda.synchronize()
+        rad_p3, bc_p3 = rk.replay_fwd_torch(table, ids, rfr, rir, ml, **kw_r)
+        g_p2 = rk.replay_bwd_torch(table, ids, rfr, rir, rbar, ml, **kw_r)
+        d3 = (rad_k3 - rad_p3).abs()
+        L = table.shape[0]
+        tb_k = rk.reduce_table_grads(g_k2.cpu(), ids.cpu(), L)
+        tb_p = rk.reduce_table_grads(g_p2.cpu(), ids.cpu(), L)
+        ok3 = ((float(d3.max()) < 1e-5) if exact else (float(d3.mean()) < 2e-3)) and \
+            segments_close(int(bc_p3.sum()), int(bc_k3.sum()))
+        ok2 = bool(torch.allclose(tb_k, tb_p, rtol=3e-5, atol=3e-6))
+        print(f"phase 5 {name} B={rfr.shape[1]}: K3 {'ok' if ok3 else 'FAIL'} max_abs_err "
+              f"{float(d3.max()):.3g} mean {float(d3.mean()):.3g} segments {int(bc_k3.sum())} "
+              f"plain {int(bc_p3.sum())} decision {seg}; K2 {'ok' if ok2 else 'FAIL'} tbar "
+              f"max_abs_err {float((tb_k - tb_p).abs().max()):.3g} "
+              f"bitwise_equal_g {bool(torch.equal(g_k2, g_p2))}")
+        if not ok3:
+            failures.append(f"phase 5 K3 {name}")
+        if not ok2:
+            failures.append(f"phase 5 K2 {name}")
+
+    # one full-width depth-20 chunk of the fwd+bwd workload (spp_chunk 4)
+    table, ids, rfr, rir, ml, rbar, kw_r, seg_dec, len_s = replay_inputs(
+        scene, cfg, 4, kw["phase_depths"])
+    n_full = rfr.shape[1]
+    rad_k3, bc_k3 = rk.replay_fwd(table, ids, rfr, rir, ml, **kw_r)
+    rad_p3, bc_p3 = rk.replay_fwd_torch(table, ids, rfr, rir, ml, **kw_r)
+    d3 = (rad_k3 - rad_p3).abs()
+    seg_k3 = int(bc_k3.sum())
+    ok3 = seg_k3 == int(bc_p3.sum()) and float(d3.mean()) < 2e-3
+    k3_ms = cuda_ms(torch, lambda: rk.replay_fwd(table, ids, rfr, rir, ml, **kw_r), 5)
+    k3_plain_ms = cuda_ms(torch, lambda: rk.replay_fwd_torch(table, ids, rfr, rir, ml, **kw_r), 2)
+    D = cfg.max_depth
+    k3_bound = bound(seg_k3 * K3_OPS_PER_SEGMENT,
+                     n_full * (rk.N_RAY_F * 4 + 8 + 12 + 4) + 4 * seg_k3 + 4 * table.numel())
+    print(f"phase 5 full chunk B={n_full} depth {D}: K3 {'ok' if ok3 else 'FAIL'} segments "
+          f"{seg_k3} plain {int(bc_p3.sum())} decision {seg_dec} max_abs_err "
+          f"{float(d3.max()):.3g} mean {float(d3.mean()):.3g} kernel {k3_ms:.3f} ms plain "
+          f"{k3_plain_ms:.3f} ms bound {k3_bound[0]:.4f} ms ({k3_bound[1]}) [{card}]")
+    if not ok3:
+        failures.append("phase 5 K3 full chunk")
+
+    g_k2 = rk.replay_bwd(table, ids, rfr, rir, rbar, ml, **kw_r)
+    g_p2 = rk.replay_bwd_torch(table, ids, rfr, rir, rbar, ml, **kw_r)
+    L = table.shape[0]
+    tb_k = rk.reduce_table_grads(g_k2, ids, L)
+    tb_p = rk.reduce_table_grads(g_p2, ids, L)
+    rel2 = float((tb_k - tb_p).norm() / tb_p.norm())
+    k2_err = float((tb_k - tb_p).abs().max())
+    ok2 = rel2 < 1e-4 and bool(torch.isfinite(g_k2).all())
+    del g_p2
+    k2_ms = cuda_ms(torch, lambda: rk.replay_bwd(table, ids, rfr, rir, rbar, ml, **kw_r), 3)
+    k2_plain_ms = cuda_ms(torch, lambda: rk.replay_bwd_torch(table, ids, rfr, rir, rbar, ml,
+                                                             **kw_r), 1)
+    k2_bound = bound(seg_k3 * K2_OPS_PER_SEGMENT,
+                     n_full * (rk.N_RAY_F * 4 + 8 + 12 + 4) + 4 * seg_k3 + 4 * table.numel()
+                     + 4 * g_k2.numel())
+    print(f"phase 5 full chunk: K2 {'ok' if ok2 else 'FAIL'} tbar relative L2 error {rel2:.3g} "
+          f"max_abs_err {k2_err:.3g} kernel {k2_ms:.3f} ms plain {k2_plain_ms:.3f} ms "
+          f"bound {k2_bound[0]:.4f} ms ({k2_bound[1]}) output {g_k2.numel() * 4 / 1e6:.0f} MB "
+          f"[{card}]")
+    if not ok2:
+        failures.append("phase 5 K2 full chunk")
+
+    prefixes = rk.plan_prefixes(torch.bincount(len_s.long(), minlength=D + 1).cpu(), n_full, D,
+                                margin=1.0)
+    red_ms = cuda_ms(torch, lambda: rk.reduce_table_grads(g_k2, ids, L, prefixes), 3)
+    oh_ms = cuda_ms(torch, lambda: onehot_reduce(torch, rk, g_k2, ids, L, prefixes), 3)
+    red_err = float((onehot_reduce(torch, rk, g_k2, ids, L, prefixes)
+                     - rk.reduce_table_grads(g_k2, ids, L, prefixes)).abs().max())
+    print(f"phase 5 table reduction over planned prefixes: index_add_ (the port's) "
+          f"{red_ms:.3f} ms, one-hot matmul {oh_ms:.3f} ms; max |index_add_ - onehot| "
+          f"{red_err:.3g} [{card}]")
+    del g_k2
+
+    # ---- phase 6: the fwd+bwd bench ----
+    # bench_fwd_bwd's steps, with the kernels' launches counted over one
+    # sweep (25 chunks: 5 decision phases each, one K2 each)
+    t0 = time.perf_counter()
+    fbs = pbench._fwd_bwd_setup(device=dev)
+    fbs["plan"]()
+    fbs["sweep"]()  # warm-up
+    zero_counts()
+    _, _, _, sweep_segs, sweep_ok = fbs["sweep"]()
+    torch.cuda.synchronize()
+    fb_counts = counts()
+    fb = pbench.time_fwd_bwd(fbs, reps=3)
+    fb_wall = time.perf_counter() - t0
+    n_chunks = fbs["n_chunks"]
+    fb_ok = (fb_counts == dict(K1=5 * n_chunks, K3=0, K2=n_chunks) and bool(sweep_ok)
+             and int(sweep_segs) == fb["segments"]
+             and fb["segments"] == res.segments and segments_close(BENCH_SEGMENTS, fb["segments"])
+             and fb["grads_finite"] and float(fb["grad_rgb"].abs().sum()) > 0)
+    print(f"phase 6 fwd+bwd bench: {'ok' if fb_ok else 'FAIL'} segments {fb['segments']} "
+          f"(forward render {res.segments}, reference {BENCH_SEGMENTS}) best {fb['seconds']:.4f} s "
+          f"{fb['rays_per_s']:.4g} rays/s loss {fb['loss']:.6g} kernel launches in one sweep "
+          f"{fb_counts} (expected K1 {5 * n_chunks}, K2 {n_chunks}) (call {fb_wall:.1f} s) "
+          f"reduction index_add_ [{card}]")
+    if not fb_ok:
+        failures.append("phase 6 fwd+bwd bench")
+
+    # ---- phase 7: replay_trace_kernel, K3 forward and K2 backward ----
+    import dataclasses
+
+    rgb = scene.textures.rgb.clone().requires_grad_(True)
+    scene_g = dataclasses.replace(scene, textures=dataclasses.replace(scene.textures, rgb=rgb))
+    o_s, d_s, t_s = rfr[rk.RX:rk.RZ + 1].T, rfr[rk.RDX:rk.RDZ + 1].T, rfr[rk.RTM]
+    zero_counts()
+    rad_t, seg_t = rk.replay_trace_kernel(scene_g, ids, o_s, d_s, t_s, rir[0], rir[1],
+                                          cfg.background, D, SEED, active0=rfr[rk.RACT] > 0,
+                                          lengths=len_s)
+    (rad_t * rbar.T).sum().backward()
+    torch.cuda.synchronize()
+    rt_counts = counts()
+    rt_ok = (rt_counts == dict(K1=0, K3=1, K2=1) and int(seg_t) == seg_k3
+             and bool(torch.equal(rad_t.detach(), rad_k3.T))
+             and bool(torch.isfinite(rgb.grad).all()))
+    print(f"phase 7 replay_trace_kernel: {'ok' if rt_ok else 'FAIL'} segments {int(seg_t)} "
+          f"kernel launches {rt_counts} rgb grad norm {float(rgb.grad.norm()):.4g}")
+    if not rt_ok:
+        failures.append("phase 7 replay_trace_kernel")
+
+    print(json.dumps({"kernels": [
+        {"name": "K1 megakernel_block", "route": "cuda",
+         "source": "raytracing_tpu_torch/csrc/megakernel_block.cu",
+         "replaces": "raytracing_tpu/ops/megakernel_block.py:155",
+         "launches": render_counts["K1"], "path": "forward render (phase 3)",
+         "launches_fwd_bwd_sweep": fb_counts["K1"],
+         "max_abs_err": stats["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None},
+        {"name": "K3 replay_fwd", "route": "cuda",
+         "source": "raytracing_tpu_torch/csrc/replay_kernel.cu",
+         "replaces": "raytracing_tpu/diff/replay_kernel.py:594",
+         "launches": rt_counts["K3"], "path": "replay_trace_kernel (phase 7)",
+         "max_abs_err": float(d3.max()), "ms": k3_ms, "plain_ms": k3_plain_ms,
+         "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None},
+        {"name": "K2 replay_bwd", "route": "cuda",
+         "source": "raytracing_tpu_torch/csrc/replay_kernel.cu",
+         "replaces": "raytracing_tpu/diff/replay_kernel.py:637",
+         "launches": fb_counts["K2"], "path": "one fwd+bwd bench sweep (phase 6)",
+         "max_abs_err": k2_err, "tbar_rel_l2": rel2, "ms": k2_ms, "plain_ms": k2_plain_ms,
+         "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None},
+    ]}))
     if failures:
         print(f"chip_smoke: FAILED {failures}", file=sys.stderr)
         return 1

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-``library()`` compiles every ``csrc/*.cu`` with ``nvcc`` for sm_90a into
-one shared library under ``_build/`` (keyed by a hash of the sources and
-flags, so a changed source rebuilds) and loads it with ``ctypes``. The
-sources expose plain ``extern "C"`` entry points, so the build includes no
-PyTorch headers and takes seconds. It runs at the first CUDA launch;
-importing the package needs no ``nvcc``.
+``library()`` compiles every ``csrc/*.cu`` with ``nvcc`` for sm_90a, one
+``nvcc`` per source, all started together, and links the objects into one
+shared library under ``_build/`` (keyed by a hash of the sources, headers
+and flags, so a changed source rebuilds), which it loads with ``ctypes``.
+The sources expose plain ``extern "C"`` entry points, so the build
+includes no PyTorch headers and takes seconds. It runs at the first CUDA
+launch; importing the package needs no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -21,8 +22,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v", "-c")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 
 @dataclass
@@ -30,7 +33,7 @@ class Kernels:
     lib: ctypes.CDLL
     path: Path
     build_seconds: float  # 0.0 when the library was already built
-    build_log: str        # nvcc's output (ptxas registers and spills)
+    build_log: str        # nvcc's output (ptxas registers, stack and spills)
 
 
 _loaded: Kernels | None = None
@@ -47,9 +50,13 @@ def _nvcc() -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-    lib.rt_trace_block.argtypes = [P, I, P, I, P, I, P, P, I, P, P, P, U, U, I, I,
+    lib.rt_trace_block.argtypes = [P, I, P, I, P, I, P, P, I, P, P, P, P, P, U, U, I, I,
                                    F, F, F, I, P]
     lib.rt_trace_block.restype = ctypes.c_int
+    lib.rt_replay_fwd.argtypes = [P, P, P, P, P, I, I, I, I, U, F, F, F, P, P, P]
+    lib.rt_replay_fwd.restype = ctypes.c_int
+    lib.rt_replay_bwd.argtypes = [P, P, P, P, P, P, I, I, I, I, U, F, F, F, P, P]
+    lib.rt_replay_bwd.restype = ctypes.c_int
     lib.rt_error_string.argtypes = [ctypes.c_int]
     lib.rt_error_string.restype = ctypes.c_char_p
 
@@ -60,22 +67,42 @@ def library() -> Kernels:
     if _loaded is not None:
         return _loaded
     sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    digest = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    so = BUILD_DIR / f"rt_kernels_{digest.hexdigest()[:16]}.so"
+    key = digest.hexdigest()[:16]
+    so = BUILD_DIR / f"rt_kernels_{key}.so"
     seconds, log = 0.0, ""
     if not so.exists():
         BUILD_DIR.mkdir(exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        tag = f"{key}.{os.getpid()}"
+        nvcc = _nvcc()
         t0 = time.perf_counter()
+        objs, procs = [], []
+        for src in sources:
+            obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+            cmd = [nvcc, *COMPILE_FLAGS, "-o", str(obj), str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            log += out
+            if proc.returncode != 0:
+                failed.append(" ".join(cmd))
+        if failed:
+            raise RuntimeError(f"nvcc failed ({'; '.join(failed)}):\n{log}")
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
         r = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = r.stdout + r.stderr
+        log += r.stdout + r.stderr
+        for obj in objs:
+            obj.unlink(missing_ok=True)
         if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{log}")
+            raise RuntimeError(f"nvcc link failed ({' '.join(cmd)}):\n{log}")
+        seconds = time.perf_counter() - t0
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     _declare(lib)

@@ -1,0 +1,251 @@
+"""Benchmark of the port on the card: traced segments per second of the
+forward render and of the forward+backward gradient sweep, on the bench
+workload (bouncing_spheres, 400×225, 100 spp, depth 20, seed 7).
+
+    python -m raytracing_tpu_torch.bench
+
+prints one JSON line in the JAX package's bench schema (``bench.py`` at
+the repository root) with ``"backend": "cuda"``:
+
+    {"metric": "rays_per_s_fwd_final_scene", "value": N, "unit": "rays/s",
+     "vs_baseline": N / 5e8, "method": "mega", "segments": S,
+     "seconds": T, "backend": "cuda", "device": "<card>",
+     "rays_per_s_fwd_bwd": N2, "fwd_bwd_segments": S2,
+     "fwd_bwd_seconds": T2}
+
+"Rays" are ray-scene queries actually traced (path segments), counted
+exactly by the kernels. It needs a CUDA device and raises without one (or
+on any failure); the functions take ``device="cpu"`` to run the plain
+versions at small sizes.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+
+import torch
+
+from .core.device import DEFAULT_DEVICE, resolve
+from .diff.replay_fast import build_replay_table, supported_fast
+from .diff.replay_kernel import TILE, plan_prefixes, replay_grads_sorted
+from .models.scenes import build
+from .ops.megakernel import BLOCK, build_mega_scene, trace_megakernel
+from .render import camera as cam_mod
+from .render.renderer import Renderer
+
+BASELINE_RAYS_PER_S = 5e8
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def bench_forward(width=400, spp=100, max_depth=20, seed=7, device=DEFAULT_DEVICE, reps=3):
+    """Best of ``reps`` renders (after one warm-up) through the phased
+    megakernel schedule [2,2,3,4,d-11] with planned prefixes."""
+    scene, cfg = build("bouncing_spheres", device=device, image_width=width,
+                       samples_per_pixel=spp, max_depth=max_depth)
+    kw = dict(hit_method="mega", max_rays_per_launch=1 << 18, transfer="u8")
+    if max_depth >= 12:
+        kw["phase_depths"] = [2, 2, 3, 4, max_depth - 11]
+    r = Renderer(cfg, **kw)
+    pref = r.plan_phase_prefixes(scene, seed=seed)
+    if pref is not None:
+        r = Renderer(cfg, **kw, phase_prefixes=pref)
+    r.render(scene, seed=seed)  # warm-up: the kernels' build, allocator, libraries
+    res = min((r.render(scene, seed=seed) for _ in range(reps)), key=lambda x: x.seconds)
+    return dict(method="mega", rays_per_s=res.segments / res.seconds, segments=res.segments,
+                seconds=res.seconds)
+
+
+def _fwd_bwd_setup(width=400, spp=100, max_depth=20, seed=7, spp_chunk=4, phases="default",
+                   device=DEFAULT_DEVICE):
+    """The fwd+bwd chunk machinery, as the JAX bench's ``_fwd_bwd_setup``.
+
+    Each chunk (``spp_chunk`` samples of every pixel, B rays) runs the
+    decision pass (K1 with ``want_ids="compacted"``, ``want_counts``),
+    the MSE loss against a black target and its analytic per-ray radiance
+    cotangent, ``replay_grads_sorted`` (length sort, K2, the table
+    reduction over planned prefixes) and the VJP of
+    ``build_replay_table`` to sphere centers and texture rgbs.
+
+    Returns a dict: ``grads_chunk(center, rgb, sample0) -> (loss, g_center,
+    g_rgb, ok, segments)``, ``plan()`` (the untimed planning sweep that
+    installs the per-bounce prefixes and the decision pass's phase
+    prefixes into ``ns``), ``sweep()`` (every chunk, summed: ``(loss,
+    g_center, g_rgb, segments, ok)``), ``args``, ``n_chunks``,
+    ``spp_chunk``, ``B``, ``ns`` and ``device``."""
+    dev = resolve(device)
+    scene, cfg = build("bouncing_spheres", device=dev, image_width=width,
+                       samples_per_pixel=spp, max_depth=max_depth)
+    if not supported_fast(scene):
+        raise ValueError("the bench workload must be replayable (solid and checker textures)")
+    if spp % spp_chunk:
+        raise ValueError(f"spp={spp} must divide by spp_chunk={spp_chunk}")
+    mega = build_mega_scene(scene)
+    n_pix = cfg.n_pixels
+    npix_pad = -(-n_pix // BLOCK) * BLOCK
+    B = npix_pad * spp_chunk
+    assert B % TILE == 0
+    target = torch.zeros((cfg.image_height, cfg.image_width, 3), dtype=torch.float32, device=dev)
+    pix = torch.clamp(torch.arange(npix_pad, device=dev), max=n_pix - 1).repeat(spp_chunk)
+    act0 = (torch.arange(npix_pad, device=dev) < n_pix).repeat(spp_chunk)
+    derived = cam_mod.derive(cfg, cam_mod.CameraParams.from_config(cfg, dev))
+    moving = scene.flags.has_moving
+    if phases == "default":
+        if max_depth >= 12:
+            phases = [2, 2, 3, 4, max_depth - 11]
+        elif max_depth >= 8:
+            phases = [2, 3, max_depth - 5]
+        else:
+            phases = None
+    n_chunks = spp // spp_chunk
+    ns = {"prefixes": None,          # replay per-bounce prefixes
+          "decide_prefixes": None}   # decision pass per-phase prefixes
+
+    def make_rays(sample0):
+        smp = sample0 + torch.arange(spp_chunk, device=dev).repeat_interleave(npix_pad)
+        o, d, t = cam_mod.generate_rays(cfg, derived, pix, smp, seed, motion_blur=moving)
+        return o, d, t, smp
+
+    def decide(sample0):
+        o, d, t, smp = make_rays(sample0)
+        out = trace_megakernel(mega, o, d, t, pix, smp, cfg.background, max_depth, seed,
+                               phase_depths=phases, active0=act0, want_ids="compacted",
+                               want_counts=True, phase_prefixes=ns["decide_prefixes"])
+        rad, _, ids0, later, perm, cnt, cnt_c, *ok = out
+        bundle = dict(ids0=ids0, later=later, perm=perm, counts_c=cnt_c,
+                      phase_depths=tuple(phases) if phases is not None else (max_depth,))
+        ok = ok[0] if ok else torch.ones((), dtype=torch.bool, device=dev)
+        return rad, bundle, cnt, ok, (o, d, t, smp)
+
+    def plan():
+        """The untimed planning sweep: per-bounce live-ray maxima over the
+        chunks (bounce b touches the rays with recorded length > b)."""
+        nb_max = torch.zeros(max_depth + 1, dtype=torch.int64, device=dev)
+        for c in range(n_chunks):
+            cnt = decide(c * spp_chunk)[2]
+            hist = torch.bincount(torch.clamp(cnt, 0, max_depth).long(), minlength=max_depth + 1)
+            nb_max = torch.maximum(nb_max, torch.flip(torch.cumsum(torch.flip(hist, [0]), 0), [0]))
+        nb = nb_max.cpu().tolist()
+        # the length histogram whose suffix sums are those maxima
+        hist = [nb[k] - (nb[k + 1] if k < max_depth else 0) for k in range(max_depth + 1)]
+        ns["prefixes"] = plan_prefixes(hist, B, max_depth, margin=1.0)
+        if phases is not None:
+            # the phase starting after s bounces touches only the rays alive then
+            starts = [0]
+            for pdep in phases[:-1]:
+                starts.append(starts[-1] + pdep)
+            ns["decide_prefixes"] = tuple(
+                [None] + [max(BLOCK, min(B, -(-nb[min(s + 1, max_depth)] // BLOCK) * BLOCK))
+                          for s in starts[1:]])
+        return ns["prefixes"]
+
+    def grads_chunk(center, rgb, sample0):
+        rad_pre, bundle, cnt, ok_d, (o, d, t, smp) = decide(sample0)
+        img = (rad_pre * act0[:, None]).reshape(spp_chunk, npix_pad, 3).mean(dim=0)
+        img = img[:n_pix].reshape(cfg.image_height, cfg.image_width, 3)
+        loss = torch.mean((img - target) ** 2)
+        # analytic per-ray radiance cotangent: the rays of pixel p share
+        # dL/dimg[p] / spp_chunk; padding rays contribute nothing
+        gimg = (2.0 / (n_pix * 3)) * (img - target)
+        gpad = torch.cat([gimg.reshape(n_pix, 3),
+                          torch.zeros((npix_pad - n_pix, 3), dtype=torch.float32, device=dev)])
+        rad_bar = gpad.repeat(spp_chunk, 1) * act0[:, None] / spp_chunk
+
+        def ray_regen(orig):
+            # camera rays are pure functions of the original ray index
+            p = torch.clamp(orig % npix_pad, max=n_pix - 1)
+            s = sample0 + torch.div(orig, npix_pad, rounding_mode="floor")
+            ro, rd, rt = cam_mod.generate_rays(cfg, derived, p, s, seed, motion_blur=moving)
+            return ro, rd, rt, p, s
+
+        c = center.detach().requires_grad_(True)
+        r = rgb.detach().requires_grad_(True)
+        table = build_replay_table(dataclasses.replace(
+            scene, spheres=dataclasses.replace(scene.spheres, center=c),
+            textures=dataclasses.replace(scene.textures, rgb=r)))
+        tbar, ok = replay_grads_sorted(
+            scene, table, None, o, d, t, pix, smp, cfg.background, max_depth, seed, rad_bar,
+            cnt, prefixes=ns["prefixes"], ray_regen=ray_regen, compacted=bundle)
+        gc, gr = torch.autograd.grad(table, (c, r), tbar)
+        return loss.detach(), gc, gr, ok & ok_d, cnt.to(torch.int64).sum()
+
+    args = (scene.spheres.center, scene.textures.rgb)
+
+    def sweep():
+        lo = torch.zeros((), dtype=torch.float32, device=dev)
+        gc, gr = torch.zeros_like(args[0]), torch.zeros_like(args[1])
+        segs = torch.zeros((), dtype=torch.int64, device=dev)
+        ok = torch.ones((), dtype=torch.bool, device=dev)
+        for c in range(n_chunks):
+            loss, g1, g2, ok_c, seg = grads_chunk(*args, c * spp_chunk)
+            lo, gc, gr, segs, ok = lo + loss, gc + g1, gr + g2, segs + seg, ok & ok_c
+        return lo, gc, gr, segs, ok
+
+    return dict(grads_chunk=grads_chunk, plan=plan, sweep=sweep, args=args, n_chunks=n_chunks,
+                spp_chunk=spp_chunk, B=B, ns=ns, device=dev)
+
+
+def bench_fwd_bwd(width=400, spp=100, max_depth=20, seed=7, spp_chunk=4, phases="default",
+                  device=DEFAULT_DEVICE, reps=3):
+    """Forward+backward throughput: the planning sweep (untimed), one
+    warm-up sweep, then :func:`time_fwd_bwd` over ``reps`` sweeps."""
+    s = _fwd_bwd_setup(width=width, spp=spp, max_depth=max_depth, seed=seed,
+                       spp_chunk=spp_chunk, phases=phases, device=device)
+    s["plan"]()
+    s["sweep"]()
+    return time_fwd_bwd(s, reps)
+
+
+def time_fwd_bwd(s, reps=3):
+    """The best of ``reps`` timed sweeps of a planned ``_fwd_bwd_setup``
+    over every chunk: loss value and gradients with respect to sphere
+    centers and texture rgbs. Each timed sweep must keep its plan
+    (``ok``), else this raises: the gradients would be incomplete.
+    Segments are the decision pass's exact count, each counted once.
+    Returns ``seconds``, ``segments``, ``rays_per_s``, ``loss``,
+    ``grads_finite`` and the best sweep's ``grad_center`` and
+    ``grad_rgb``."""
+    dev = s["device"]
+    best = None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        lo, gc, gr, segs, ok = s["sweep"]()
+        _sync(dev)
+        ok, segments = bool(ok), int(segs)
+        dt = time.perf_counter() - t0
+        if not ok:
+            raise RuntimeError("replay prefix plan violated: gradients incomplete")
+        if best is None or dt < best[0]:
+            best = (dt, float(lo), gc, gr)
+    dt, loss, gc, gr = best
+    return dict(seconds=dt, segments=segments, rays_per_s=segments / dt, loss=loss,
+                grads_finite=bool(torch.isfinite(gc).all() and torch.isfinite(gr).all()),
+                grad_center=gc, grad_rgb=gr)
+
+
+def main():
+    dev = resolve(DEFAULT_DEVICE)
+    fwd = bench_forward(device=dev)
+    bwd = bench_fwd_bwd(device=dev)
+    print(json.dumps({
+        "metric": "rays_per_s_fwd_final_scene",
+        "value": round(fwd["rays_per_s"]),
+        "unit": "rays/s",
+        "vs_baseline": round(fwd["rays_per_s"] / BASELINE_RAYS_PER_S, 4),
+        "method": fwd["method"],
+        "segments": int(fwd["segments"]),
+        "seconds": round(fwd["seconds"], 4),
+        "backend": "cuda",
+        "device": torch.cuda.get_device_name(dev),
+        "rays_per_s_fwd_bwd": round(bwd["rays_per_s"]),
+        "fwd_bwd_segments": int(bwd["segments"]),
+        "fwd_bwd_seconds": round(bwd["seconds"], 3),
+    }))
+
+
+if __name__ == "__main__":
+    main()

@@ -36,30 +36,25 @@
 //
 // Layout: ray_f is (14, n) f32 with rows ox oy oz dx dy dz tm tr tg tb
 // rr rg rb act; ray_i is (2, n) i32 with rows pix smp. Outputs: rad
-// (3, n) f32, bounces (n,) i32, and optionally the new (14, n) state.
+// (3, n) f32, bounces (n,) i32, optionally the new (14, n) state and,
+// with want_ids, ids (max_depth, n) i32: the global scene id of the
+// winner at each bounce (kid_map of the kernel primitive index), -1 on a
+// miss and on every bounce after the ray died. Bounce-major rows make a
+// warp's stores of one bounce coalesce.
 //
 // The per-ray math also compiles as plain C++ (without __CUDACC__), so its
 // arithmetic can be exercised on a host.
 
-#include <stdint.h>
-
-#ifdef __CUDACC__
-#include <cuda_runtime.h>
-#define RT_DEVICE __device__ __forceinline__
-#define RT_LDG(p) __ldg(p)
-#else
-#include <math.h>
-struct float4 { float x, y, z, w; };
-#define RT_DEVICE static inline
-#define RT_LDG(p) (*(p))
-#endif
+#include "rt_common.cuh"
 
 namespace {
 
+using rt::pcg4d;
+using rt::TWO_PI;
+using rt::u01;
+
 constexpr float BIG = 3.0e38f;
 constexpr float T_MIN = 1e-3f;
-constexpr float TWO_PI = 6.28318530717958647692f;
-constexpr float INV_2_24 = 1.0f / 16777216.0f;
 
 // ray_f rows
 enum { OX, OY, OZ, DX, DY, DZ, TM, TR, TG, TB, RR, RG, RB, ACT, N_F };
@@ -80,33 +75,14 @@ struct TraceParams {
   float* out_rad;        // (3, n)
   int* out_bc;           // (n,)
   float* out_state;      // (N_F, n) or null
+  const int* kid_map;    // (n_res_cols,) kernel primitive -> global scene id
+  int* out_ids;          // (max_depth, n) or null
   uint32_t seed;
   uint32_t b_off;
   int max_depth;
   int ns_pad;            // first quad column of the resolve table
   float bg_r, bg_g, bg_b;
 };
-
-RT_DEVICE void pcg4d(uint32_t& v0, uint32_t& v1, uint32_t& v2, uint32_t& v3) {
-  v0 = v0 * 1664525u + 1013904223u;
-  v1 = v1 * 1664525u + 1013904223u;
-  v2 = v2 * 1664525u + 1013904223u;
-  v3 = v3 * 1664525u + 1013904223u;
-  v0 += v1 * v3;
-  v1 += v2 * v0;
-  v2 += v0 * v1;
-  v3 += v1 * v2;
-  v0 ^= v0 >> 16;
-  v1 ^= v1 >> 16;
-  v2 ^= v2 >> 16;
-  v3 ^= v3 >> 16;
-  v0 += v1 * v3;
-  v1 += v2 * v0;
-  v2 += v0 * v1;
-  v3 += v1 * v2;
-}
-
-RT_DEVICE float u01(uint32_t v) { return (float)(int)(v >> 8) * INV_2_24; }
 
 // Trace ray i through one phase. sph/quad point at the staged sweep tables
 // (float4 rows: 2 per sphere, 4 per quad).
@@ -185,6 +161,7 @@ RT_DEVICE void trace_ray(const TraceParams& p, const float4* sph, const float4* 
         ib = j + p.ns_pad;
       }
     }
+    if (p.out_ids) p.out_ids[(size_t)b * n + i] = t < BIG ? RT_LDG(p.kid_map + ib) : -1;
 
     if (!(t < BIG)) {  // miss: background, then the ray dies
       rr += tr * p.bg_r;
@@ -242,7 +219,8 @@ RT_DEVICE void trace_ray(const TraceParams& p, const float4* sph, const float4* 
     }
 
     // ---- scatter ----
-    uint32_t v0 = pix, v1 = smp, v2 = ((uint32_t)b + p.b_off) * 4u + 2u, v3 = p.seed;
+    uint32_t v0 = pix, v1 = smp, v3 = p.seed;
+    uint32_t v2 = ((uint32_t)b + p.b_off) * rt::N_STREAMS + rt::STREAM_SCATTER;
     pcg4d(v0, v1, v2, v3);
     float ndx, ndy, ndz;
     if (mt == 2.0f) {  // dielectric
@@ -319,6 +297,8 @@ RT_DEVICE void trace_ray(const TraceParams& p, const float4* sph, const float4* 
   p.out_rad[n + i] = rg;
   p.out_rad[2 * n + i] = rb;
   p.out_bc[i] = bounces;
+  if (p.out_ids)  // one id was written per bounce the ray entered alive
+    for (int b = bounces; b < p.max_depth; ++b) p.out_ids[(size_t)b * n + i] = -1;
   if (p.out_state) {
     float* st = p.out_state;
     st[OX * n + i] = ox;
@@ -377,14 +357,15 @@ cudaError_t launch(const TraceParams& p, cudaStream_t stream) {
 extern "C" int rt_trace_block(const float* sph, int n_sph_rows, const float* quad,
                               int n_quad_rows, const float* resolve, int n_res_cols,
                               const float* ray_f, const int* ray_i, int n, float* out_rad,
-                              int* out_bc, float* out_state, uint32_t seed, uint32_t b_off,
-                              int max_depth, int ns_pad, float bg_r, float bg_g, float bg_b,
-                              int moving, void* stream) {
+                              int* out_bc, float* out_state, const int* kid_map,
+                              int* out_ids, uint32_t seed, uint32_t b_off, int max_depth,
+                              int ns_pad, float bg_r, float bg_g, float bg_b, int moving,
+                              void* stream) {
   if (n <= 0) return 0;
-  const TraceParams p{sph,   n_sph_rows, quad,    n_quad_rows, resolve,   n_res_cols,
-                      ray_f, ray_i,      n,       out_rad,     out_bc,    out_state,
-                      seed,  b_off,      max_depth, ns_pad,    bg_r,      bg_g,
-                      bg_b};
+  const TraceParams p{sph,     n_sph_rows, quad,    n_quad_rows, resolve,   n_res_cols,
+                      ray_f,   ray_i,      n,       out_rad,     out_bc,    out_state,
+                      kid_map, out_ids,    seed,    b_off,       max_depth, ns_pad,
+                      bg_r,    bg_g,       bg_b};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(moving ? launch<true>(p, s) : launch<false>(p, s));
 }

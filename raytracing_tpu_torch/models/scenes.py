@@ -12,6 +12,7 @@ from typing import Callable, Dict, Tuple
 
 import numpy as np
 
+from ..core.device import DEFAULT_DEVICE
 from ..render.camera import CameraConfig
 from ..scene.builder import SceneBuilder
 from ..scene.types import Scene
@@ -30,9 +31,10 @@ def register(name: str):
     return deco
 
 
-def build(name: str, device="cpu", **kwargs) -> Tuple[Scene, CameraConfig]:
-    """Build a registry scene by name on ``device``; keyword arguments
-    override the scene's own (``seed``) or its CameraConfig fields."""
+def build(name: str, device=DEFAULT_DEVICE, **kwargs) -> Tuple[Scene, CameraConfig]:
+    """Build a registry scene by name on ``device`` (default: the card;
+    ``device="cpu"`` for the CPU); keyword arguments override the scene's
+    own (``seed``) or its CameraConfig fields."""
     if name not in SCENES:
         raise KeyError(f"unknown scene '{name}'; available: {sorted(SCENES)}")
     return SCENES[name](device=device, **kwargs)
@@ -43,7 +45,7 @@ def _cfg(cfg: CameraConfig, overrides: dict) -> CameraConfig:
 
 
 @register("bouncing_spheres")
-def bouncing_spheres(device="cpu", seed: int = 42, **cam_overrides):
+def bouncing_spheres(device=DEFAULT_DEVICE, seed: int = 42, **cam_overrides):
     """Checker ground + 22×22 seeded grid of small spheres (80% moving
     lambertian / 15% metal / 5% glass) + 3 big spheres."""
     b = SceneBuilder()
@@ -82,7 +84,7 @@ def bouncing_spheres(device="cpu", seed: int = 42, **cam_overrides):
 
 
 @register("checkered_spheres")
-def checkered_spheres(device="cpu", **cam_overrides):
+def checkered_spheres(device=DEFAULT_DEVICE, **cam_overrides):
     """Two r=10 checkered spheres."""
     b = SceneBuilder()
     mat = b.lambertian(b.checker(0.32, (0.2, 0.3, 0.1), (0.9, 0.9, 0.9)))
@@ -97,7 +99,7 @@ def checkered_spheres(device="cpu", **cam_overrides):
 
 
 @register("quads")
-def quads(device="cpu", **cam_overrides):
+def quads(device=DEFAULT_DEVICE, **cam_overrides):
     """Five colored quads."""
     b = SceneBuilder()
     b.quad((-3, -2, 5), (0, 0, -4), (0, 4, 0), b.lambertian((1.0, 0.2, 0.2)))
@@ -114,7 +116,7 @@ def quads(device="cpu", **cam_overrides):
 
 
 @register("cornell_box")
-def cornell_box(device="cpu", **cam_overrides):
+def cornell_box(device=DEFAULT_DEVICE, **cam_overrides):
     """Cornell box with two unrotated blocks."""
     b = SceneBuilder()
     red = b.lambertian((0.65, 0.05, 0.05))
@@ -139,7 +141,7 @@ def cornell_box(device="cpu", **cam_overrides):
 
 
 @register("single_sphere")
-def single_sphere(device="cpu", **cam_overrides):
+def single_sphere(device=DEFAULT_DEVICE, **cam_overrides):
     """Single lambertian sphere on a ground sphere, 200×100 @ 16 spp,
     depth 8."""
     b = SceneBuilder()
@@ -154,7 +156,7 @@ def single_sphere(device="cpu", **cam_overrides):
 
 
 @register("three_spheres")
-def three_spheres(device="cpu", **cam_overrides):
+def three_spheres(device=DEFAULT_DEVICE, **cam_overrides):
     """Lambertian / metal / dielectric trio, 400×225 @ 64 spp, depth 16."""
     b = SceneBuilder()
     b.sphere((0.0, -100.5, -1.0), 100.0, b.lambertian((0.8, 0.8, 0.0)))

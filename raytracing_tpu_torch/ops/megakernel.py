@@ -31,6 +31,7 @@ class MegaScene:
     sph_sweep: torch.Tensor   # (ns_it, 8) f32: cx cy cz vx vy vz r² 0
     quad_sweep: torch.Tensor  # (nq_it, 16) f32
     resolve: torch.Tensor     # (RESOLVE_FIELDS, P) f32: unified-table rows
+    kid_map: torch.Tensor     # (P,) i32: kernel primitive → global scene id, -1 padding
     n_sph: int                # real spheres
     n_quad: int               # real quads
     n_sph_pad: int            # first quad column of ``resolve``
@@ -50,12 +51,16 @@ def build_mega_scene(scene: Scene, device=None) -> MegaScene:
                          "(checker of non-solid textures, or bilinear image filtering)")
     sph, quad, n_sph, n_quad, _ = fl.sweep_tables(scene)
     tkind = table[fl.U_TKIND]
+    kid = np.full(table.shape[1], -1, np.int32)
+    gid = fl.global_id_map(scene)
+    kid[:len(gid)] = gid
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     return MegaScene(
         sph_sweep=t(sph), quad_sweep=t(quad), resolve=t(table[:fl.RESOLVE_FIELDS]),
+        kid_map=t(kid),
         n_sph=n_sph, n_quad=n_quad, n_sph_pad=ns_pad,
         moving=bool(np.any(sph[:, 3:6] != 0.0)),
         has_noise=bool(np.any(tkind == fl.TK_NOISE)),
@@ -80,19 +85,40 @@ def trace_megakernel(mega: MegaScene, o: torch.Tensor, d: torch.Tensor,
                      time: torch.Tensor, pixel_ids: torch.Tensor,
                      sample_ids: torch.Tensor, background, max_depth: int, seed: int,
                      phase_depths=None, active0=None, want_counts: bool = False,
-                     phase_prefixes=None, block_fn=mb.trace_block):
+                     phase_prefixes=None, want_ids=False, block_fn=mb.trace_block):
     """Trace B rays (a multiple of BLOCK) through K1.
 
     Returns ``(radiance (B, 3), segments)`` in camera order, ``segments``
-    an int64 0-d tensor on the rays' device; then ``counts (B,) i32`` (per
-    ray bounces) with ``want_counts``, and the ``ok`` flag (0-d bool
-    tensor) with ``phase_prefixes``. ``phase_prefixes`` holds one entry
-    per phase: None, or a BLOCK multiple up to B; the first must be None.
+    an int64 0-d tensor on the rays' device, then the extras in this
+    order:
+
+    * ``want_ids=True``: ``ids (sum(phases), B) i32``, the global winner
+      id per (bounce, ray) in camera order, -1 on a miss and after the
+      ray died (a prefix-cut tail records -1);
+    * ``want_ids="compacted"``: ``ids0 (pd0, B)`` (the first phase, in
+      camera order), ``later (W, B)`` (the later phases' rows, W =
+      sum(phases[1:]), in the final compacted lane order) and ``perm
+      (B,)`` (the camera index of each compacted lane), for
+      ``replay_grads_sorted(compacted=...)``, which moves ``later``
+      straight to its length order. The JAX package packs three 10-bit
+      ids per int32 word for its sorts; here a ``(pd, B)`` block moves
+      through a compaction with one ``[:, order]`` gather, so the rows are
+      unpacked and the bundle has no ``pack``;
+    * ``want_counts``: ``counts (B,) i32`` (per-ray bounces, camera
+      order), and with ``want_ids="compacted"`` also ``counts_c`` in the
+      compacted order;
+    * ``phase_prefixes``: the ``ok`` flag (0-d bool tensor), False when a
+      phase had a live ray past its prefix. ``phase_prefixes`` holds one
+      entry per phase: None, or a BLOCK multiple up to B; the first must
+      be None.
+
     ``block_fn`` is the K1 implementation (``trace_block``; pass
     ``trace_block_torch`` to run the plain version on any device)."""
     B = o.shape[0]
     if B % BLOCK:
         raise ValueError(f"megakernel batch must be a multiple of {BLOCK}, got {B}")
+    if want_ids not in (False, True, "compacted"):
+        raise ValueError(f"want_ids must be False, True or 'compacted', got {want_ids!r}")
     dev = o.device
     phases = list(phase_depths) if phase_depths is not None else [max_depth]
     if phase_prefixes is not None:
@@ -107,6 +133,8 @@ def trace_megakernel(mega: MegaScene, o: torch.Tensor, d: torch.Tensor,
     counts = torch.zeros(B, dtype=torch.int32, device=dev) if want_counts else None
     segments = torch.zeros((), dtype=torch.int64, device=dev)
     ok = torch.ones((), dtype=torch.bool, device=dev)
+    ids_cam = []    # (pd, B) id blocks in camera order
+    ids_later = []  # "compacted": later phases' blocks, kept in the current lane order
 
     offset = 0
     for pi, pd in enumerate(phases):
@@ -116,12 +144,24 @@ def trace_megakernel(mega: MegaScene, o: torch.Tensor, d: torch.Tensor,
             n = phase_prefixes[pi]
             # exact iff every ray past the prefix is already dead
             ok = ok & ~torch.any(ray_f[mb.ACT, n:] > 0.0)
-        rad, bc, state = block_fn(
+        rad, bc, state, *ids = block_fn(
             mega, ray_f[:, :n].contiguous(), ray_i[:, :n].contiguous(), seed, offset,
-            max_depth=pd, background=background, want_state=not last)
+            max_depth=pd, background=background, want_state=not last,
+            want_ids=bool(want_ids))
         segments = segments + bc.sum()
         if counts is not None:
             counts[:n] += bc
+        if want_ids:
+            blk = torch.full((pd, B), -1, dtype=torch.int32, device=dev)
+            blk[:, :n] = ids[0]
+            if pi == 0:
+                ids_cam.append(blk)  # the first phase runs in camera order
+            elif want_ids == "compacted":
+                ids_later.append(blk)
+            else:
+                cam = torch.empty_like(blk)
+                cam[:, perm] = blk
+                ids_cam.append(cam)
         if last:
             ray_f[mb.RR:mb.RB + 1, :n] = rad
             break
@@ -134,14 +174,23 @@ def trace_megakernel(mega: MegaScene, o: torch.Tensor, d: torch.Tensor,
         perm = perm[order]
         if counts is not None:
             counts = counts[order]
+        ids_later = [x[:, order] for x in ids_later]
 
     radiance = torch.empty((B, 3), dtype=torch.float32, device=dev)
     radiance[perm] = ray_f[mb.RR:mb.RB + 1].T
     out = [radiance, segments]
+    if want_ids == "compacted":
+        later = (torch.cat(ids_later) if ids_later
+                 else torch.zeros((0, B), dtype=torch.int32, device=dev))
+        out += [ids_cam[0], later, perm]
+    elif want_ids:
+        out.append(torch.cat(ids_cam))
     if counts is not None:
         cam_counts = torch.empty_like(counts)
         cam_counts[perm] = counts
         out.append(cam_counts)
+        if want_ids == "compacted":
+            out.append(counts)
     if phase_prefixes is not None:
         out.append(ok)
     return tuple(out)

@@ -7,7 +7,9 @@ at ray time, roots searched in a·t space, strict < so the lowest index
 wins ties) and then every quad row; the winner's attributes from the
 resolve table; solid or checker albedo; lambertian, metal, dielectric or
 light; the next direction from PCG4D keyed on (pix, smp, (b + b_off)·4 + 2,
-seed).
+seed). With ``want_ids`` it also records, per bounce, the global scene id
+of the winner (through ``MegaScene.kid_map``): the decision pass that the
+gradient replay (``diff/replay_kernel.py``) differentiates.
 
 Two implementations compute it:
 
@@ -24,7 +26,9 @@ Ray state is two tensors: ``ray_f (N_F, n) f32`` with rows
 ``OX OY OZ DX DY DZ TM TR TG TB RR RG RB ACT`` (origin, direction, time,
 throughput, radiance, alive flag) and ``ray_i (2, n) i32`` with rows
 ``PIX SMP`` (the RNG identity). Outputs are ``rad (3, n) f32``,
-``bounces (n,) i32`` and, with ``want_state``, the new ``ray_f``.
+``bounces (n,) i32``, with ``want_state`` the new ``ray_f``, and with
+``want_ids`` ``ids (max_depth, n) i32``: -1 on a miss and on every bounce
+after the ray died.
 """
 from __future__ import annotations
 
@@ -34,14 +38,15 @@ import math
 import torch
 
 from ..core import rng as rng_mod
+from ..core.vecmath import NEAR_ZERO_EPS
 from ..scene import flatten as fl
+from .intersect import PARALLEL_EPS, T_MIN
 
 OX, OY, OZ, DX, DY, DZ, TM, TR, TG, TB, RR, RG, RB, ACT = range(14)
 N_F = 14
 PIX, SMP = 0, 1
 
-BIG = 3.0e38
-T_MIN = 1e-3
+BIG = 3.0e38  # K1's miss sentinel: a miss keeps exactly this t
 MT_METAL = 1.0
 MT_DIELECTRIC = 2.0
 MT_LIGHT = 3.0
@@ -66,9 +71,10 @@ def trace_block(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
                 want_state: bool = True, want_ids: bool = False,
                 depth_cap=None):
     """Trace one phase of ``max_depth`` bounces. Returns
-    ``(rad (3, n), bounces (n,) i32, state (N_F, n) or None)``."""
-    if want_ids or depth_cap is not None:
-        raise NotImplementedError("K1 port: want_ids and depth_cap are not ported yet")
+    ``(rad (3, n), bounces (n,) i32, state (N_F, n) or None)``, and
+    ``ids (max_depth, n) i32`` after them with ``want_ids``."""
+    if depth_cap is not None:
+        raise NotImplementedError("K1 port: depth_cap is not ported yet")
     if mega.has_noise or mega.has_image:
         raise NotImplementedError("K1 port: noise and image textures are not ported yet")
     n = ray_f.shape[1]
@@ -77,13 +83,13 @@ def trace_block(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
     if ray_i.shape != (2, n) or ray_i.dtype != torch.int32:
         raise ValueError(f"ray_i must be (2, n) int32, got {tuple(ray_i.shape)} {ray_i.dtype}")
     dev = ray_f.device
-    tables = (mega.sph_sweep, mega.quad_sweep, mega.resolve)
+    tables = (mega.sph_sweep, mega.quad_sweep, mega.resolve, mega.kid_map)
     if any(t.device != dev for t in (ray_i, *tables)):
         raise ValueError("scene tables and ray state must be on one device")
     if dev.type == "cpu":
         return trace_block_torch(mega, ray_f, ray_i, seed, b_off,
                                  max_depth=max_depth, background=background,
-                                 want_state=want_state)
+                                 want_state=want_state, want_ids=want_ids)
     if dev.type != "cuda":
         raise ValueError(f"K1 runs on CUDA tensors (kernel) or CPU tensors (plain version), not {dev}")
     if not all(t.is_contiguous() for t in (ray_f, ray_i, *tables)):
@@ -102,8 +108,10 @@ def trace_block(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
     rad = torch.empty((3, n), dtype=torch.float32, device=dev)
     bounces = torch.empty((n,), dtype=torch.int32, device=dev)
     state = torch.empty((N_F, n), dtype=torch.float32, device=dev) if want_state else None
+    ids = torch.empty((max_depth, n), dtype=torch.int32, device=dev) if want_ids else None
+    out = (rad, bounces, state, ids) if want_ids else (rad, bounces, state)
     if n == 0:
-        return rad, bounces, state
+        return out
     global launches
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -113,14 +121,14 @@ def trace_block(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
             mega.resolve.data_ptr(), mega.resolve.shape[1],
             ray_f.data_ptr(), ray_i.data_ptr(), n,
             rad.data_ptr(), bounces.data_ptr(),
-            state.data_ptr() if want_state else None,
-            ctypes.c_uint32(seed), ctypes.c_uint32(b_off), max_depth,
+            state.data_ptr() if want_state else None, mega.kid_map.data_ptr(),
+            ids.data_ptr() if want_ids else None, ctypes.c_uint32(seed), ctypes.c_uint32(b_off), max_depth,
             mega.n_sph_pad, float(background[0]), float(background[1]),
             float(background[2]), int(mega.moving), stream)
     launches += 1
     if err != 0:
         raise RuntimeError(f"K1 launch failed: {lib.rt_error_string(err).decode()}")
-    return rad, bounces, state
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -166,7 +174,7 @@ def _closest_hit(mega, ox, oy, oz, dx, dy, dz, tm):
         q = mega.quad_sweep[j0:j0 + PLAIN_CHUNK].T
         nx, ny, nz = q[0], q[1], q[2]
         denom = nx * rdx + ny * rdy + nz * rdz
-        safe = torch.where(torch.abs(denom) < 1e-8, 1.0, denom)
+        safe = torch.where(torch.abs(denom) < PARALLEL_EPS, 1.0, denom)
         tq = (q[3] - (nx * rox + ny * roy + nz * roz)) / safe
         px = rox + tq * rdx - q[4]
         py = roy + tq * rdy - q[5]
@@ -176,7 +184,7 @@ def _closest_hit(mega, ox, oy, oz, dx, dy, dz, tm):
                  + wz * (px * vy - py * vx))
         beta = (wx * (uy * pz - uz * py) + wy * (uz * px - ux * pz)
                 + wz * (ux * py - uy * px))
-        imp = ((torch.abs(denom) >= 1e-8) & (tq > T_MIN)
+        imp = ((torch.abs(denom) >= PARALLEL_EPS) & (tq > T_MIN)
                & (alpha >= 0.0) & (alpha <= 1.0) & (beta >= 0.0) & (beta <= 1.0))
         tmin_q, arg = torch.min(torch.where(imp, tq, inf), dim=1)
         better = tmin_q < t
@@ -187,7 +195,7 @@ def _closest_hit(mega, ox, oy, oz, dx, dy, dz, tm):
 
 def trace_block_torch(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
                       b_off: int, *, max_depth: int, background,
-                      want_state: bool = True):
+                      want_state: bool = True, want_ids: bool = False):
     """Plain PyTorch K1 with the kernel's inputs, outputs and arithmetic
     (each multiply and add rounded on its own, as the kernel is built with
     ``-fmad=false``). Runs on any device."""
@@ -196,6 +204,8 @@ def trace_block_torch(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
     bg_r, bg_g, bg_b = (float(x) for x in background)
     active = act > 0.5
     bounces = torch.zeros(ray_f.shape[1], dtype=torch.int32, device=ray_f.device)
+    ids = (torch.full((max_depth, ray_f.shape[1]), -1, dtype=torch.int32, device=ray_f.device)
+           if want_ids else None)
     res = mega.resolve
     ns_pad = mega.n_sph_pad
     for b in range(max_depth):
@@ -203,6 +213,8 @@ def trace_block_torch(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
             break
         t, ib = _closest_hit(mega, ox, oy, oz, dx, dy, dz, tm)
         hit = t < BIG
+        if want_ids:
+            ids[b] = torch.where(active & hit, mega.kid_map[ib.clamp(min=0)], -1)
         miss = active & ~hit
         rad_r = rad_r + torch.where(miss, thr_r * bg_r, 0.0)
         rad_g = rad_g + torch.where(miss, thr_g * bg_g, 0.0)
@@ -257,7 +269,8 @@ def trace_block_torch(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
         ldx = nx + rux
         ldy = ny + ruy
         ldz = nz + ruz
-        degen = (torch.abs(ldx) < 1e-8) & (torch.abs(ldy) < 1e-8) & (torch.abs(ldz) < 1e-8)
+        degen = ((torch.abs(ldx) < NEAR_ZERO_EPS) & (torch.abs(ldy) < NEAR_ZERO_EPS)
+                 & (torch.abs(ldz) < NEAR_ZERO_EPS))
         ldx = torch.where(degen, nx, ldx)
         ldy = torch.where(degen, ny, ldy)
         ldz = torch.where(degen, nz, ldz)
@@ -331,4 +344,4 @@ def trace_block_torch(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
     if want_state:
         state = torch.stack([ox, oy, oz, dx, dy, dz, tm, thr_r, thr_g, thr_b,
                              rad_r, rad_g, rad_b, active.to(torch.float32)])
-    return rad, bounces, state
+    return (rad, bounces, state, ids) if want_ids else (rad, bounces, state)

@@ -12,6 +12,7 @@ from typing import Tuple
 import torch
 
 from ..core import rng as rng_mod
+from ..core.device import DEFAULT_DEVICE, resolve
 
 
 @dataclass(frozen=True)
@@ -50,7 +51,8 @@ class CameraParams:
     focus_dist: torch.Tensor     # ()
 
     @classmethod
-    def from_config(cls, cfg: CameraConfig, device="cpu") -> "CameraParams":
+    def from_config(cls, cfg: CameraConfig, device=DEFAULT_DEVICE) -> "CameraParams":
+        device = resolve(device)
         def t(x):
             return torch.tensor(x, dtype=torch.float32, device=device)
 

@@ -13,6 +13,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..core.device import DEFAULT_DEVICE, resolve
 from .types import (
     MAT_DIELECTRIC,
     MAT_DIFFUSE_LIGHT,
@@ -165,10 +166,12 @@ class SceneBuilder:
     def n_quads(self) -> int:
         return len(self.quad_mat)
 
-    def compile(self, device="cpu") -> Scene:
-        """Lower the builder state to a :class:`Scene` on ``device``.
+    def compile(self, device=DEFAULT_DEVICE) -> Scene:
+        """Lower the builder state to a :class:`Scene` on ``device`` (default:
+        the card; raises without CUDA unless ``device="cpu"``).
         Primitive tables are padded to a multiple of 8 rows with inert
         entries (zero-radius spheres, degenerate quads)."""
+        device = resolve(device)
         n_sph = _pad_to(max(self.n_spheres, 1), 8)
         n_quad = _pad_to(max(self.n_quads, 1), 8)
 

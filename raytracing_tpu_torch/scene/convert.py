@@ -15,6 +15,7 @@ from dataclasses import fields
 import numpy as np
 import torch
 
+from ..core.device import DEFAULT_DEVICE, resolve
 from ..render.camera import CameraParams
 from .types import (
     TEX_CHECKER,
@@ -33,9 +34,10 @@ _GROUPS = {"spheres": Spheres, "quads": Quads, "materials": Materials,
            "textures": Textures, "atlas": ImageAtlas}
 
 
-def scene_from_arrays(d: dict, device="cpu", image_bilinear: bool = False) -> Scene:
+def scene_from_arrays(d: dict, device=DEFAULT_DEVICE, image_bilinear: bool = False) -> Scene:
     """``{"spheres.center": array, ...}`` → :class:`Scene` on ``device``.
     The flags are derived from the arrays."""
+    device = resolve(device)
     parts = {}
     for group, cls in _GROUPS.items():
         parts[group] = cls(**{
@@ -52,8 +54,9 @@ def scene_from_arrays(d: dict, device="cpu", image_bilinear: bool = False) -> Sc
     return Scene(**parts, flags=flags)
 
 
-def camera_params_from_arrays(d: dict, device="cpu") -> CameraParams:
+def camera_params_from_arrays(d: dict, device=DEFAULT_DEVICE) -> CameraParams:
     """``{"lookfrom": (3,), ..., "focus_dist": ()}`` → :class:`CameraParams`."""
+    device = resolve(device)
     return CameraParams(**{
         f.name: torch.tensor(np.asarray(d[f.name], np.float32), device=device)
         for f in fields(CameraParams)})

@@ -1,5 +1,6 @@
 """raytracing_tpu_torch core and camera against raytracing_tpu: the PCG4D
 hash and the u8 quantizer bit-exact, camera rays to 1e-6."""
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -88,11 +89,15 @@ def test_generate_rays_defocus_and_motion():
 
 
 def test_port_imports_without_jax():
+    """Neither the port nor chip_smoke.py imports JAX or the JAX package."""
     code = ("import sys, raytracing_tpu_torch, raytracing_tpu_torch.ops.megakernel, "
-            "raytracing_tpu_torch.scene.convert; "
-            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax')]; "
+            "raytracing_tpu_torch.scene.convert, raytracing_tpu_torch.diff, "
+            "raytracing_tpu_torch.bench; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'optax', 'raytracing_tpu')]; "
             "assert not bad, bad")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
     assert r.returncode == 0, r.stderr
-    sources = (REPO / "raytracing_tpu_torch").rglob("*.py")
-    assert not [p for p in sources if "import jax" in p.read_text()]
+    sources = [*(REPO / "raytracing_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]
+    imports = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|raytracing_tpu)(\.|\s|$)", re.M)
+    assert not [p for p in sources if imports.search(p.read_text())]

@@ -1,7 +1,7 @@
-"""The port's CUDA kernel on the card: K1 against its plain PyTorch version
-and a render on the card against the same render on the CPU. Marked
-``cuda``; each test skips when no CUDA device is present. On a GPU
-machine:
+"""The port's CUDA kernels on the card: K1 (with recorded ids), K3 and K2
+against their plain PyTorch versions, and a render on the card against
+the same render on the CPU. Marked ``cuda``; each test skips when no CUDA
+device is present. On a GPU machine:
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 """
@@ -11,7 +11,9 @@ import torch
 
 from raytracing_tpu_torch import Renderer, build
 from raytracing_tpu_torch.ops import megakernel_block as mb
-from raytracing_tpu_torch.ops.megakernel import build_mega_scene, pack_rays
+from raytracing_tpu_torch.diff import replay_fast as rf
+from raytracing_tpu_torch.diff import replay_kernel as rk
+from raytracing_tpu_torch.ops.megakernel import build_mega_scene, pack_rays, trace_megakernel
 from raytracing_tpu_torch.render import camera as cam
 from torch_parity import segments_close
 
@@ -22,7 +24,7 @@ SEED = 7
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the K1 kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the port's CUDA kernels have no CPU mode")
     return torch.device("cuda", 0)
 
 
@@ -39,12 +41,13 @@ def test_kernel_matches_plain_version(dev, name, exact, b_off):
                                 pix, smp, SEED, motion_blur=scene.flags.has_moving)
     ray_f, ray_i = pack_rays(o, d, t, pix, smp)
     args = (mega, ray_f, ray_i, SEED, b_off)
-    kw = dict(max_depth=6, background=cfg.background)
+    kw = dict(max_depth=6, background=cfg.background, want_ids=True)
     before = mb.launches
-    rad, bc, state = mb.trace_block(*args, **kw)
+    rad, bc, state, ids = mb.trace_block(*args, **kw)
     torch.cuda.synchronize()
     assert mb.launches == before + 1
-    rad_p, bc_p, state_p = mb.trace_block_torch(*args, **kw)
+    rad_p, bc_p, state_p, ids_p = mb.trace_block_torch(*args, **kw)
+    assert torch.equal(ids, ids_p)
     diff = (rad - rad_p).abs()
     assert (diff.max() < 1e-5) if exact else (diff.mean() < 2e-3)
     assert segments_close(bc_p.sum(), bc.sum())
@@ -54,9 +57,43 @@ def test_kernel_matches_plain_version(dev, name, exact, b_off):
 def test_render_on_card_matches_cpu(dev):
     kw = dict(image_width=48, samples_per_pixel=2, max_depth=8)
     s_gpu, cfg = build("bouncing_spheres", device=dev, **kw)
-    s_cpu, _ = build("bouncing_spheres", **kw)
+    s_cpu, _ = build("bouncing_spheres", device="cpu", **kw)
     r = Renderer(cfg, phase_depths=[2, 2, 4])
     g = r.render(s_gpu, seed=SEED)
     c = r.render(s_cpu, seed=SEED)
     assert np.abs(g.radiance - c.radiance).mean() < 2e-3
     assert segments_close(c.segments, g.segments)
+
+
+@pytest.mark.parametrize("name", ["three_spheres", "cornell_box", "bouncing_spheres"])
+def test_replay_kernels_match_plain_versions(dev, name):
+    """K3's radiance and counts equal its plain version's; K2's cotangents,
+    reduced to the table on the CPU, match autograd through the plain
+    forward at rtol 3e-5, atol 3e-6."""
+    scene, cfg = build(name, device=dev, image_width=64, samples_per_pixel=1, max_depth=6)
+    B = -(-cfg.n_pixels // 1024) * 1024
+    pix = torch.clamp(torch.arange(B, device=dev), max=cfg.n_pixels - 1)
+    smp = torch.zeros_like(pix)
+    act = torch.arange(B, device=dev) < cfg.n_pixels
+    o, d, t = cam.generate_rays(cfg, cam.derive(cfg, cam.CameraParams.from_config(cfg, dev)),
+                                pix, smp, SEED, motion_blur=scene.flags.has_moving)
+    _, _, ids, cnt = trace_megakernel(build_mega_scene(scene), o, d, t, pix, smp,
+                                      cfg.background, 6, SEED, phase_depths=[2, 4], active0=act,
+                                      want_ids=True, want_counts=True)
+    table = rf.build_replay_table(scene).detach()
+    ray_f = rk.pack_replay_rays(o, d, t, act)
+    ray_i = torch.stack([pix, smp]).to(torch.int32)
+    maxlen = rk.tile_maxlen(cnt, 6)
+    rad_bar = torch.randn((3, B), generator=torch.Generator(dev).manual_seed(3), device=dev)
+    kw = dict(seed=SEED, n_sph=scene.n_spheres, has_moving=scene.flags.has_moving,
+              background=cfg.background)
+    rad, bc = rk.replay_fwd(table, ids, ray_f, ray_i, maxlen, **kw)
+    g = rk.replay_bwd(table, ids, ray_f, ray_i, rad_bar, maxlen, **kw)
+    torch.cuda.synchronize()
+    rad_p, bc_p = rk.replay_fwd_torch(table, ids, ray_f, ray_i, maxlen, **kw)
+    g_p = rk.replay_bwd_torch(table, ids, ray_f, ray_i, rad_bar, maxlen, **kw)
+    assert torch.equal(rad, rad_p) and torch.equal(bc, bc_p)
+    L = table.shape[0]
+    torch.testing.assert_close(rk.reduce_table_grads(g.cpu(), ids.cpu(), L),
+                               rk.reduce_table_grads(g_p.cpu(), ids.cpu(), L),
+                               rtol=3e-5, atol=3e-6)

@@ -102,11 +102,11 @@ HOST_HARNESS = r"""
 extern "C" void host_trace(const float* sph, int n_sph_rows, const float* quad,
     int n_quad_rows, const float* resolve, int n_res_cols, const float* ray_f,
     const int* ray_i, int n, float* out_rad, int* out_bc, float* out_state,
-    uint32_t seed, uint32_t b_off, int max_depth, int ns_pad, float bg_r,
-    float bg_g, float bg_b, int moving) {
+    const int* kid_map, int* out_ids, uint32_t seed, uint32_t b_off, int max_depth,
+    int ns_pad, float bg_r, float bg_g, float bg_b, int moving) {
   TraceParams p{sph, n_sph_rows, quad, n_quad_rows, resolve, n_res_cols, ray_f,
-                ray_i, n, out_rad, out_bc, out_state, seed, b_off, max_depth,
-                ns_pad, bg_r, bg_g, bg_b};
+                ray_i, n, out_rad, out_bc, out_state, kid_map, out_ids, seed, b_off,
+                max_depth, ns_pad, bg_r, bg_g, bg_b};
   const float4* s = reinterpret_cast<const float4*>(sph);
   const float4* q = reinterpret_cast<const float4*>(quad);
   for (int i = 0; i < n; ++i) {
@@ -131,7 +131,8 @@ def host_k1(tmp_path_factory):
                    check=True, capture_output=True)
     lib = ctypes.CDLL(str(so))
     P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-    lib.host_trace.argtypes = [P, I, P, I, P, I, P, P, I, P, P, P, U, U, I, I, F, F, F, I]
+    lib.host_trace.argtypes = [P, I, P, I, P, I, P, P, I, P, P, P, P, P, U, U, I, I, F, F, F,
+                               I]
     lib.host_trace.restype = None
     return lib
 
@@ -140,20 +141,23 @@ def host_k1(tmp_path_factory):
 def test_kernel_source_on_the_host_matches_plain(host_k1, name):
     """The CUDA source's arithmetic, compiled for the CPU without FMA
     contraction, against the plain version: same bars as above (host
-    libm and PyTorch may differ by an ulp in sin/cos)."""
+    libm and PyTorch may differ by an ulp in sin/cos). The recorded ids
+    agree on every ray whose state agrees."""
     scene, cfg, ray_f, ray_i = _inputs(name)
     mega = pmega(port_scene(scene))
     f, i = torch.from_numpy(ray_f), torch.from_numpy(ray_i)
     rad = torch.empty(3, B)
     bc = torch.empty(B, dtype=torch.int32)
     state = torch.empty(mb.N_F, B)
+    ids = torch.empty(DEPTH, B, dtype=torch.int32)
     n_sph_rows, n_quad_rows = mb._sweep_rows(mega)
     host_k1.host_trace(
         mega.sph_sweep.data_ptr(), n_sph_rows, mega.quad_sweep.data_ptr(), n_quad_rows,
         mega.resolve.data_ptr(), mega.resolve.shape[1], f.data_ptr(), i.data_ptr(), B,
-        rad.data_ptr(), bc.data_ptr(), state.data_ptr(), SEED, 3, DEPTH, mega.n_sph_pad,
-        *cfg.background, int(mega.moving))
-    ref = mb.trace_block_torch(mega, f, i, SEED, 3, max_depth=DEPTH, background=cfg.background)
+        rad.data_ptr(), bc.data_ptr(), state.data_ptr(), mega.kid_map.data_ptr(),
+        ids.data_ptr(), SEED, 3, DEPTH, mega.n_sph_pad, *cfg.background, int(mega.moving))
+    ref = mb.trace_block_torch(mega, f, i, SEED, 3, max_depth=DEPTH, background=cfg.background,
+                               want_ids=True)
     diff = (rad - ref[0]).abs()
     if name == "bouncing_spheres":
         assert diff.mean() < 2e-3
@@ -162,7 +166,9 @@ def test_kernel_source_on_the_host_matches_plain(host_k1, name):
     assert segments_close(ref[1].sum(), bc.sum())
     rows = STATE_ROWS
     bad = ((state[rows] - ref[2][rows]).abs() > 1e-3 * ref[2][rows].abs().clamp(min=1)).any(0)
-    assert int((bad | (bc != ref[1])).sum()) <= max(4, B // 200)
+    bad |= bc != ref[1]
+    assert int(bad.sum()) <= max(4, B // 200)
+    assert torch.equal(ids[:, ~bad], ref[3][:, ~bad])
 
 
 def test_phase_offset_feeds_the_rng():
@@ -178,12 +184,14 @@ def test_phase_offset_feeds_the_rng():
 
 
 def test_wrapper_refuses_what_k1_does_not_port():
+    """want_ids is ported (a fourth output); depth_cap, noise and bad
+    shapes or types are refused."""
     scene, cfg, ray_f, ray_i = _inputs("three_spheres")
     mega = pmega(port_scene(scene))
     f, i = torch.from_numpy(ray_f), torch.from_numpy(ray_i)
     kw = dict(max_depth=2, background=cfg.background)
-    with pytest.raises(NotImplementedError):
-        mb.trace_block(mega, f, i, 0, 0, want_ids=True, **kw)
+    *_, ids = mb.trace_block(mega, f, i, 0, 0, want_ids=True, **kw)
+    assert ids.shape == (2, B) and ids.dtype == torch.int32
     with pytest.raises(NotImplementedError):
         mb.trace_block(mega, f, i, 0, 0, depth_cap=4, **kw)
     with pytest.raises(ValueError):

@@ -21,7 +21,7 @@ def test_render_matches_xla_integrator():
     kw = dict(image_width=32, samples_per_pixel=2, max_depth=7)
     sj, cfg_j = jbuild("bouncing_spheres", **kw)
     ref = JRenderer(cfg_j, hit_method="brute", mode="while").render(sj, seed=SEED)
-    scene, cfg = build("bouncing_spheres", **kw)
+    scene, cfg = build("bouncing_spheres", device="cpu", **kw)
     out = Renderer(cfg, hit_method="mega", phase_depths=[2, 2, 3]).render(scene, seed=SEED)
     assert out.radiance.shape == ref.radiance.shape
     assert np.abs(out.radiance - ref.radiance).mean() < 2e-3
@@ -35,7 +35,7 @@ def test_render_matches_xla_integrator():
 
 @pytest.mark.parametrize("name", ["bouncing_spheres", "cornell_box"])
 def test_phased_equals_single_phase(name):
-    scene, cfg = build(name, image_width=32, samples_per_pixel=2, max_depth=7)
+    scene, cfg = build(name, device="cpu", image_width=32, samples_per_pixel=2, max_depth=7)
     one = Renderer(cfg, phase_depths=[7]).render(scene, seed=SEED)
     ph = Renderer(cfg, phase_depths=[2, 2, 3]).render(scene, seed=SEED)
     assert one.segments == ph.segments
@@ -43,7 +43,8 @@ def test_phased_equals_single_phase(name):
 
 
 def test_planned_prefixes_are_exact_and_undersized_raise():
-    scene, cfg = build("bouncing_spheres", image_width=64, samples_per_pixel=2, max_depth=7)
+    scene, cfg = build("bouncing_spheres", device="cpu", image_width=64, samples_per_pixel=2,
+                       max_depth=7)
     kw = dict(phase_depths=[2, 2, 3], transfer="u8")
     base = Renderer(cfg, **kw).render(scene, seed=SEED)
     r = Renderer(cfg, **kw)

@@ -31,7 +31,7 @@ def _tables(flatten, scene):
 @pytest.mark.parametrize("name", SCENES)
 def test_tables_equal_jax(name):
     sj, cfg_j = jbuild(name)
-    sp, cfg_p = pbuild(name)
+    sp, cfg_p = pbuild(name, device="cpu")
     assert cfg_p == type(cfg_p)(**vars(cfg_j))
     ref = _tables(jfl, sj)
     # the port's own builder: the same scene arrays ...
@@ -69,10 +69,31 @@ def test_translate_box_and_noise_flags():
         b.box((0, 0, 0), (165, 165, 165), white)
         with b.translate((1, 2, 3)):
             b.sphere((0, 0, 0), 1.0, b.lambertian(b.noise(4.0)), center2=(0, 1, 0))
-    scene = b.compile()
+    scene = b.compile(device="cpu")
     assert scene.n_quads == 8 and b.n_quads == 6
     np.testing.assert_array_equal(scene.quads.q[0].numpy(), [130, 0, 230])
     np.testing.assert_array_equal(scene.spheres.center[0].numpy(), [131, 2, 68])
     assert scene.flags.has_noise and scene.flags.has_moving
     mega = pmega(scene)
     assert mega.has_noise and mega.moving
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Every entry point builds on the card unless told otherwise: where
+    CUDA is unavailable, a call with no device raises instead of falling
+    back to the CPU."""
+    from raytracing_tpu_torch.render.camera import CameraParams
+    from raytracing_tpu_torch.scene.convert import camera_params_from_arrays, scene_from_arrays
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sj, cfg = jbuild("three_spheres")
+    calls = [lambda: pbuild("three_spheres"), lambda: SceneBuilder().compile(),
+             lambda: CameraParams.from_config(cfg),
+             lambda: scene_from_arrays(scene_arrays(sj)),
+             lambda: camera_params_from_arrays({k: getattr(cfg, k) for k in (
+                 "lookfrom", "lookat", "vup", "vfov", "defocus_angle", "focus_dist")})]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is unavailable"):
+            call()
+    scene, _ = pbuild("three_spheres", device="cpu")
+    assert scene.spheres.center.device.type == "cpu"

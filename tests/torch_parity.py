@@ -25,7 +25,7 @@ def scene_arrays(scene) -> dict:
 
 def port_scene(scene_jax):
     """The JAX scene's arrays as a port ``Scene`` on the CPU."""
-    return scene_from_arrays(scene_arrays(scene_jax),
+    return scene_from_arrays(scene_arrays(scene_jax), device="cpu",
                              image_bilinear=scene_jax.flags.image_bilinear)
 
 
@@ -33,7 +33,7 @@ def port_params(params_jax):
     """JAX ``CameraParams`` → port ``CameraParams`` on the CPU."""
     return camera_params_from_arrays(
         {f.name: np.asarray(getattr(params_jax, f.name))
-         for f in dataclasses.fields(params_jax)})
+         for f in dataclasses.fields(params_jax)}, device="cpu")
 
 
 def t(a) -> torch.Tensor:
