@@ -19,6 +19,15 @@ table reductions. Phase 6 runs the fwd+bwd bench
 kernels' launches in one of its sweeps.
 Phase 7 drives replay_trace_kernel (K3 forward, K2 backward by
 autograd) on that chunk and counts its launches.
+Phase 8 holds K5 (the group megakernel, BVH walk and dense sweep) against
+its plain version, bit for bit, on small scenes, and the walk against the
+sweep. Phase 9 runs one full-width depth-20 launch (B = 180,224) of
+bouncing_spheres_64 (the bench scene on a 64x64 grid, ~4,100 spheres) and
+of bouncing_spheres forced through the walk: K5 against its plain version
+and against K1 on the same rays, with times and K5's bound from the plain
+version's visit counts. Phase 10 renders bouncing_spheres_64 (400x225,
+100 spp, depth 20) through Renderer, which picks K5 on its own, and
+counts the kernels' launches.
 
 Prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}. Exits
@@ -47,10 +56,73 @@ K1_OPS_PER_QUAD_ROW = 45
 K1_OPS_SHADE = 150           # resolve, texture, PCG4D, scatter, bookkeeping per segment
 K3_OPS_PER_SEGMENT = 300     # bounce_fwd with PCG4D
 K2_OPS_PER_SEGMENT = 950     # bounce_fwd twice (sweep and recompute) + bounce_bwd
+K5_OPS_PER_NODE = 28         # slab test: 6 sub, 6 mul, 12 min/max, compare, link select
+K5_OPS_PER_SPHERE_MEMBER = 44  # center at time 6, oc 3, b 5, c 7, disc 3, sqrt 2, roots 5, tests 10, fold 3
+K5_OPS_PER_QUAD_MEMBER = 66    # denom 5, plane t 8, point 9, alpha 14, beta 14, tests 11, fold 3
+K5_OPS_SHADE = K1_OPS_SHADE  # the shared shading (rt_shade.cuh)
 
 
 def segments_close(ref: int, s: int) -> bool:
     return abs(int(ref) - int(s)) <= max(4, int(ref) // 200)
+
+
+def bouncing_spheres_64(device):
+    """The bench scene with its grid widened from 22x22 to 64x64 (the same
+    rng stream, materials, camera and 3 big spheres; ~4,100 spheres, 514
+    chunks of 8, so the trace walks the BVH in K5). Returns (scene, cfg)
+    at 400x225, 100 spp, depth 20."""
+    import numpy as np
+    from raytracing_tpu_torch.render.camera import CameraConfig
+    from raytracing_tpu_torch.scene.builder import SceneBuilder
+
+    b = SceneBuilder()
+    ground = b.lambertian(b.checker(0.32, (0.2, 0.3, 0.1), (0.9, 0.9, 0.9)))
+    b.sphere((0.0, -1000.0, -1.0), 1000.0, ground)
+    rng = np.random.default_rng(42)
+    for a in range(-32, 32):
+        for bb in range(-32, 32):
+            choose_mat = rng.random()
+            center = np.array([a + 0.9 * rng.random(), 0.2, bb + 0.9 * rng.random()])
+            if np.linalg.norm(center - np.array([4.0, 0.2, 0.0])) > 0.9:
+                if choose_mat < 0.8:
+                    albedo = rng.random(3) * rng.random(3)
+                    mat = b.lambertian(tuple(albedo))
+                    center2 = center + np.array([0.0, rng.uniform(0.0, 0.5), 0.0])
+                    b.sphere(tuple(center), 0.2, mat, center2=tuple(center2))
+                elif choose_mat < 0.95:
+                    albedo = rng.uniform(0.5, 1.0, 3)
+                    mat = b.metal(tuple(albedo), rng.uniform(0.0, 0.5))
+                    b.sphere(tuple(center), 0.2, mat)
+                else:
+                    b.sphere(tuple(center), 0.2, b.dielectric(1.5))
+    b.sphere((0.0, 1.0, 0.0), 1.0, b.dielectric(1.5))
+    b.sphere((-4.0, 1.0, 0.0), 1.0, b.lambertian((0.4, 0.2, 0.1)))
+    b.sphere((4.0, 1.0, 0.0), 1.0, b.metal((0.7, 0.6, 0.5), 0.0))
+    cfg = CameraConfig(aspect_ratio=16.0 / 9.0, image_width=400, samples_per_pixel=100,
+                       max_depth=20, background=(0.7, 0.8, 1.0), vfov=20.0,
+                       lookfrom=(13.0, 2.0, 3.0), lookat=(0.0, 0.0, 0.0), vup=(0.0, 1.0, 0.0),
+                       defocus_angle=0.6, focus_dist=10.0)
+    return b.compile(device), cfg
+
+
+def mixed_scene(device):
+    """Spheres, a quad and emitters under a black sky (the JAX package's
+    tests/test_megakernel.py test_bvh_mixed_scene), 32 px, depth 6."""
+    from raytracing_tpu_torch.render.camera import CameraConfig
+    from raytracing_tpu_torch.scene.builder import SceneBuilder
+
+    b = SceneBuilder()
+    b.sphere((0, -1000, 0), 1000.0, b.lambertian((0.6, 0.6, 0.2)))
+    for i in range(24):
+        b.sphere((i % 6 * 2 - 5, 0.5, i // 6 * 2 - 3), 0.5,
+                 b.lambertian((0.2 + 0.03 * i, 0.4, 0.6)))
+    light = b.diffuse_light((4.0, 4.0, 4.0))
+    b.quad((3, 1, -2), (2, 0, 0), (0, 2, 0), light)
+    b.sphere((0, 7, 0), 2.0, light)
+    cfg = CameraConfig(image_width=32, aspect_ratio=1.0, samples_per_pixel=1, max_depth=6,
+                       vfov=20.0, lookfrom=(26.0, 3.0, 6.0), lookat=(0.0, 2.0, 0.0),
+                       background=(0.0, 0.0, 0.0))
+    return b.compile(device), cfg
 
 
 def first_launch(scene, cfg, n_block, spp_chunk, dev):
@@ -114,6 +186,17 @@ def onehot_reduce(torch, rk, g, ids, L, prefixes):
     return tbar
 
 
+def timed(torch, fn):
+    """(fn(), device milliseconds of that one call)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def bound(ops, nbytes):
     """(bound_ms, bound_by): the least time for ``ops`` FP32 operations
     and ``nbytes`` of memory traffic."""
@@ -135,7 +218,9 @@ def main() -> int:
     from raytracing_tpu_torch.diff import replay_fast as rf
     from raytracing_tpu_torch.diff import replay_kernel as rk
     from raytracing_tpu_torch.ops import megakernel_block as mb
-    from raytracing_tpu_torch.ops.megakernel import build_mega_scene, trace_megakernel
+    from raytracing_tpu_torch.ops import megakernel_group as mg
+    from raytracing_tpu_torch.ops.megakernel import (build_mega_scene, select_layout,
+                                                     trace_megakernel)
     from raytracing_tpu_torch.render import camera as cam
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -149,10 +234,10 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     def zero_counts():
-        mb.launches = rk.fwd_launches = rk.bwd_launches = 0
+        mb.launches = rk.fwd_launches = rk.bwd_launches = mg.launches = 0
 
     def counts():
-        return dict(K1=mb.launches, K3=rk.fwd_launches, K2=rk.bwd_launches)
+        return dict(K1=mb.launches, K3=rk.fwd_launches, K2=rk.bwd_launches, K5=mg.launches)
 
     # ---- phase 1: build ----
     t0 = time.perf_counter()
@@ -201,7 +286,7 @@ def main() -> int:
     best = min(runs, key=lambda x: x.seconds)
     img = res.u8
     # one K1 launch per phase of every chunk: 5 × 50 = 250
-    render_ok = (res.ok is True and render_counts == dict(K1=5 * res.launches, K3=0, K2=0)
+    render_ok = (res.ok is True and render_counts == dict(K1=5 * res.launches, K3=0, K2=0, K5=0)
                  and segments_close(BENCH_SEGMENTS, res.segments)
                  and all(x.segments == res.segments for x in runs)
                  and img.shape == (cfg.image_height, cfg.image_width, 3)
@@ -253,12 +338,12 @@ def main() -> int:
     phased = dict(phase_depths=kw["phase_depths"], active0=alive)
     trace_args = (mega, o, d, t, pix, smp, cfg.background, cfg.max_depth, SEED)
     rad_k, seg_k = trace_megakernel(*trace_args, **phased)
-    rad_p, seg_p = trace_megakernel(*trace_args, **phased, block_fn=mb.trace_block_torch)
+    rad_p, seg_p = trace_megakernel(*trace_args, **phased, plain=True)
     err = float((rad_k - rad_p).abs().mean())
     ph_ok = err < 2e-3 and segments_close(int(seg_p), int(seg_k))
     ph_ms = cuda_ms(torch, lambda: trace_megakernel(*trace_args, **phased), 5)
     ph_plain_ms = cuda_ms(torch, lambda: trace_megakernel(
-        *trace_args, **phased, block_fn=mb.trace_block_torch), 2)
+        *trace_args, **phased, plain=True), 2)
     print(f"phase 4 phased launch {kw['phase_depths']} B={B}: {'ok' if ph_ok else 'FAIL'} "
           f"mean_abs_err {err:.3g} segments {int(seg_k)} plain {int(seg_p)} "
           f"kernel {ph_ms:.3f} ms plain {ph_plain_ms:.3f} ms [{card}]")
@@ -391,7 +476,7 @@ def main() -> int:
     fb = pbench.time_fwd_bwd(fbs, reps=3)
     fb_wall = time.perf_counter() - t0
     n_chunks = fbs["n_chunks"]
-    fb_ok = (fb_counts == dict(K1=5 * n_chunks, K3=0, K2=n_chunks) and bool(sweep_ok)
+    fb_ok = (fb_counts == dict(K1=5 * n_chunks, K3=0, K2=n_chunks, K5=0) and bool(sweep_ok)
              and int(sweep_segs) == fb["segments"]
              and fb["segments"] == res.segments and segments_close(BENCH_SEGMENTS, fb["segments"])
              and fb["grads_finite"] and float(fb["grad_rgb"].abs().sum()) > 0)
@@ -416,13 +501,116 @@ def main() -> int:
     (rad_t * rbar.T).sum().backward()
     torch.cuda.synchronize()
     rt_counts = counts()
-    rt_ok = (rt_counts == dict(K1=0, K3=1, K2=1) and int(seg_t) == seg_k3
+    rt_ok = (rt_counts == dict(K1=0, K3=1, K2=1, K5=0) and int(seg_t) == seg_k3
              and bool(torch.equal(rad_t.detach(), rad_k3.T))
              and bool(torch.isfinite(rgb.grad).all()))
     print(f"phase 7 replay_trace_kernel: {'ok' if rt_ok else 'FAIL'} segments {int(seg_t)} "
           f"kernel launches {rt_counts} rgb grad norm {float(rgb.grad.norm()):.4g}")
     if not rt_ok:
         failures.append("phase 7 replay_trace_kernel")
+
+    # ---- phase 8: K5 against its plain version on small scenes ----
+    def group_launch(scene_g, cfg_g, spp):
+        n_block = -(-cfg_g.n_pixels // 1024) * 1024
+        _, rays = first_launch(scene_g, cfg_g, n_block, spp, dev)
+        return build_mega_scene(scene_g), rays
+
+    def equal_outputs(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    small_scenes = [("three_spheres", *build("three_spheres", device=dev, image_width=64,
+                                              samples_per_pixel=2, max_depth=6), 2, 6),
+                    ("cornell_box", *build("cornell_box", device=dev, image_width=64,
+                                          samples_per_pixel=2, max_depth=6), 2, 6),
+                    ("bouncing_spheres", *build("bouncing_spheres", device=dev, image_width=64,
+                                               samples_per_pixel=2, max_depth=8), 2, 8),
+                    ("mixed", *mixed_scene(dev), 1, 6)]
+    for name, scene_s, cfg_s, spp, depth in small_scenes:
+        mega_s, (ray_f, ray_i) = group_launch(scene_s, cfg_s, spp)
+        outs = {}
+        ok8 = True
+        for use_bvh in (True, False):
+            kw8 = dict(max_depth=depth, background=cfg_s.background, use_bvh=use_bvh)
+            before = mg.launches
+            out = mg.trace_group(mega_s, ray_f, ray_i, SEED, 3, **kw8)
+            torch.cuda.synchronize()
+            ref = mg.trace_group_torch(mega_s, ray_f, ray_i, SEED, 3, **kw8)
+            ok8 &= mg.launches == before + 1 and equal_outputs(out, ref)
+            outs[use_bvh] = out
+        walk_eq_sweep = equal_outputs(outs[True], outs[False])
+        ok8 &= walk_eq_sweep and int(outs[True][1].sum()) > 0
+        print(f"phase 8 {name} B={ray_f.shape[1]} depth {depth}: {'ok' if ok8 else 'FAIL'} "
+              f"walk and sweep bit-equal to plain, walk == sweep {walk_eq_sweep}, segments "
+              f"{int(outs[True][1].sum())}, nodes {mega_s.nodes.shape[0]}")
+        if not ok8:
+            failures.append(f"phase 8 {name}")
+
+    # ---- phase 9: one full-width launch, K5 against plain and against K1 ----
+    k5_entry = None
+    s64, c64 = bouncing_spheres_64(dev)
+    for name, scene9, cfg9 in (("bouncing_spheres_64", s64, c64),
+                               ("bouncing_spheres (walk forced)", scene, cfg)):
+        mega9 = build_mega_scene(scene9)
+        r9 = Renderer(cfg9, max_rays_per_launch=1 << 18)
+        _, (ray_f, ray_i) = first_launch(scene9, cfg9, r9.n_block, r9.spp_chunk, dev)
+        B9 = ray_f.shape[1]
+        kw9 = dict(max_depth=cfg9.max_depth, background=cfg9.background)
+        out = mg.trace_group(mega9, ray_f, ray_i, SEED, 0, use_bvh=True, **kw9)
+        k5_ms = cuda_ms(torch, lambda: mg.trace_group(mega9, ray_f, ray_i, SEED, 0,
+                                                      use_bvh=True, **kw9), 5)
+        ref, plain9_ms = timed(torch, lambda: mg.trace_group_torch(
+            mega9, ray_f, ray_i, SEED, 0, use_bvh=True, want_counts=True, **kw9))
+        k1 = mb.trace_block(mega9, ray_f, ray_i, SEED, 0, **kw9)
+        k1_ms = cuda_ms(torch, lambda: mb.trace_block(mega9, ray_f, ray_i, SEED, 0, **kw9), 5)
+        seg5, seg_p, seg1 = int(out[1].sum()), int(ref[1].sum()), int(k1[1].sum())
+        d_p = (out[0] - ref[0]).abs()
+        ok9 = float(d_p.mean()) < 2e-3 and segments_close(seg_p, seg5)
+        d_1 = (out[0] - k1[0]).abs()
+        m5, m1 = out[0].mean(1), k1[0].mean(1)
+        rel = float(((m5 - m1).abs() / m1.abs()).max())
+        ok9 &= segments_close(seg1, seg5) and rel < 0.01
+        visits, sph_tests, quad_tests = (int(x) for x in ref[3].sum(1))
+        ops = (visits * K5_OPS_PER_NODE + sph_tests * K5_OPS_PER_SPHERE_MEMBER
+               + quad_tests * K5_OPS_PER_QUAD_MEMBER + seg5 * K5_OPS_SHADE)
+        tables = (mega9.table, mega9.nodes, mega9.sph_leaf, mega9.sph_gid, mega9.quad_leaf,
+                  mega9.quad_gid)
+        b9 = bound(ops, B9 * (mb.N_F * 4 + 8) + B9 * (mb.N_F * 4 + 12 + 4)
+                   + 4 * sum(x.numel() for x in tables))
+        print(f"phase 9 {name} B={B9} depth {cfg9.max_depth} auto layout {select_layout(mega9)}: "
+              f"{'ok' if ok9 else 'FAIL'} K5 vs plain max_abs_err {float(d_p.max()):.3g} mean "
+              f"{float(d_p.mean()):.3g} bit_equal {equal_outputs(out, ref[:3])} segments {seg5} "
+              f"plain {seg_p}; K5 vs K1 segments {seg5} / {seg1}, launch-mean radiance "
+              f"{[round(float(x), 5) for x in m5]} / {[round(float(x), 5) for x in m1]} "
+              f"(max rel {rel:.3g}), per-ray mean_abs_err {float(d_1.mean()):.3g}, rays "
+              f"differing {float((d_1.max(0).values > 1e-5).float().mean()):.4f}; "
+              f"K5 {k5_ms:.3f} ms plain {plain9_ms:.3f} ms K1 {k1_ms:.3f} ms; node visits "
+              f"{visits} ({visits / max(seg5, 1):.1f} per segment) sphere member tests "
+              f"{sph_tests} quad member tests {quad_tests}; bound {b9[0]:.4f} ms ({b9[1]}) "
+              f"[{card}]")
+        if not ok9:
+            failures.append(f"phase 9 {name}")
+        if k5_entry is None:
+            k5_entry = dict(max_abs_err=float(d_p.max()), ms=k5_ms, plain_ms=plain9_ms,
+                            bound_ms=b9[0], bound_by=b9[1])
+        del ref
+
+    # ---- phase 10: the bouncing_spheres_64 render through Renderer ----
+    r10 = Renderer(c64, max_rays_per_launch=1 << 18, transfer="u8",
+                   phase_depths=[2, 2, 3, 4, c64.max_depth - 11])
+    r10.render(s64, seed=SEED)  # warm-up
+    zero_counts()
+    res10 = r10.render(s64, seed=SEED)
+    k5_counts = counts()
+    img10 = res10.u8
+    ok10 = (k5_counts == dict(K1=0, K3=0, K2=0, K5=5 * res10.launches) and res10.segments > 0
+            and img10.shape == (c64.image_height, c64.image_width, 3)
+            and 20 < float(img10.mean()) < 235)
+    print(f"phase 10 bouncing_spheres_64 render: {'ok' if ok10 else 'FAIL'} segments "
+          f"{res10.segments} launches {res10.launches} kernel launches {k5_counts} seconds "
+          f"{res10.seconds:.4f} {res10.segments / res10.seconds:.4g} rays/s image mean "
+          f"{float(img10.mean()):.2f} [{card}]")
+    if not ok10:
+        failures.append("phase 10 bouncing_spheres_64 render")
 
     print(json.dumps({"kernels": [
         {"name": "K1 megakernel_block", "route": "cuda",
@@ -444,6 +632,11 @@ def main() -> int:
          "launches": fb_counts["K2"], "path": "one fwd+bwd bench sweep (phase 6)",
          "max_abs_err": k2_err, "tbar_rel_l2": rel2, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None},
+        {"name": "K5 megakernel_group", "route": "cuda",
+         "source": "raytracing_tpu_torch/csrc/megakernel_group.cu",
+         "replaces": "raytracing_tpu/ops/megakernel.py:285",
+         "launches": k5_counts["K5"], "path": "bouncing_spheres_64 render (phase 10)",
+         **k5_entry, "library_ms": None},
     ]}))
     if failures:
         print(f"chip_smoke: FAILED {failures}", file=sys.stderr)

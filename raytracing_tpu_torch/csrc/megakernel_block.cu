@@ -42,25 +42,16 @@
 // miss and on every bounce after the ray died. Bounce-major rows make a
 // warp's stores of one bounce coalesce.
 //
-// The per-ray math also compiles as plain C++ (without __CUDACC__), so its
-// arithmetic can be exercised on a host.
+// The shading after the hit is shared with K5 (rt_shade.cuh). The per-ray
+// math also compiles as plain C++ (without __CUDACC__), so its arithmetic
+// can be exercised on a host.
 
-#include "rt_common.cuh"
+#include "rt_shade.cuh"
 
 namespace {
 
-using rt::pcg4d;
-using rt::TWO_PI;
-using rt::u01;
-
-constexpr float BIG = 3.0e38f;
-constexpr float T_MIN = 1e-3f;
-
-// ray_f rows
-enum { OX, OY, OZ, DX, DY, DZ, TM, TR, TG, TB, RR, RG, RB, ACT, N_F };
-// resolve table rows (scene/flatten.py U_*)
-enum { G0, G1, G2, G3, G4, G5, G6, MTYPE, PARAM, AR, AG, AB, TKIND, TSCALE,
-       A2R, A2G, A2B };
+using rt::BIG;
+using rt::T_MIN;
 
 struct TraceParams {
   const float* sph;      // (n_sph_rows, 8): cx cy cz vx vy vz r2 0
@@ -89,21 +80,15 @@ struct TraceParams {
 template <bool MOVING>
 RT_DEVICE void trace_ray(const TraceParams& p, const float4* sph, const float4* quad, int i) {
   const int n = p.n;
-  const float* rf = p.ray_f;
-  float ox = rf[OX * n + i], oy = rf[OY * n + i], oz = rf[OZ * n + i];
-  float dx = rf[DX * n + i], dy = rf[DY * n + i], dz = rf[DZ * n + i];
-  const float tm = rf[TM * n + i];
-  float tr = rf[TR * n + i], tg = rf[TG * n + i], tb = rf[TB * n + i];
-  float rr = rf[RR * n + i], rg = rf[RG * n + i], rb = rf[RB * n + i];
-  bool active = rf[ACT * n + i] > 0.5f;
-  const uint32_t pix = (uint32_t)p.ray_i[i];
-  const uint32_t smp = (uint32_t)p.ray_i[n + i];
-  const float* res = p.resolve;
-  const int P = p.n_res_cols;
+  rt::Ray r = rt::load_ray(p.ray_f, p.ray_i, n, i);
+  const rt::ShadeParams sp{p.resolve, p.n_res_cols, p.ns_pad, p.seed, p.b_off,
+                           p.bg_r,    p.bg_g,       p.bg_b};
   int bounces = 0;
 
-  for (int b = 0; b < p.max_depth && active; ++b) {
+  for (int b = 0; b < p.max_depth && r.active; ++b) {
     ++bounces;
+    const float ox = r.ox, oy = r.oy, oz = r.oz, dx = r.dx, dy = r.dy, dz = r.dz;
+    const float tm = r.tm;
     // ---- closest hit: spheres in a*t space, then quads in t space ----
     const float a = dx * dx + dy * dy + dz * dz;
     const float inv_a = 1.0f / a;
@@ -162,160 +147,12 @@ RT_DEVICE void trace_ray(const TraceParams& p, const float4* sph, const float4* 
       }
     }
     if (p.out_ids) p.out_ids[(size_t)b * n + i] = t < BIG ? RT_LDG(p.kid_map + ib) : -1;
-
-    if (!(t < BIG)) {  // miss: background, then the ray dies
-      rr += tr * p.bg_r;
-      rg += tg * p.bg_g;
-      rb += tb * p.bg_b;
-      active = false;
-      break;
-    }
-    const float px = ox + t * dx;
-    const float py = oy + t * dy;
-    const float pz = oz + t * dz;
-
-    // ---- resolve the winner's fields ----
-    const float* col = res + ib;
-    float own_x, own_y, own_z;
-    if (ib >= p.ns_pad) {  // quad: unit normal
-      own_x = RT_LDG(col + G0 * P);
-      own_y = RT_LDG(col + G1 * P);
-      own_z = RT_LDG(col + G2 * P);
-    } else {  // sphere: (p - center(tm)) / r
-      const float cxt = RT_LDG(col + G0 * P) + tm * RT_LDG(col + G3 * P);
-      const float cyt = RT_LDG(col + G1 * P) + tm * RT_LDG(col + G4 * P);
-      const float czt = RT_LDG(col + G2 * P) + tm * RT_LDG(col + G5 * P);
-      const float r = RT_LDG(col + G6 * P);
-      const float inv_r = 1.0f / (r != 0.0f ? r : 1.0f);
-      own_x = (px - cxt) * inv_r;
-      own_y = (py - cyt) * inv_r;
-      own_z = (pz - czt) * inv_r;
-    }
-    const bool front = (dx * own_x + dy * own_y + dz * own_z) < 0.0f;
-    const float sgn = front ? 1.0f : -1.0f;
-    const float nx = own_x * sgn, ny = own_y * sgn, nz = own_z * sgn;
-
-    const float mt = RT_LDG(col + MTYPE * P);
-    const float prm = RT_LDG(col + PARAM * P);
-    float ar = RT_LDG(col + AR * P), ag = RT_LDG(col + AG * P), ab = RT_LDG(col + AB * P);
-    if (RT_LDG(col + TKIND * P) == 1.0f) {  // checker of two solids
-      const float ts = RT_LDG(col + TSCALE * P);
-      // parity of the cell sum; unsigned adds keep the wrap defined
-      const uint32_t cells = (uint32_t)(int)floorf(ts * px) + (uint32_t)(int)floorf(ts * py)
-                             + (uint32_t)(int)floorf(ts * pz);
-      if (cells & 1u) {
-        ar = RT_LDG(col + A2R * P);
-        ag = RT_LDG(col + A2G * P);
-        ab = RT_LDG(col + A2B * P);
-      }
-    }
-
-    if (mt == 3.0f) {  // light: emission, then the ray dies
-      rr += tr * ar;
-      rg += tg * ag;
-      rb += tb * ab;
-      active = false;
-      break;
-    }
-
-    // ---- scatter ----
-    uint32_t v0 = pix, v1 = smp, v3 = p.seed;
-    uint32_t v2 = ((uint32_t)b + p.b_off) * rt::N_STREAMS + rt::STREAM_SCATTER;
-    pcg4d(v0, v1, v2, v3);
-    float ndx, ndy, ndz;
-    if (mt == 2.0f) {  // dielectric
-      const float u2 = u01(v2);
-      const float dinv = 1.0f / sqrtf(dx * dx + dy * dy + dz * dz + 1e-30f);
-      const float udx = dx * dinv, udy = dy * dinv, udz = dz * dinv;
-      const float ri = front ? 1.0f / prm : prm;
-      const float cos_t = fminf(-(udx * nx + udy * ny + udz * nz), 1.0f);
-      const float sin_t = sqrtf(fmaxf(0.0f, 1.0f - cos_t * cos_t));
-      const bool cannot = ri * sin_t > 1.0f;
-      float r0 = (1.0f - ri) / (1.0f + ri);
-      r0 = r0 * r0;
-      const float x1 = 1.0f - cos_t;
-      const float x2 = x1 * x1;
-      const float reflectance = r0 + (1.0f - r0) * (x1 * (x2 * x2));
-      if (cannot || reflectance > u2) {
-        const float u_dot_n = udx * nx + udy * ny + udz * nz;
-        ndx = udx - 2.0f * u_dot_n * nx;
-        ndy = udy - 2.0f * u_dot_n * ny;
-        ndz = udz - 2.0f * u_dot_n * nz;
-      } else {
-        const float rpx = ri * (udx + cos_t * nx);
-        const float rpy = ri * (udy + cos_t * ny);
-        const float rpz = ri * (udz + cos_t * nz);
-        const float par = -sqrtf(fabsf(1.0f - (rpx * rpx + rpy * rpy + rpz * rpz)));
-        ndx = rpx + par * nx;
-        ndy = rpy + par * ny;
-        ndz = rpz + par * nz;
-      }
-      ar = 1.0f;
-      ag = 1.0f;
-      ab = 1.0f;
-    } else {
-      const float zdir = 1.0f - 2.0f * u01(v0);
-      const float rho = sqrtf(fmaxf(0.0f, 1.0f - zdir * zdir));
-      const float phi = TWO_PI * u01(v1);
-      const float rux = rho * cosf(phi), ruy = rho * sinf(phi), ruz = zdir;
-      if (mt == 1.0f) {  // metal: fuzzed mirror, absorbed below the surface
-        const float d_dot_on = dx * nx + dy * ny + dz * nz;
-        const float rdx = dx - 2.0f * d_dot_on * nx;
-        const float rdy = dy - 2.0f * d_dot_on * ny;
-        const float rdz = dz - 2.0f * d_dot_on * nz;
-        const float rlen = 1.0f / sqrtf(rdx * rdx + rdy * rdy + rdz * rdz + 1e-30f);
-        ndx = rdx * rlen + prm * rux;
-        ndy = rdy * rlen + prm * ruy;
-        ndz = rdz * rlen + prm * ruz;
-        if (!((ndx * nx + ndy * ny + ndz * nz) > 0.0f)) {
-          active = false;
-          break;
-        }
-      } else {  // lambertian
-        ndx = nx + rux;
-        ndy = ny + ruy;
-        ndz = nz + ruz;
-        if (fabsf(ndx) < 1e-8f && fabsf(ndy) < 1e-8f && fabsf(ndz) < 1e-8f) {
-          ndx = nx;
-          ndy = ny;
-          ndz = nz;
-        }
-      }
-    }
-    tr = tr * ar;
-    tg = tg * ag;
-    tb = tb * ab;
-    ox = px;
-    oy = py;
-    oz = pz;
-    dx = ndx;
-    dy = ndy;
-    dz = ndz;
+    r.active = rt::shade(r, t, ib, b, sp);
   }
 
-  p.out_rad[i] = rr;
-  p.out_rad[n + i] = rg;
-  p.out_rad[2 * n + i] = rb;
-  p.out_bc[i] = bounces;
+  rt::store_ray(r, bounces, p.out_rad, p.out_bc, p.out_state, n, i);
   if (p.out_ids)  // one id was written per bounce the ray entered alive
     for (int b = bounces; b < p.max_depth; ++b) p.out_ids[(size_t)b * n + i] = -1;
-  if (p.out_state) {
-    float* st = p.out_state;
-    st[OX * n + i] = ox;
-    st[OY * n + i] = oy;
-    st[OZ * n + i] = oz;
-    st[DX * n + i] = dx;
-    st[DY * n + i] = dy;
-    st[DZ * n + i] = dz;
-    st[TM * n + i] = tm;
-    st[TR * n + i] = tr;
-    st[TG * n + i] = tg;
-    st[TB * n + i] = tb;
-    st[RR * n + i] = rr;
-    st[RG * n + i] = rg;
-    st[RB * n + i] = rb;
-    st[ACT * n + i] = active ? 1.0f : 0.0f;
-  }
 }
 
 #ifdef __CUDACC__

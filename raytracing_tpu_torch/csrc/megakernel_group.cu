@@ -1,0 +1,319 @@
+// K5, the group megakernel, in CUDA C++ for Hopper (sm_90a).
+//
+// Replaces: the Pallas TPU kernel raytracing_tpu/ops/megakernel.py
+// make_megakernel (pallas_call in its `run`). It traces one phase of up to
+// max_depth bounces for every ray. The closest hit of a bounce comes from
+// one of two searches:
+// * the walk (use_bvh): a stackless preorder walk of the chunked BVH
+//   (ops/mega_bvh.py) along its skip links. A box is hit when
+//   enter < exit, enter clamped below by T_MIN and exit above by the best
+//   hit so far; a hit internal node descends to i + 1, anything else
+//   follows its miss link. A hit leaf tests its 8 members: the smallest
+//   candidate, the lowest unified column among equal ones, replaces the
+//   best hit when strictly nearer;
+// * the dense sweep: every unified-table column, spheres then quads. The
+//   Pallas kernel takes chunks of 8 with the lowest column winning a
+//   chunk's ties and strict < across chunks; a candidate is the nearest
+//   root above T_MIN when it lies below the best hit, so that equals one
+//   pass with strict <, which is what this kernel does.
+// Spheres are tested with the center at the ray's time and roots in t
+// space, quads through their plane, w and edges. The shading after the
+// hit is K1's (rt_shade.cuh).
+//
+// What bounds it: FP32 ALU work in the walk. Per segment a ray visits
+// some tens of nodes (about 20 operations each: 6 subtracts, 6 multiplies,
+// 10 min/max, a compare) and tests 8 members per leaf it enters (about 30
+// operations per sphere, 45 per quad), then shades (~150). Memory traffic
+// is small: 56 B of ray state in and out per ray per phase; the nodes
+// (32 B each) and leaves (256 B per sphere chunk) are read many times but
+// stay in L1/L2.
+//
+// What the design does about it:
+// * one thread traces one ray through the whole phase with its state in
+//   registers; the walk keeps one node index, so it needs no stack;
+// * the node table is staged once per block into shared memory when it
+//   fits (NODE_SMEM_BYTES: 1,536 nodes, ~6k primitives); larger trees are
+//   read from global memory through the caches;
+// * leaf members are 32- or 64-byte records read as float4 through the
+//   read-only cache (__ldg), and the winner's fields likewise;
+// * a ray leaves the bounce loop as soon as it dies; the trace compacts
+//   live rays to the front between phases so warps stay full. The walk
+//   itself diverges within a warp; nothing in this kernel works on that.
+//
+// Parity: the build uses -fmad=false and no fast math, so every multiply
+// and add rounds on its own as in the JAX reference and the plain PyTorch
+// version (ops/megakernel_group.py trace_group_torch). Pad leaf members
+// are rejected by r > 0 (spheres) or their zero normal (quads).
+//
+// Layout: ray_f (14, n) f32 and ray_i (2, n) i32 in, rad (3, n) f32,
+// bounces (n,) i32 and optionally the new (14, n) state out, as K1.
+// Tables: the unified table (26, P) f32, nodes (K, 8) f32 [bmin xyz,
+// bmax xyz, miss, leaf], sphere leaves (LS, 8, 8) f32 [cx cy cz vx vy vz
+// r 0] and quad leaves (LQ, 8, 16) f32 [nx ny nz D wx wy wz qx qy qz ux uy
+// uz vx vy vz], with the members' unified columns in (LS, 8) and (LQ, 8)
+// i32.
+//
+// The per-ray math also compiles as plain C++ (without __CUDACC__), so its
+// arithmetic can be exercised on a host.
+
+#include "rt_shade.cuh"
+
+namespace {
+
+using rt::BIG;
+using rt::PARALLEL_EPS;
+using rt::T_MIN;
+
+constexpr int LEAF = 8;       // members per leaf chunk
+constexpr int NO_GID = 0x7fffffff;
+
+struct GroupParams {
+  const float* table;      // (26, P) unified-table rows
+  int P;
+  int ns_pad;              // first quad column
+  const float* nodes;      // (n_nodes, 8)
+  int n_nodes;
+  const float* sph_leaf;   // (n_sph_chunks, 8, 8)
+  const int* sph_gid;      // (n_sph_chunks, 8)
+  int n_sph_chunks;
+  const float* quad_leaf;  // (n_quad_chunks, 8, 16)
+  const int* quad_gid;     // (n_quad_chunks, 8)
+  const float* ray_f;      // (N_F, n)
+  const int* ray_i;        // (2, n)
+  int n;
+  float* out_rad;          // (3, n)
+  int* out_bc;             // (n,)
+  float* out_state;        // (N_F, n) or null
+  uint32_t seed;
+  uint32_t b_off;
+  int max_depth;
+  float bg_r, bg_g, bg_b;
+};
+
+struct RayGeom {
+  float ox, oy, oz, dx, dy, dz, tm, a, inv_a;
+};
+
+// A sphere's nearest root in (T_MIN, tb), or BIG.
+RT_DEVICE float sphere_cand(const RayGeom& g, float cx0, float cy0, float cz0, float vx,
+                            float vy, float vz, float r, float tb) {
+  const float ocx = g.ox - (cx0 + g.tm * vx);
+  const float ocy = g.oy - (cy0 + g.tm * vy);
+  const float ocz = g.oz - (cz0 + g.tm * vz);
+  const float half_b = ocx * g.dx + ocy * g.dy + ocz * g.dz;
+  const float cq = (ocx * ocx + ocy * ocy + ocz * ocz) - r * r;
+  const float disc = half_b * half_b - g.a * cq;
+  const float sq = sqrtf(fmaxf(disc, 0.0f));
+  const float root0 = (-half_b - sq) * g.inv_a;
+  const float root1 = (-half_b + sq) * g.inv_a;
+  const bool ok0 = root0 > T_MIN && root0 < tb;
+  const bool ok1 = root1 > T_MIN && root1 < tb;
+  const float root = ok0 ? root0 : root1;
+  return (disc >= 0.0f && (ok0 || ok1) && r > 0.0f) ? root : BIG;
+}
+
+// A quad's plane hit in (T_MIN, tb) inside its edges, or BIG.
+RT_DEVICE float quad_cand(const RayGeom& g, float nx, float ny, float nz, float dd, float wx,
+                          float wy, float wz, float qx, float qy, float qz, float ux, float uy,
+                          float uz, float vx, float vy, float vz, float tb) {
+  const float denom = nx * g.dx + ny * g.dy + nz * g.dz;
+  const float safe = fabsf(denom) < PARALLEL_EPS ? 1.0f : denom;
+  const float tq = (dd - (nx * g.ox + ny * g.oy + nz * g.oz)) / safe;
+  const float px = g.ox + tq * g.dx - qx;
+  const float py = g.oy + tq * g.dy - qy;
+  const float pz = g.oz + tq * g.dz - qz;
+  const float alpha = wx * (py * vz - pz * vy) + wy * (pz * vx - px * vz)
+                      + wz * (px * vy - py * vx);
+  const float beta = wx * (uy * pz - uz * py) + wy * (uz * px - ux * pz)
+                     + wz * (ux * py - uy * px);
+  const bool valid = fabsf(denom) >= PARALLEL_EPS && tq > T_MIN && tq < tb && alpha >= 0.0f &&
+                     alpha <= 1.0f && beta >= 0.0f && beta <= 1.0f;
+  return valid ? tq : BIG;
+}
+
+RT_DEVICE RayGeom ray_geom(const rt::Ray& r) {
+  const float a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
+  return RayGeom{r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.tm, a, 1.0f / a};
+}
+
+// Dense closest hit over every unified-table column.
+RT_DEVICE void sweep_hit(const GroupParams& p, const rt::Ray& r, float& t, int& ib) {
+  const RayGeom g = ray_geom(r);
+  const float* tab = p.table;
+  const int P = p.P;
+  float tb = BIG;
+  int best = -1;
+  for (int j = 0; j < p.ns_pad; ++j) {
+    const float* c = tab + j;
+    const float cand = sphere_cand(g, RT_LDG(c + rt::G0 * P), RT_LDG(c + rt::G1 * P),
+                                   RT_LDG(c + rt::G2 * P), RT_LDG(c + rt::G3 * P),
+                                   RT_LDG(c + rt::G4 * P), RT_LDG(c + rt::G5 * P),
+                                   RT_LDG(c + rt::G6 * P), tb);
+    if (cand < tb) {
+      tb = cand;
+      best = j;
+    }
+  }
+  for (int j = p.ns_pad; j < P; ++j) {
+    const float* c = tab + j;
+    const float cand = quad_cand(
+        g, RT_LDG(c + rt::G0 * P), RT_LDG(c + rt::G1 * P), RT_LDG(c + rt::G2 * P),
+        RT_LDG(c + rt::G3 * P), RT_LDG(c + rt::G4 * P), RT_LDG(c + rt::G5 * P),
+        RT_LDG(c + rt::G6 * P), RT_LDG(c + rt::QX * P), RT_LDG(c + rt::QY * P),
+        RT_LDG(c + rt::QZ * P), RT_LDG(c + rt::UX * P), RT_LDG(c + rt::UY * P),
+        RT_LDG(c + rt::UZ * P), RT_LDG(c + rt::VX * P), RT_LDG(c + rt::VY * P),
+        RT_LDG(c + rt::VZ * P), tb);
+    if (cand < tb) {
+      tb = cand;
+      best = j;
+    }
+  }
+  t = tb;
+  ib = best;
+}
+
+// Fold a leaf candidate into the leaf's best (smallest, then lowest gid).
+RT_DEVICE void leaf_min(float cand, int gid, float& cm, int& gm) {
+  if (cand < cm || (cand == cm && gid < gm)) {
+    cm = cand;
+    gm = gid;
+  }
+}
+
+RT_DEVICE float safe_inv(float v) {
+  return (v < 0.0f ? -1.0f : 1.0f) / fmaxf(fabsf(v), 1e-20f);
+}
+
+// Closest hit by the stackless walk. `nodes` is the node table as float4
+// pairs (shared or global memory). Adds the nodes visited and the sphere
+// and quad members tested to `counts` when it is not null.
+RT_DEVICE void walk_hit(const GroupParams& p, const float4* nodes, const rt::Ray& r, float& t,
+                        int& ib, long long* counts) {
+  const RayGeom g = ray_geom(r);
+  const float ivx = safe_inv(r.dx), ivy = safe_inv(r.dy), ivz = safe_inv(r.dz);
+  const float4* sleaf = reinterpret_cast<const float4*>(p.sph_leaf);
+  const float4* qleaf = reinterpret_cast<const float4*>(p.quad_leaf);
+  float tb = BIG;
+  int best = -1;
+  int node = p.n_nodes > 0 ? 0 : -1;
+  while (node >= 0) {
+    // b0 = bminx bminy bminz bmaxx, b1 = bmaxy bmaxz miss leaf
+    const float4 b0 = nodes[2 * node], b1 = nodes[2 * node + 1];
+    const float t0x = (b0.x - r.ox) * ivx, t1x = (b0.w - r.ox) * ivx;
+    const float t0y = (b0.y - r.oy) * ivy, t1y = (b1.x - r.oy) * ivy;
+    const float t0z = (b0.z - r.oz) * ivz, t1z = (b1.y - r.oz) * ivz;
+    const float enter = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                              fmaxf(fminf(t0z, t1z), T_MIN));
+    const float exit_ = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                              fminf(fmaxf(t0z, t1z), tb));
+    const bool boxhit = enter < exit_;
+    const int leaf = (int)b1.w;
+    if (counts) ++counts[0];
+    node = (boxhit && leaf < 0) ? node + 1 : (int)b1.z;
+    if (!boxhit || leaf < 0) continue;
+    float cm = BIG;
+    int gm = NO_GID;
+    if (leaf < p.n_sph_chunks) {
+      const float4* rec = sleaf + (size_t)leaf * (LEAF * 2);
+      const int* gid = p.sph_gid + (size_t)leaf * LEAF;
+      for (int s = 0; s < LEAF; ++s) {
+        const float4 m0 = RT_LDG(rec + 2 * s), m1 = RT_LDG(rec + 2 * s + 1);
+        leaf_min(sphere_cand(g, m0.x, m0.y, m0.z, m0.w, m1.x, m1.y, m1.z, tb),
+                 RT_LDG(gid + s), cm, gm);
+      }
+      if (counts) counts[1] += LEAF;
+    } else {
+      const int c = leaf - p.n_sph_chunks;
+      const float4* rec = qleaf + (size_t)c * (LEAF * 4);
+      const int* gid = p.quad_gid + (size_t)c * LEAF;
+      for (int s = 0; s < LEAF; ++s) {
+        const float4 q0 = RT_LDG(rec + 4 * s), q1 = RT_LDG(rec + 4 * s + 1);
+        const float4 q2 = RT_LDG(rec + 4 * s + 2), q3 = RT_LDG(rec + 4 * s + 3);
+        // q0 = nx ny nz D, q1 = wx wy wz qx, q2 = qy qz ux uy, q3 = uz vx vy vz
+        leaf_min(quad_cand(g, q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w, q2.x, q2.y, q2.z,
+                           q2.w, q3.x, q3.y, q3.z, q3.w, tb),
+                 RT_LDG(gid + s), cm, gm);
+      }
+      if (counts) counts[2] += LEAF;
+    }
+    if (cm < tb) {
+      tb = cm;
+      best = gm;
+    }
+  }
+  t = tb;
+  ib = best;
+}
+
+// Trace ray i through one phase.
+template <bool BVH>
+RT_DEVICE void trace_ray_group(const GroupParams& p, const float4* nodes, int i) {
+  const int n = p.n;
+  rt::Ray r = rt::load_ray(p.ray_f, p.ray_i, n, i);
+  const rt::ShadeParams sp{p.table, p.P, p.ns_pad, p.seed, p.b_off, p.bg_r, p.bg_g, p.bg_b};
+  int bounces = 0;
+  for (int b = 0; b < p.max_depth && r.active; ++b) {
+    ++bounces;
+    float t;
+    int ib;
+    if (BVH)
+      walk_hit(p, nodes, r, t, ib, nullptr);
+    else
+      sweep_hit(p, r, t, ib);
+    r.active = rt::shade(r, t, ib, b, sp);
+  }
+  rt::store_ray(r, bounces, p.out_rad, p.out_bc, p.out_state, n, i);
+}
+
+#ifdef __CUDACC__
+
+constexpr int THREADS = 256;
+// node tables up to this size are staged in shared memory (the default
+// 48 KB of a block, so no opt-in is needed)
+constexpr size_t NODE_SMEM_BYTES = 48 * 1024;
+
+template <bool BVH, bool STAGED>
+__global__ void __launch_bounds__(THREADS) k5_trace_group(const GroupParams p) {
+  extern __shared__ float4 s_nodes[];
+  const float4* nodes = reinterpret_cast<const float4*>(p.nodes);
+  if (STAGED) {
+    for (int k = threadIdx.x; k < 2 * p.n_nodes; k += blockDim.x) s_nodes[k] = nodes[k];
+    __syncthreads();
+    nodes = s_nodes;
+  }
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i < p.n) trace_ray_group<BVH>(p, nodes, i);
+}
+
+template <bool BVH, bool STAGED>
+cudaError_t launch(const GroupParams& p, size_t smem, cudaStream_t stream) {
+  const dim3 grid((p.n + THREADS - 1) / THREADS);
+  k5_trace_group<BVH, STAGED><<<grid, THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry point (loaded with ctypes). Launches on `stream`, allocates
+// nothing and does not synchronize. Returns a cudaError_t.
+extern "C" int rt_trace_group(const float* table, int P, int ns_pad, const float* nodes,
+                              int n_nodes, const float* sph_leaf, const int* sph_gid,
+                              int n_sph_chunks, const float* quad_leaf, const int* quad_gid,
+                              const float* ray_f, const int* ray_i, int n, float* out_rad,
+                              int* out_bc, float* out_state, uint32_t seed, uint32_t b_off,
+                              int max_depth, float bg_r, float bg_g, float bg_b, int use_bvh,
+                              void* stream) {
+  if (n <= 0) return 0;
+  const GroupParams p{table, P,     ns_pad,  nodes,    n_nodes,  sph_leaf,  sph_gid, n_sph_chunks,
+                      quad_leaf, quad_gid, ray_f, ray_i, n, out_rad, out_bc, out_state, seed,
+                      b_off,   max_depth, bg_r, bg_g, bg_b};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!use_bvh) return (int)launch<false, false>(p, 0, s);
+  const size_t node_bytes = (size_t)n_nodes * 8 * sizeof(float);
+  if (node_bytes <= NODE_SMEM_BYTES) return (int)launch<true, true>(p, node_bytes, s);
+  return (int)launch<true, false>(p, 0, s);
+}
+
+#else
+}  // namespace
+#endif

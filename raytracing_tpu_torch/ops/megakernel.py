@@ -1,11 +1,18 @@
-"""The megakernel forward trace: scene tables for K1 and the phased trace
-that drives it, the counterpart of ``raytracing_tpu.ops.megakernel``
-(``MegaScene``, ``build_mega_scene``, ``trace_megakernel`` with the block
-layout).
+"""The megakernel forward trace: scene tables for K1 and K5 and the phased
+trace that drives them, the counterpart of ``raytracing_tpu.ops.megakernel``
+(``MegaScene``, ``build_mega_scene``, ``trace_megakernel``).
 
-A trace runs its phases in turn, each one K1 launch of ``phase_depths[k]``
-bounces. Between phases the rays are compacted alive-first with a stable
-sort, so later phases trace the survivors at full occupancy; the phase
+Two layouts trace a phase. The block layout is K1 (ops/megakernel_block.py),
+a sweep over every primitive. The group layout is K5
+(ops/megakernel_group.py), whose closest hit is a walk of the chunked BVH
+(ops/mega_bvh.py) or a dense sweep of the unified table. By default a
+scene of more than ``BVH_MIN_CHUNKS`` chunks of 8 primitives walks the BVH
+in the group layout, and every other scene sweeps in the block layout.
+
+A trace runs its phases in turn, each one kernel launch of
+``phase_depths[k]`` bounces. Between phases the rays are compacted
+alive-first with a stable sort, so later phases trace the survivors at
+full occupancy; the phase
 offset feeds the RNG bounce counter, so every phase schedule traces the
 same paths and counts the same segments. Static ``phase_prefixes`` limit
 a later phase to its first P rays; the trailing ``ok`` flag says whether
@@ -20,24 +27,55 @@ import torch
 
 from ..scene import flatten as fl
 from ..scene.types import Scene
+from . import mega_bvh
 from . import megakernel_block as mb
+from . import megakernel_group as mg
 
 BLOCK = 1024  # launches are multiples of this many rays
+CHUNK = mega_bvh.LEAF_SIZE  # primitives per chunk
+# the BVH walk is chosen once a scene has more than this many chunks
+# (raytracing_tpu/ops/megakernel.py BVH_MIN_CHUNKS)
+BVH_MIN_CHUNKS = 256
+# unified-table rows K5 reads: the resolve rows, then the quads' corner
+# and edges (U_QX..U_VZ)
+GROUP_FIELDS = fl.U_VZ + 1
 
 
 @dataclass
 class MegaScene:
-    """The tables K1 reads, on one device."""
+    """The tables K1 and K5 read, on one device."""
     sph_sweep: torch.Tensor   # (ns_it, 8) f32: cx cy cz vx vy vz r² 0
     quad_sweep: torch.Tensor  # (nq_it, 16) f32
-    resolve: torch.Tensor     # (RESOLVE_FIELDS, P) f32: unified-table rows
+    table: torch.Tensor       # (GROUP_FIELDS, P) f32: unified-table rows
     kid_map: torch.Tensor     # (P,) i32: kernel primitive → global scene id, -1 padding
+    nodes: torch.Tensor       # (K, 8) f32 BVH nodes (ops/mega_bvh.py)
+    sph_leaf: torch.Tensor    # (LS, 8, 8) f32 sphere chunk members
+    sph_gid: torch.Tensor     # (LS, 8) i32 their unified columns
+    quad_leaf: torch.Tensor   # (LQ, 8, 16) f32 quad chunk members
+    quad_gid: torch.Tensor    # (LQ, 8) i32
     n_sph: int                # real spheres
     n_quad: int               # real quads
-    n_sph_pad: int            # first quad column of ``resolve``
+    n_sph_pad: int            # first quad column of ``table``
     moving: bool              # any sphere with nonzero velocity
     has_noise: bool           # any primitive with a noise texture
     has_image: bool           # any primitive with an image texture
+
+    @property
+    def resolve(self) -> torch.Tensor:
+        """(RESOLVE_FIELDS, P): the rows the winner's fields are read from."""
+        return self.table[:fl.RESOLVE_FIELDS]
+
+    @property
+    def n_prims(self) -> int:
+        return self.table.shape[1]
+
+    @property
+    def n_sph_chunks(self) -> int:
+        return self.sph_leaf.shape[0]
+
+    @property
+    def n_quad_chunks(self) -> int:
+        return self.quad_leaf.shape[0]
 
 
 def build_mega_scene(scene: Scene, device=None) -> MegaScene:
@@ -54,18 +92,40 @@ def build_mega_scene(scene: Scene, device=None) -> MegaScene:
     kid = np.full(table.shape[1], -1, np.int32)
     gid = fl.global_id_map(scene)
     kid[:len(gid)] = gid
+    # the BVH over the unified table's own column order (the JAX package
+    # reorders spheres in Morton order first, for a cluster cull the port
+    # does not have)
+    bvh = mega_bvh.build_chunked_bvh(table, ns_pad, n_sph, n_quad)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     return MegaScene(
-        sph_sweep=t(sph), quad_sweep=t(quad), resolve=t(table[:fl.RESOLVE_FIELDS]),
-        kid_map=t(kid),
+        sph_sweep=t(sph), quad_sweep=t(quad), table=t(table[:GROUP_FIELDS]),
+        kid_map=t(kid), nodes=t(bvh.nodes), sph_leaf=t(bvh.sph_leaf),
+        sph_gid=t(bvh.sph_gid), quad_leaf=t(bvh.quad_leaf), quad_gid=t(bvh.quad_gid),
         n_sph=n_sph, n_quad=n_quad, n_sph_pad=ns_pad,
         moving=bool(np.any(sph[:, 3:6] != 0.0)),
         has_noise=bool(np.any(tkind == fl.TK_NOISE)),
         has_image=bool(np.any(tkind == fl.TK_IMAGE)),
     )
+
+
+def select_layout(mega: MegaScene, layout=None, use_bvh=None):
+    """``(layout, use_bvh)`` of a trace, as the JAX ``trace_megakernel``
+    selects them: ``use_bvh=None`` walks the BVH iff the scene has more
+    than ``BVH_MIN_CHUNKS`` chunks, and ``layout=None`` is the group layout
+    iff the walk is chosen. The block layout has no walk."""
+    resolved = use_bvh if use_bvh is not None else mega.n_prims // CHUNK > BVH_MIN_CHUNKS
+    if layout is None:
+        layout = "group" if resolved else "block"
+    if layout not in ("block", "group"):
+        raise ValueError(f"layout must be 'block', 'group' or None, got {layout!r}")
+    if layout == "block":
+        if use_bvh:
+            raise ValueError("the block layout (K1) has no BVH walk; use layout='group'")
+        resolved = False
+    return layout, bool(resolved)
 
 
 def pack_rays(o, d, time, pixel_ids, sample_ids, active0=None):
@@ -85,8 +145,13 @@ def trace_megakernel(mega: MegaScene, o: torch.Tensor, d: torch.Tensor,
                      time: torch.Tensor, pixel_ids: torch.Tensor,
                      sample_ids: torch.Tensor, background, max_depth: int, seed: int,
                      phase_depths=None, active0=None, want_counts: bool = False,
-                     phase_prefixes=None, want_ids=False, block_fn=mb.trace_block):
-    """Trace B rays (a multiple of BLOCK) through K1.
+                     phase_prefixes=None, want_ids=False, layout=None, use_bvh=None,
+                     plain: bool = False):
+    """Trace B rays (a multiple of BLOCK) through K1 or K5.
+
+    ``layout`` is ``"block"`` (K1), ``"group"`` (K5) or None, and
+    ``use_bvh`` a bool or None: see :func:`select_layout`. The group layout
+    takes none of ``want_ids``, ``want_counts`` and ``phase_prefixes``.
 
     Returns ``(radiance (B, 3), segments)`` in camera order, ``segments``
     an int64 0-d tensor on the rays' device, then the extras in this
@@ -112,13 +177,22 @@ def trace_megakernel(mega: MegaScene, o: torch.Tensor, d: torch.Tensor,
       entry per phase: None, or a BLOCK multiple up to B; the first must
       be None.
 
-    ``block_fn`` is the K1 implementation (``trace_block``; pass
-    ``trace_block_torch`` to run the plain version on any device)."""
+    ``plain=True`` runs the kernels' plain PyTorch versions on any device."""
     B = o.shape[0]
     if B % BLOCK:
         raise ValueError(f"megakernel batch must be a multiple of {BLOCK}, got {B}")
     if want_ids not in (False, True, "compacted"):
         raise ValueError(f"want_ids must be False, True or 'compacted', got {want_ids!r}")
+    layout, use_bvh = select_layout(mega, layout, use_bvh)
+    if layout == "group":
+        for name, v in (("want_ids", want_ids), ("want_counts", want_counts),
+                        ("phase_prefixes", phase_prefixes)):
+            if v not in (None, False):
+                raise ValueError(f"{name} requires the block layout (K1); this trace "
+                                 f"runs the group layout (K5)")
+        phase_fn = mg.trace_group_torch if plain else mg.trace_group
+    else:
+        phase_fn = mb.trace_block_torch if plain else mb.trace_block
     dev = o.device
     phases = list(phase_depths) if phase_depths is not None else [max_depth]
     if phase_prefixes is not None:
@@ -144,10 +218,10 @@ def trace_megakernel(mega: MegaScene, o: torch.Tensor, d: torch.Tensor,
             n = phase_prefixes[pi]
             # exact iff every ray past the prefix is already dead
             ok = ok & ~torch.any(ray_f[mb.ACT, n:] > 0.0)
-        rad, bc, state, *ids = block_fn(
+        kw = dict(use_bvh=use_bvh) if layout == "group" else dict(want_ids=bool(want_ids))
+        rad, bc, state, *ids = phase_fn(
             mega, ray_f[:, :n].contiguous(), ray_i[:, :n].contiguous(), seed, offset,
-            max_depth=pd, background=background, want_state=not last,
-            want_ids=bool(want_ids))
+            max_depth=pd, background=background, want_state=not last, **kw)
         segments = segments + bc.sum()
         if counts is not None:
             counts[:n] += bc

@@ -193,155 +193,171 @@ def _closest_hit(mega, ox, oy, oz, dx, dy, dz, tm):
     return t, ib
 
 
+def shade(mega, st, t, ib, b: int, b_off: int, seed: int, pix, smp, background):
+    """One bounce after the closest hit ``(t, ib)`` (``t == BIG`` on a miss),
+    shared by K1's and K5's plain versions: background on a miss, the
+    winner's fields from the resolve table, solid or checker albedo,
+    emission, and the scatter of a lambertian, metal or dielectric surface.
+    ``st`` is the ray state as a list in ``ray_f``'s row order, with a bool
+    ``active`` last; returns the state after the bounce."""
+    ox, oy, oz, dx, dy, dz, tm, thr_r, thr_g, thr_b, rad_r, rad_g, rad_b, active = st
+    bg_r, bg_g, bg_b = (float(x) for x in background)
+    res = mega.resolve
+    ns_pad = mega.n_sph_pad
+    hit = t < BIG
+    miss = active & ~hit
+    rad_r = rad_r + torch.where(miss, thr_r * bg_r, 0.0)
+    rad_g = rad_g + torch.where(miss, thr_g * bg_g, 0.0)
+    rad_b = rad_b + torch.where(miss, thr_b * bg_b, 0.0)
+
+    px = ox + t * dx
+    py = oy + t * dy
+    pz = oz + t * dz
+
+    at = res[:, ib.clamp(min=0)]  # misses read column 0, masked below
+    is_quad = ib >= ns_pad
+    cxt = at[fl.U_G0] + tm * at[fl.U_G3]
+    cyt = at[fl.U_G1] + tm * at[fl.U_G4]
+    czt = at[fl.U_G2] + tm * at[fl.U_G5]
+    r_att = at[fl.U_G6]
+    inv_r = 1.0 / torch.where(r_att != 0.0, r_att, 1.0)
+    own_x = torch.where(is_quad, at[fl.U_G0], (px - cxt) * inv_r)
+    own_y = torch.where(is_quad, at[fl.U_G1], (py - cyt) * inv_r)
+    own_z = torch.where(is_quad, at[fl.U_G2], (pz - czt) * inv_r)
+    front = (dx * own_x + dy * own_y + dz * own_z) < 0.0
+    sgn = torch.where(front, 1.0, -1.0)
+    nx = own_x * sgn
+    ny = own_y * sgn
+    nz = own_z * sgn
+
+    mt = at[fl.U_MTYPE]
+    prm = at[fl.U_PARAM]
+    ts = at[fl.U_TSCALE]
+    cells = (torch.floor(ts * px).to(torch.int32)
+             + torch.floor(ts * py).to(torch.int32)
+             + torch.floor(ts * pz).to(torch.int32))
+    use2 = (at[fl.U_TKIND] == fl.TK_CHECKER) & ((cells & 1) != 0)
+    ar = torch.where(use2, at[fl.U_A2R], at[fl.U_AR])
+    ag = torch.where(use2, at[fl.U_A2G], at[fl.U_AG])
+    ab = torch.where(use2, at[fl.U_A2B], at[fl.U_AB])
+
+    ctr = (b + b_off) * rng_mod.N_STREAMS + rng_mod.STREAM_SCATTER
+    v0, v1, v2, _ = rng_mod.pcg4d(pix, smp, torch.full_like(pix, ctr, dtype=torch.int64),
+                                  torch.full_like(pix, seed, dtype=torch.int64))
+    u0 = rng_mod.to_unit_float(v0)
+    u1 = rng_mod.to_unit_float(v1)
+    u2 = rng_mod.to_unit_float(v2)
+
+    zdir = 1.0 - 2.0 * u0
+    rho = torch.sqrt(torch.clamp(1.0 - zdir * zdir, min=0.0))
+    phi_s = (2.0 * math.pi) * u1
+    rux = rho * torch.cos(phi_s)
+    ruy = rho * torch.sin(phi_s)
+    ruz = zdir
+
+    # lambertian
+    ldx = nx + rux
+    ldy = ny + ruy
+    ldz = nz + ruz
+    degen = ((torch.abs(ldx) < NEAR_ZERO_EPS) & (torch.abs(ldy) < NEAR_ZERO_EPS)
+             & (torch.abs(ldz) < NEAR_ZERO_EPS))
+    ldx = torch.where(degen, nx, ldx)
+    ldy = torch.where(degen, ny, ldy)
+    ldz = torch.where(degen, nz, ldz)
+
+    # metal
+    d_dot_on = dx * nx + dy * ny + dz * nz
+    rdx = dx - 2.0 * d_dot_on * nx
+    rdy = dy - 2.0 * d_dot_on * ny
+    rdz = dz - 2.0 * d_dot_on * nz
+    rlen = 1.0 / torch.sqrt(rdx * rdx + rdy * rdy + rdz * rdz + 1e-30)
+    mdx = rdx * rlen + prm * rux
+    mdy = rdy * rlen + prm * ruy
+    mdz = rdz * rlen + prm * ruz
+    metal_ok = (mdx * nx + mdy * ny + mdz * nz) > 0.0
+
+    # dielectric
+    dinv = 1.0 / torch.sqrt(dx * dx + dy * dy + dz * dz + 1e-30)
+    udx = dx * dinv
+    udy = dy * dinv
+    udz = dz * dinv
+    ri = torch.where(front, 1.0 / prm, prm)
+    cos_t = torch.clamp(-(udx * nx + udy * ny + udz * nz), max=1.0)
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    cannot = ri * sin_t > 1.0
+    r0 = (1.0 - ri) / (1.0 + ri)
+    r0 = r0 * r0
+    x1 = 1.0 - cos_t
+    x2 = x1 * x1
+    reflectance = r0 + (1.0 - r0) * (x1 * (x2 * x2))
+    use_reflect = cannot | (reflectance > u2)
+    rpx = ri * (udx + cos_t * nx)
+    rpy = ri * (udy + cos_t * ny)
+    rpz = ri * (udz + cos_t * nz)
+    par = -torch.sqrt(torch.abs(1.0 - (rpx * rpx + rpy * rpy + rpz * rpz)))
+    u_dot_n = udx * nx + udy * ny + udz * nz
+    gdx = torch.where(use_reflect, udx - 2.0 * u_dot_n * nx, rpx + par * nx)
+    gdy = torch.where(use_reflect, udy - 2.0 * u_dot_n * ny, rpy + par * ny)
+    gdz = torch.where(use_reflect, udz - 2.0 * u_dot_n * nz, rpz + par * nz)
+
+    is_metal = mt == MT_METAL
+    is_diel = mt == MT_DIELECTRIC
+    is_light = mt == MT_LIGHT
+    ndx = torch.where(is_diel, gdx, torch.where(is_metal, mdx, ldx))
+    ndy = torch.where(is_diel, gdy, torch.where(is_metal, mdy, ldy))
+    ndz = torch.where(is_diel, gdz, torch.where(is_metal, mdz, ldz))
+    att_r = torch.where(is_diel, 1.0, ar)
+    att_g = torch.where(is_diel, 1.0, ag)
+    att_b = torch.where(is_diel, 1.0, ab)
+
+    hit_mask = active & hit
+    emit = hit_mask & is_light
+    rad_r = rad_r + torch.where(emit, thr_r * ar, 0.0)
+    rad_g = rad_g + torch.where(emit, thr_g * ag, 0.0)
+    rad_b = rad_b + torch.where(emit, thr_b * ab, 0.0)
+
+    live = hit_mask & ((is_metal & metal_ok) | (~is_metal & ~is_light))
+    thr_r = torch.where(live, thr_r * att_r, thr_r)
+    thr_g = torch.where(live, thr_g * att_g, thr_g)
+    thr_b = torch.where(live, thr_b * att_b, thr_b)
+    ox = torch.where(live, px, ox)
+    oy = torch.where(live, py, oy)
+    oz = torch.where(live, pz, oz)
+    dx = torch.where(live, ndx, dx)
+    dy = torch.where(live, ndy, dy)
+    dz = torch.where(live, ndz, dz)
+    return [ox, oy, oz, dx, dy, dz, tm, thr_r, thr_g, thr_b, rad_r, rad_g, rad_b, live]
+
+
+def state_out(st):
+    """The ray state list as ``(rad (3, n), state (N_F, n))``."""
+    rad = torch.stack(st[RR:RB + 1])
+    return rad, torch.stack([*st[:ACT], st[ACT].to(torch.float32)])
+
+
 def trace_block_torch(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
                       b_off: int, *, max_depth: int, background,
                       want_state: bool = True, want_ids: bool = False):
     """Plain PyTorch K1 with the kernel's inputs, outputs and arithmetic
     (each multiply and add rounded on its own, as the kernel is built with
     ``-fmad=false``). Runs on any device."""
-    ox, oy, oz, dx, dy, dz, tm, thr_r, thr_g, thr_b, rad_r, rad_g, rad_b, act = ray_f.unbind(0)
+    st = list(ray_f.unbind(0))
+    st[ACT] = st[ACT] > 0.5
     pix, smp = ray_i[PIX], ray_i[SMP]
-    bg_r, bg_g, bg_b = (float(x) for x in background)
-    active = act > 0.5
     bounces = torch.zeros(ray_f.shape[1], dtype=torch.int32, device=ray_f.device)
     ids = (torch.full((max_depth, ray_f.shape[1]), -1, dtype=torch.int32, device=ray_f.device)
            if want_ids else None)
-    res = mega.resolve
-    ns_pad = mega.n_sph_pad
     for b in range(max_depth):
+        active = st[ACT]
         if not bool(active.any()):
             break
-        t, ib = _closest_hit(mega, ox, oy, oz, dx, dy, dz, tm)
-        hit = t < BIG
+        t, ib = _closest_hit(mega, *st[OX:TM + 1])
         if want_ids:
-            ids[b] = torch.where(active & hit, mega.kid_map[ib.clamp(min=0)], -1)
-        miss = active & ~hit
-        rad_r = rad_r + torch.where(miss, thr_r * bg_r, 0.0)
-        rad_g = rad_g + torch.where(miss, thr_g * bg_g, 0.0)
-        rad_b = rad_b + torch.where(miss, thr_b * bg_b, 0.0)
-
-        px = ox + t * dx
-        py = oy + t * dy
-        pz = oz + t * dz
-
-        at = res[:, ib.clamp(min=0)]  # misses read column 0, masked below
-        is_quad = ib >= ns_pad
-        cxt = at[fl.U_G0] + tm * at[fl.U_G3]
-        cyt = at[fl.U_G1] + tm * at[fl.U_G4]
-        czt = at[fl.U_G2] + tm * at[fl.U_G5]
-        r_att = at[fl.U_G6]
-        inv_r = 1.0 / torch.where(r_att != 0.0, r_att, 1.0)
-        own_x = torch.where(is_quad, at[fl.U_G0], (px - cxt) * inv_r)
-        own_y = torch.where(is_quad, at[fl.U_G1], (py - cyt) * inv_r)
-        own_z = torch.where(is_quad, at[fl.U_G2], (pz - czt) * inv_r)
-        front = (dx * own_x + dy * own_y + dz * own_z) < 0.0
-        sgn = torch.where(front, 1.0, -1.0)
-        nx = own_x * sgn
-        ny = own_y * sgn
-        nz = own_z * sgn
-
-        mt = at[fl.U_MTYPE]
-        prm = at[fl.U_PARAM]
-        ts = at[fl.U_TSCALE]
-        cells = (torch.floor(ts * px).to(torch.int32)
-                 + torch.floor(ts * py).to(torch.int32)
-                 + torch.floor(ts * pz).to(torch.int32))
-        use2 = (at[fl.U_TKIND] == fl.TK_CHECKER) & ((cells & 1) != 0)
-        ar = torch.where(use2, at[fl.U_A2R], at[fl.U_AR])
-        ag = torch.where(use2, at[fl.U_A2G], at[fl.U_AG])
-        ab = torch.where(use2, at[fl.U_A2B], at[fl.U_AB])
-
-        ctr = (b + b_off) * rng_mod.N_STREAMS + rng_mod.STREAM_SCATTER
-        v0, v1, v2, _ = rng_mod.pcg4d(pix, smp, torch.full_like(pix, ctr, dtype=torch.int64),
-                                      torch.full_like(pix, seed, dtype=torch.int64))
-        u0 = rng_mod.to_unit_float(v0)
-        u1 = rng_mod.to_unit_float(v1)
-        u2 = rng_mod.to_unit_float(v2)
-
-        zdir = 1.0 - 2.0 * u0
-        rho = torch.sqrt(torch.clamp(1.0 - zdir * zdir, min=0.0))
-        phi_s = (2.0 * math.pi) * u1
-        rux = rho * torch.cos(phi_s)
-        ruy = rho * torch.sin(phi_s)
-        ruz = zdir
-
-        # lambertian
-        ldx = nx + rux
-        ldy = ny + ruy
-        ldz = nz + ruz
-        degen = ((torch.abs(ldx) < NEAR_ZERO_EPS) & (torch.abs(ldy) < NEAR_ZERO_EPS)
-                 & (torch.abs(ldz) < NEAR_ZERO_EPS))
-        ldx = torch.where(degen, nx, ldx)
-        ldy = torch.where(degen, ny, ldy)
-        ldz = torch.where(degen, nz, ldz)
-
-        # metal
-        d_dot_on = dx * nx + dy * ny + dz * nz
-        rdx = dx - 2.0 * d_dot_on * nx
-        rdy = dy - 2.0 * d_dot_on * ny
-        rdz = dz - 2.0 * d_dot_on * nz
-        rlen = 1.0 / torch.sqrt(rdx * rdx + rdy * rdy + rdz * rdz + 1e-30)
-        mdx = rdx * rlen + prm * rux
-        mdy = rdy * rlen + prm * ruy
-        mdz = rdz * rlen + prm * ruz
-        metal_ok = (mdx * nx + mdy * ny + mdz * nz) > 0.0
-
-        # dielectric
-        dinv = 1.0 / torch.sqrt(dx * dx + dy * dy + dz * dz + 1e-30)
-        udx = dx * dinv
-        udy = dy * dinv
-        udz = dz * dinv
-        ri = torch.where(front, 1.0 / prm, prm)
-        cos_t = torch.clamp(-(udx * nx + udy * ny + udz * nz), max=1.0)
-        sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
-        cannot = ri * sin_t > 1.0
-        r0 = (1.0 - ri) / (1.0 + ri)
-        r0 = r0 * r0
-        x1 = 1.0 - cos_t
-        x2 = x1 * x1
-        reflectance = r0 + (1.0 - r0) * (x1 * (x2 * x2))
-        use_reflect = cannot | (reflectance > u2)
-        rpx = ri * (udx + cos_t * nx)
-        rpy = ri * (udy + cos_t * ny)
-        rpz = ri * (udz + cos_t * nz)
-        par = -torch.sqrt(torch.abs(1.0 - (rpx * rpx + rpy * rpy + rpz * rpz)))
-        u_dot_n = udx * nx + udy * ny + udz * nz
-        gdx = torch.where(use_reflect, udx - 2.0 * u_dot_n * nx, rpx + par * nx)
-        gdy = torch.where(use_reflect, udy - 2.0 * u_dot_n * ny, rpy + par * ny)
-        gdz = torch.where(use_reflect, udz - 2.0 * u_dot_n * nz, rpz + par * nz)
-
-        is_metal = mt == MT_METAL
-        is_diel = mt == MT_DIELECTRIC
-        is_light = mt == MT_LIGHT
-        ndx = torch.where(is_diel, gdx, torch.where(is_metal, mdx, ldx))
-        ndy = torch.where(is_diel, gdy, torch.where(is_metal, mdy, ldy))
-        ndz = torch.where(is_diel, gdz, torch.where(is_metal, mdz, ldz))
-        att_r = torch.where(is_diel, 1.0, ar)
-        att_g = torch.where(is_diel, 1.0, ag)
-        att_b = torch.where(is_diel, 1.0, ab)
-
-        hit_mask = active & hit
-        emit = hit_mask & is_light
-        rad_r = rad_r + torch.where(emit, thr_r * ar, 0.0)
-        rad_g = rad_g + torch.where(emit, thr_g * ag, 0.0)
-        rad_b = rad_b + torch.where(emit, thr_b * ab, 0.0)
-
-        live = hit_mask & ((is_metal & metal_ok) | (~is_metal & ~is_light))
-        thr_r = torch.where(live, thr_r * att_r, thr_r)
-        thr_g = torch.where(live, thr_g * att_g, thr_g)
-        thr_b = torch.where(live, thr_b * att_b, thr_b)
-        ox = torch.where(live, px, ox)
-        oy = torch.where(live, py, oy)
-        oz = torch.where(live, pz, oz)
-        dx = torch.where(live, ndx, dx)
-        dy = torch.where(live, ndy, dy)
-        dz = torch.where(live, ndz, dz)
+            ids[b] = torch.where(active & (t < BIG), mega.kid_map[ib.clamp(min=0)], -1)
+        st = shade(mega, st, t, ib, b, b_off, seed, pix, smp, background)
         bounces = bounces + active.to(torch.int32)
-        active = live
 
-    rad = torch.stack([rad_r, rad_g, rad_b])
-    state = None
-    if want_state:
-        state = torch.stack([ox, oy, oz, dx, dy, dz, tm, thr_r, thr_g, thr_b,
-                             rad_r, rad_g, rad_b, active.to(torch.float32)])
+    rad, state = state_out(st)
+    if not want_state:
+        state = None
     return (rad, bounces, state, ids) if want_ids else (rad, bounces, state)

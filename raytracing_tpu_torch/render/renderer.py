@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..core.color import to_u8_image
-from ..ops.megakernel import build_mega_scene, trace_megakernel
+from ..ops.megakernel import build_mega_scene, select_layout, trace_megakernel
 from ..scene.types import Scene
 from . import camera as cam_mod
 from .camera import CameraConfig, CameraParams
@@ -84,7 +84,9 @@ def _render_chunk(mega, cfg: CameraConfig, derived, pixel_start: int,
 
 class Renderer:
     """Renders a scene on the device its tensors live on, through the
-    phased megakernel schedule."""
+    phased megakernel schedule. The trace picks its layout from the scene
+    (``ops.megakernel.select_layout``): K1's sweep, or K5's BVH walk above
+    ``BVH_MIN_CHUNKS`` chunks of 8 primitives."""
 
     def __init__(self, cfg: CameraConfig, *, hit_method: str = "mega",
                  max_rays_per_launch: int = 1 << 18, phase_depths=None,
@@ -130,12 +132,18 @@ class Renderer:
         per-ray bounce counts and return the per-phase live-ray prefixes
         for ``Renderer(..., phase_prefixes=...)`` on the same scene, config,
         batching and seed, with ``margin_blocks`` blocks of slack. None for
-        a single-phase schedule."""
+        a single-phase schedule. Raises ValueError on a scene that traces
+        through the group layout (K5), which counts no per-ray bounces."""
         mega = self._get_mega(scene)
         cfg = self.cfg
         phases = self.phase_depths
         if phases is None or len(phases) < 2:
             return None
+        if select_layout(mega)[0] != "block":
+            raise ValueError(
+                f"phase prefixes need the block layout's per-ray bounce counts; this scene "
+                f"({mega.n_prims} primitive columns) renders through the group layout (K5), "
+                f"which takes no prefixes: render it without phase_prefixes")
         dev = mega.sph_sweep.device
         derived = cam_mod.derive(cfg, CameraParams.from_config(cfg, dev))
         d = cfg.max_depth

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels on the card: K1 (with recorded ids), K3 and K2
-against their plain PyTorch versions, and a render on the card against
-the same render on the CPU. Marked ``cuda``; each test skips when no CUDA
+"""The port's CUDA kernels on the card: K1 (with recorded ids), K3, K2 and
+K5 (walk and dense sweep) against their plain PyTorch versions, and a
+render on the card against the same render on the CPU. Marked ``cuda``; each test skips when no CUDA
 device is present. On a GPU machine:
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
@@ -11,6 +11,7 @@ import torch
 
 from raytracing_tpu_torch import Renderer, build
 from raytracing_tpu_torch.ops import megakernel_block as mb
+from raytracing_tpu_torch.ops import megakernel_group as mg
 from raytracing_tpu_torch.diff import replay_fast as rf
 from raytracing_tpu_torch.diff import replay_kernel as rk
 from raytracing_tpu_torch.ops.megakernel import build_mega_scene, pack_rays, trace_megakernel
@@ -97,3 +98,31 @@ def test_replay_kernels_match_plain_versions(dev, name):
     torch.testing.assert_close(rk.reduce_table_grads(g.cpu(), ids.cpu(), L),
                                rk.reduce_table_grads(g_p.cpu(), ids.cpu(), L),
                                rtol=3e-5, atol=3e-6)
+
+
+@pytest.mark.parametrize("name", ["cornell_box", "bouncing_spheres"])
+def test_group_kernel_matches_plain_version(dev, name):
+    """K5 through the BVH walk and through the dense sweep: every output
+    bit-equal to the plain version, and the walk equal to the sweep."""
+    scene, cfg = build(name, device=dev, image_width=64, samples_per_pixel=1, max_depth=6)
+    mega = build_mega_scene(scene)
+    B = -(-cfg.n_pixels // 1024) * 1024
+    pix = torch.clamp(torch.arange(B, device=dev), max=cfg.n_pixels - 1)
+    smp = torch.zeros_like(pix)
+    o, d, t = cam.generate_rays(cfg, cam.derive(cfg, cam.CameraParams.from_config(cfg, dev)),
+                                pix, smp, SEED, motion_blur=scene.flags.has_moving)
+    ray_f, ray_i = pack_rays(o, d, t, pix, smp, torch.arange(B, device=dev) < cfg.n_pixels)
+    outs = []
+    for use_bvh in (True, False):
+        kw = dict(max_depth=6, background=cfg.background, use_bvh=use_bvh)
+        before = mg.launches
+        out = mg.trace_group(mega, ray_f, ray_i, SEED, 3, **kw)
+        torch.cuda.synchronize()
+        assert mg.launches == before + 1
+        ref = mg.trace_group_torch(mega, ray_f, ray_i, SEED, 3, **kw)
+        for x, y in zip(out, ref):
+            assert torch.equal(x, y)
+        outs.append(out)
+    for x, y in zip(*outs):
+        assert torch.equal(x, y)
+    assert int(outs[0][1].sum()) > 0

@@ -1,16 +1,19 @@
 """Where the time of the port's bench render goes, on one CUDA device.
 
-    python3 tools/profile_torch_render.py
+    python3 tools/profile_torch_render.py [--scene bouncing_spheres_64]
 
 Renders the bench workload (bouncing_spheres 400x225, 100 spp, depth 20,
 seed 7, schedule [2,2,3,4,9] with planned prefixes) through
 raytracing_tpu_torch: five timed renders, then one render under
 torch.profiler (device time by kernel, device busy share), then CUDA-event
 timings of one launch's camera rays and of one whole launch. Prints the
-card's name, power limit and max SM clock first.
+card's name, power limit and max SM clock first. ``--scene
+bouncing_spheres_64`` renders chip_smoke.py's 64x64-grid scene instead
+(~4,100 spheres, traced by K5's BVH walk, which takes no prefixes).
 """
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 import time
@@ -44,6 +47,10 @@ def event_ms(fn, reps=20):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--scene", choices=("bouncing_spheres", "bouncing_spheres_64"),
+                    default="bouncing_spheres")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
@@ -52,14 +59,22 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip())
     _kernels.library()
-    scene, cfg = build("bouncing_spheres", device=dev, image_width=400,
-                       samples_per_pixel=100, max_depth=20)
+    if args.scene == "bouncing_spheres_64":
+        from chip_smoke import bouncing_spheres_64
+
+        scene, cfg = bouncing_spheres_64(dev)
+    else:
+        scene, cfg = build("bouncing_spheres", device=dev, image_width=400,
+                           samples_per_pixel=100, max_depth=20)
     kw = dict(max_rays_per_launch=1 << 18, transfer="u8", phase_depths=[2, 2, 3, 4, 9])
-    pref = Renderer(cfg, **kw).plan_phase_prefixes(scene, seed=SEED)
+    pref = (None if args.scene == "bouncing_spheres_64"
+            else Renderer(cfg, **kw).plan_phase_prefixes(scene, seed=SEED))
     r = Renderer(cfg, **kw, phase_prefixes=pref)
     for _ in range(2):
         r.render(scene, seed=SEED)
-    print("render seconds", [r.render(scene, seed=SEED).seconds for _ in range(5)])
+    runs = [r.render(scene, seed=SEED) for _ in range(5)]
+    print(f"{args.scene}: segments {runs[0].segments}, render seconds",
+          [x.seconds for x in runs])
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
