@@ -28,6 +28,20 @@ and against K1 on the same rays, with times and K5's bound from the plain
 version's visit counts. Phase 10 renders bouncing_spheres_64 (400x225,
 100 spp, depth 20) through Renderer, which picks K5 on its own, and
 counts the kernels' launches.
+Phase 11 holds K4 (the table gather) against its plain version, bit for
+bit, on one bounce's K1-recorded ids of a fwd+bwd chunk (B = 360,448,
+L = 512) and on the bouncing_spheres_64 replay table (L = 4,224), and
+times it, index_select and the backward's index_add_. Phase 12 runs the
+differentiable-rendering path at full width: K1 decisions, then
+replay_trace_fast (one K4 lookup per bounce) under autograd with an MSE
+and its backward to sphere centers, texture rgb and the camera's
+lookfrom, chunk by chunk; the first chunk against replay_trace_kernel
+(K3/K2), then one timed 25-chunk sweep with its K4 launches counted.
+Phase 13 runs render_once (the wavefront integrator) once with its
+backward at 400x225, spp 1, depth 20, against trace_megakernel's segment
+count on the same rays, and camera_grad through render_once against the
+one through render_replay on perlin_sphere. Phase 14 fits the albedos of
+single_sphere with fit_albedo.
 
 Prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}. Exits
@@ -36,6 +50,7 @@ fails. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -219,6 +234,7 @@ def main() -> int:
     from raytracing_tpu_torch.diff import replay_kernel as rk
     from raytracing_tpu_torch.ops import megakernel_block as mb
     from raytracing_tpu_torch.ops import megakernel_group as mg
+    from raytracing_tpu_torch.ops import table_gather as tg
     from raytracing_tpu_torch.ops.megakernel import (build_mega_scene, select_layout,
                                                      trace_megakernel)
     from raytracing_tpu_torch.render import camera as cam
@@ -234,10 +250,11 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     def zero_counts():
-        mb.launches = rk.fwd_launches = rk.bwd_launches = mg.launches = 0
+        mb.launches = rk.fwd_launches = rk.bwd_launches = mg.launches = tg.launches = 0
 
     def counts():
-        return dict(K1=mb.launches, K3=rk.fwd_launches, K2=rk.bwd_launches, K5=mg.launches)
+        return dict(K1=mb.launches, K3=rk.fwd_launches, K2=rk.bwd_launches, K5=mg.launches,
+                    K4=tg.launches)
 
     # ---- phase 1: build ----
     t0 = time.perf_counter()
@@ -286,7 +303,8 @@ def main() -> int:
     best = min(runs, key=lambda x: x.seconds)
     img = res.u8
     # one K1 launch per phase of every chunk: 5 × 50 = 250
-    render_ok = (res.ok is True and render_counts == dict(K1=5 * res.launches, K3=0, K2=0, K5=0)
+    render_ok = (res.ok is True
+                 and render_counts == dict(K1=5 * res.launches, K3=0, K2=0, K5=0, K4=0)
                  and segments_close(BENCH_SEGMENTS, res.segments)
                  and all(x.segments == res.segments for x in runs)
                  and img.shape == (cfg.image_height, cfg.image_width, 3)
@@ -476,7 +494,7 @@ def main() -> int:
     fb = pbench.time_fwd_bwd(fbs, reps=3)
     fb_wall = time.perf_counter() - t0
     n_chunks = fbs["n_chunks"]
-    fb_ok = (fb_counts == dict(K1=5 * n_chunks, K3=0, K2=n_chunks, K5=0) and bool(sweep_ok)
+    fb_ok = (fb_counts == dict(K1=5 * n_chunks, K3=0, K2=n_chunks, K5=0, K4=0) and bool(sweep_ok)
              and int(sweep_segs) == fb["segments"]
              and fb["segments"] == res.segments and segments_close(BENCH_SEGMENTS, fb["segments"])
              and fb["grads_finite"] and float(fb["grad_rgb"].abs().sum()) > 0)
@@ -489,8 +507,6 @@ def main() -> int:
         failures.append("phase 6 fwd+bwd bench")
 
     # ---- phase 7: replay_trace_kernel, K3 forward and K2 backward ----
-    import dataclasses
-
     rgb = scene.textures.rgb.clone().requires_grad_(True)
     scene_g = dataclasses.replace(scene, textures=dataclasses.replace(scene.textures, rgb=rgb))
     o_s, d_s, t_s = rfr[rk.RX:rk.RZ + 1].T, rfr[rk.RDX:rk.RDZ + 1].T, rfr[rk.RTM]
@@ -501,7 +517,7 @@ def main() -> int:
     (rad_t * rbar.T).sum().backward()
     torch.cuda.synchronize()
     rt_counts = counts()
-    rt_ok = (rt_counts == dict(K1=0, K3=1, K2=1, K5=0) and int(seg_t) == seg_k3
+    rt_ok = (rt_counts == dict(K1=0, K3=1, K2=1, K5=0, K4=0) and int(seg_t) == seg_k3
              and bool(torch.equal(rad_t.detach(), rad_k3.T))
              and bool(torch.isfinite(rgb.grad).all()))
     print(f"phase 7 replay_trace_kernel: {'ok' if rt_ok else 'FAIL'} segments {int(seg_t)} "
@@ -602,7 +618,7 @@ def main() -> int:
     res10 = r10.render(s64, seed=SEED)
     k5_counts = counts()
     img10 = res10.u8
-    ok10 = (k5_counts == dict(K1=0, K3=0, K2=0, K5=5 * res10.launches) and res10.segments > 0
+    ok10 = (k5_counts == dict(K1=0, K3=0, K2=0, K5=5 * res10.launches, K4=0) and res10.segments > 0
             and img10.shape == (c64.image_height, c64.image_width, 3)
             and 20 < float(img10.mean()) < 235)
     print(f"phase 10 bouncing_spheres_64 render: {'ok' if ok10 else 'FAIL'} segments "
@@ -611,6 +627,214 @@ def main() -> int:
           f"{float(img10.mean()):.2f} [{card}]")
     if not ok10:
         failures.append("phase 10 bouncing_spheres_64 render")
+
+    # ---- phase 11: K4 against its plain version ----
+    # one bounce's K1-recorded winners of the phase-5 chunk (misses are -1),
+    # and numpy-seeded ids over the bouncing_spheres_64 replay table
+    table64 = rf.build_replay_table(s64).detach()
+    ids64 = torch.from_numpy(np.random.default_rng(5).integers(
+        -1, table64.shape[0], n_full).astype(np.int32)).to(dev)
+    k4_rows = []
+    for name, tab, idv in (("bench chunk bounce 1", table, ids[1].contiguous()),
+                           ("bouncing_spheres_64 table", table64, ids64)):
+        L, F = tab.shape
+        out = tg.gather(tab, idv)
+        torch.cuda.synchronize()
+        ref = tg.gather_torch(tab, idv)
+        k4_eq = bool(torch.equal(out, ref))
+        k4_ms = cuda_ms(torch, lambda: tg.gather(tab, idv), 20)
+        sel_ms = cuda_ms(torch, lambda: tg.gather_torch(tab, idv), 20)
+        g_out = torch.randn((F, n_full), device=dev, generator=torch.Generator(dev).manual_seed(4))
+
+        def lookup_bwd():
+            tbar = torch.zeros((L, F), dtype=torch.float32, device=dev)
+            return tbar.index_add_(0, idv.clamp(0, L - 1).long(), g_out.t())
+
+        bwd_ms = cuda_ms(torch, lookup_bwd, 10)
+        k4_bound = bound(0, 4 * (idv.numel() + tab.numel() + out.numel()))
+        row = dict(name=name, L=L, F=F, B=n_full, bit_equal=k4_eq,
+                   max_abs_err=float((out - ref).abs().max()), ms=k4_ms, plain_ms=sel_ms,
+                   library_ms=sel_ms, bound_ms=k4_bound[0], bound_by=k4_bound[1],
+                   index_add_bwd_ms=bwd_ms, misses=int((idv < 0).sum()))
+        k4_rows.append(row)
+        print(f"phase 11 K4 {name}: {'ok' if k4_eq else 'FAIL'} {json.dumps(row)} [{card}]")
+        if not k4_eq:
+            failures.append(f"phase 11 K4 {name}")
+    del table64, ids64
+
+    # ---- phase 12: replay_trace_fast at full width, gradients to scene and camera ----
+    from raytracing_tpu_torch.diff.replay_fast import replay_trace_fast
+
+    spp_chunk, n_pix = 4, cfg.n_pixels
+    npix_pad = -(-n_pix // 1024) * 1024
+    n_chunks12 = cfg.samples_per_pixel // spp_chunk
+    pix12 = torch.clamp(torch.arange(npix_pad, device=dev), max=n_pix - 1).repeat(
+        spp_chunk).to(torch.int32)
+    act12 = (torch.arange(npix_pad, device=dev) < n_pix).repeat(spp_chunk)
+    mega12 = build_mega_scene(scene)
+    target12 = torch.from_numpy(np.random.default_rng(11).random((n_pix, 3)).astype(
+        np.float32)).to(dev)
+    center12 = scene.spheres.center.clone().requires_grad_(True)
+    rgb12 = scene.textures.rgb.clone().requires_grad_(True)
+    lookfrom12 = torch.tensor(cfg.lookfrom, dtype=torch.float32, device=dev, requires_grad=True)
+    scene12 = dataclasses.replace(
+        scene, spheres=dataclasses.replace(scene.spheres, center=center12),
+        textures=dataclasses.replace(scene.textures, rgb=rgb12))
+    params12 = dataclasses.replace(cam.CameraParams.from_config(cfg, dev), lookfrom=lookfrom12)
+
+    def chunk_loss(rad):
+        img = (rad * act12[:, None]).reshape(spp_chunk, npix_pad, 3).mean(0)[:n_pix]
+        return ((img - target12) ** 2).mean()
+
+    def chunk12(c):
+        """One chunk of the sweep: camera rays with autograd to lookfrom,
+        K1 decisions, replay_trace_fast and the chunk's MSE."""
+        smp = (c * spp_chunk + torch.arange(spp_chunk, device=dev).repeat_interleave(
+            npix_pad)).to(torch.int32)
+        o, d, t = cam.generate_rays(cfg, cam.derive(cfg, params12), pix12, smp, SEED,
+                                    motion_blur=scene.flags.has_moving)
+        with torch.no_grad():
+            _, _, ids_c = trace_megakernel(mega12, o, d, t, pix12, smp, cfg.background,
+                                           cfg.max_depth, SEED, phase_depths=kw["phase_depths"],
+                                           active0=act12, want_ids=True)
+        rad, seg = replay_trace_fast(scene12, ids_c, o, d, t, pix12, smp, cfg.background,
+                                     cfg.max_depth, SEED, remat=False, active0=act12)
+        return chunk_loss(rad), rad, seg, ids_c, (o, d, t, smp)
+
+    zero_counts()
+    loss0, rad0, seg0, ids0, (o0, d0, t0_, smp0) = chunk12(0)
+    torch.cuda.synchronize()
+    first_counts = counts()
+    (g_rgb_fast,) = torch.autograd.grad(loss0, rgb12, retain_graph=True)
+    rad_k, seg_k = rk.replay_trace_kernel(scene12, ids0, o0.detach(), d0.detach(), t0_.detach(),
+                                          pix12, smp0, cfg.background, cfg.max_depth, SEED,
+                                          active0=act12)
+    (g_rgb_k,) = torch.autograd.grad(chunk_loss(rad_k), rgb12)
+    loss0.backward()
+    torch.cuda.synchronize()
+    d12 = (rad0.detach() - rad_k.detach()).abs()
+    rel12 = float((g_rgb_fast - g_rgb_k).norm() / g_rgb_k.norm())
+
+    def grads_of(*ps):
+        """Each parameter's gradient; zeros where the loss does not reach it
+        (the bench scene is flat-shaded: with the decisions fixed its radiance
+        does not depend on geometry or camera)."""
+        return [torch.zeros_like(x) if x.grad is None else x.grad for x in ps]
+
+    grads12 = grads_of(center12, rgb12, lookfrom12)
+    ok12 = (first_counts["K4"] == cfg.max_depth and first_counts["K1"] == 5
+            and seg0 == int(seg_k) and float(d12.max()) <= 1e-4 and rel12 < 1e-4
+            and all(bool(torch.isfinite(g).all()) for g in grads12)
+            and float(grads12[1].abs().sum()) > 0)
+    print(f"phase 12 first chunk B={pix12.shape[0]}: {'ok' if ok12 else 'FAIL'} "
+          f"segments {seg0} (K3 {int(seg_k)}) radiance bit_equal "
+          f"{bool(torch.equal(rad0.detach(), rad_k.detach()))} max_abs_err {float(d12.max()):.3g} "
+          f"(bar 1e-4) rgb grad relative L2 vs K2 {rel12:.3g} (bar 1e-4) lookfrom grad "
+          f"{[round(float(x), 6) for x in grads12[2]]} center grad max "
+          f"{float(grads12[0].abs().max()):.3g} kernel launches {first_counts}")
+    if not ok12:
+        failures.append("phase 12 first chunk")
+
+    for p_ in (center12, rgb12, lookfrom12):
+        p_.grad = None
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    seg12 = 0
+    for c in range(n_chunks12):
+        loss_c, _, seg_c, _, _ = chunk12(c)
+        loss_c.backward()
+        seg12 += seg_c
+    torch.cuda.synchronize()
+    sweep12_s = time.perf_counter() - t0
+    sweep12_counts = counts()
+    ok12s = (sweep12_counts == dict(K1=5 * n_chunks12, K3=0, K2=0, K5=0,
+                                    K4=cfg.max_depth * n_chunks12)
+             and segments_close(fb["segments"], seg12)
+             and all(bool(torch.isfinite(g).all()) for g in grads_of(center12, rgb12,
+                                                                      lookfrom12)))
+    print(f"phase 12 replay_trace_fast sweep ({n_chunks12} chunks of {pix12.shape[0]} rays, "
+          f"depth {cfg.max_depth}): {'ok' if ok12s else 'FAIL'} wall {sweep12_s:.4f} s segments "
+          f"{seg12} (fwd+bwd bench {fb['segments']}) {seg12 / sweep12_s:.4g} segments/s kernel "
+          f"launches {sweep12_counts} [{card}]")
+    if not ok12s:
+        failures.append("phase 12 sweep")
+    del rad0, rad_k, ids0, o0, d0, t0_, loss0
+
+    # ---- phase 13: render_once (the wavefront integrator) and camera_grad ----
+    from raytracing_tpu_torch.diff import gradients as pgrad
+    from raytracing_tpu_torch.diff.replay import render_replay
+
+    cfg13 = dataclasses.replace(cfg, samples_per_pixel=1)
+    rgb13 = scene.textures.rgb.clone().requires_grad_(True)
+    lookfrom13 = torch.tensor(cfg.lookfrom, dtype=torch.float32, device=dev, requires_grad=True)
+    params13 = dataclasses.replace(cam.CameraParams.from_config(cfg13, dev), lookfrom=lookfrom13)
+    scene13 = dataclasses.replace(scene, textures=dataclasses.replace(scene.textures, rgb=rgb13))
+    # the first fwd+bwd pays seconds of one-time CUDA set-up: time the second
+    ((pgrad.render_once(scene13, cfg13, params13, seed=SEED) - target12.reshape(
+        cfg.image_height, cfg.image_width, 3)) ** 2).mean().backward()
+    rgb13.grad = lookfrom13.grad = None
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img13, seg13 = pgrad.render_once(scene13, cfg13, params13, seed=SEED, return_segments=True)
+    torch.cuda.synchronize()
+    fwd13_s = time.perf_counter() - t0
+    ((img13 - target12.reshape(img13.shape)) ** 2).mean().backward()
+    torch.cuda.synchronize()
+    wall13_s = time.perf_counter() - t0
+    peak13 = torch.cuda.max_memory_allocated() / 2 ** 30
+    pix13 = torch.clamp(torch.arange(npix_pad, device=dev), max=n_pix - 1).to(torch.int32)
+    smp13 = torch.zeros_like(pix13)
+    o13, d13, t13 = cam.generate_rays(cfg13, cam.derive(cfg13, cam.CameraParams.from_config(
+        cfg13, dev)), pix13, smp13, SEED, motion_blur=scene.flags.has_moving)
+    _, seg13_k = trace_megakernel(mega12, o13, d13, t13, pix13, smp13, cfg.background,
+                                  cfg.max_depth, SEED, active0=torch.arange(npix_pad, device=dev)
+                                  < n_pix)
+    ok13 = (segments_close(int(seg13_k), seg13)
+            and all(bool(torch.isfinite(g).all()) for g in grads_of(rgb13, lookfrom13))
+            and float(grads_of(rgb13)[0].abs().sum()) > 0 and img13.shape == (
+                cfg.image_height, cfg.image_width, 3))
+    print(f"phase 13 render_once {cfg.image_width}x{cfg.image_height} spp 1 depth {cfg.max_depth}: "
+          f"{'ok' if ok13 else 'FAIL'} forward {fwd13_s:.3f} s forward+backward {wall13_s:.3f} s "
+          f"segments {seg13} (K1 {int(seg13_k)}) {seg13 / wall13_s:.4g} segments/s fwd+bwd, peak "
+          f"memory {peak13:.2f} GiB [{card}]")
+    if not ok13:
+        failures.append("phase 13 render_once")
+
+    sp13, cp13 = build("perlin_sphere", device=dev, image_width=10, samples_per_pixel=2,
+                       max_depth=3)
+    p13 = cam.CameraParams.from_config(cp13, dev)
+    tgt13 = torch.zeros((cp13.image_height, cp13.image_width, 3), device=dev)
+    g_once = pgrad.camera_grad(sp13, tgt13, cp13, p13, seed=4).lookfrom
+    lf13 = p13.lookfrom.clone().requires_grad_(True)
+    img_rep = render_replay(sp13, cp13, dataclasses.replace(p13, lookfrom=lf13), seed=4)
+    (g_rep,) = torch.autograd.grad(((img_rep - tgt13) ** 2).mean(), lf13)
+    ok13c = (bool(torch.isfinite(g_once).all()) and float(g_once.abs().sum()) > 0
+             and bool(torch.allclose(g_once, g_rep, rtol=0.04, atol=3e-3)))
+    print(f"phase 13 camera_grad perlin_sphere: {'ok' if ok13c else 'FAIL'} render_once "
+          f"{[round(float(x), 6) for x in g_once]} render_replay "
+          f"{[round(float(x), 6) for x in g_rep]} (rtol 0.04, atol 3e-3)")
+    if not ok13c:
+        failures.append("phase 13 camera_grad")
+
+    # ---- phase 14: fit_albedo ----
+    from raytracing_tpu_torch.diff.optimize import fit_albedo
+
+    s14, c14 = build("single_sphere", device=dev, image_width=16, samples_per_pixel=2,
+                     max_depth=3)
+    tgt14 = pgrad.render_once(s14, c14, seed=0).detach()
+    bad14 = dataclasses.replace(s14, textures=dataclasses.replace(
+        s14.textures, rgb=s14.textures.rgb * 0.3))
+    t0 = time.perf_counter()
+    _, losses14 = fit_albedo(bad14, tgt14, c14, steps=60, lr=5e-2, seed=0,
+                             reseed_every_step=False)
+    ok14 = bool(torch.isfinite(losses14).all()) and float(losses14[-1]) < 0.1 * float(losses14[0])
+    print(f"phase 14 fit_albedo single_sphere 60 steps: {'ok' if ok14 else 'FAIL'} loss "
+          f"{float(losses14[0]):.4g} -> {float(losses14[-1]):.4g} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    if not ok14:
+        failures.append("phase 14 fit_albedo")
 
     print(json.dumps({"kernels": [
         {"name": "K1 megakernel_block", "route": "cuda",
@@ -637,6 +861,12 @@ def main() -> int:
          "replaces": "raytracing_tpu/ops/megakernel.py:285",
          "launches": k5_counts["K5"], "path": "bouncing_spheres_64 render (phase 10)",
          **k5_entry, "library_ms": None},
+        {"name": "K4 table_gather", "route": "cuda",
+         "source": "raytracing_tpu_torch/csrc/table_gather.cu",
+         "replaces": "raytracing_tpu/ops/table_gather.py:42",
+         "launches": sweep12_counts["K4"], "path": "replay_trace_fast sweep (phase 12)",
+         **{k: k4_rows[0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms", "index_add_bwd_ms")}},
     ]}))
     if failures:
         print(f"chip_smoke: FAILED {failures}", file=sys.stderr)

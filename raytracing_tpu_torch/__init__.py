@@ -1,12 +1,13 @@
-"""raytracing_tpu_torch: the PyTorch/CUDA port of the path tracer's forward
-render.
+"""raytracing_tpu_torch: the PyTorch/CUDA port of the path tracer: the
+forward render, the fwd+bwd gradient path and the differentiable-rendering
+API (``diff``).
 
-Scenes, camera and renderer follow ``raytracing_tpu`` module for module;
-the block megakernel (K1) is a hand-written CUDA kernel for sm_90a
-(``csrc/megakernel_block.cu``) with a plain PyTorch version beside it
-(``ops/megakernel_block.py``). Tensors on the CPU run the plain version;
-tensors on a CUDA device run the kernel. The package imports torch and
-numpy, never JAX.
+Scenes, camera, integrator and renderer follow ``raytracing_tpu`` module
+for module. The kernels the JAX package wrote in Pallas are hand-written
+CUDA kernels for sm_90a (``csrc/``: K1 and K5, the megakernels; K3 and K2,
+the replay; K4, the table gather), each with a plain PyTorch version beside
+its wrapper. Tensors on the CPU run the plain version; tensors on a CUDA
+device run the kernel. The package imports torch and numpy, never JAX.
 """
 
 __version__ = "0.1.0"

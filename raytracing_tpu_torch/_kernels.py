@@ -60,6 +60,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rt_replay_fwd.restype = ctypes.c_int
     lib.rt_replay_bwd.argtypes = [P, P, P, P, P, P, I, I, I, I, U, F, F, F, P, P]
     lib.rt_replay_bwd.restype = ctypes.c_int
+    lib.rt_table_gather.argtypes = [P, P, I, I, I, P, P]
+    lib.rt_table_gather.restype = ctypes.c_int
     lib.rt_error_string.argtypes = [ctypes.c_int]
     lib.rt_error_string.restype = ctypes.c_char_p
 

@@ -95,3 +95,12 @@ def unit_disk(u: torch.Tensor) -> torch.Tensor:
     r = torch.sqrt(u[..., 0])
     theta = (2.0 * math.pi) * u[..., 1]
     return torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=-1)
+
+
+def unit_vector(u: torch.Tensor) -> torch.Tensor:
+    """Uniform direction on the unit sphere via z = 1 - 2u, φ = 2πv from
+    ``u[..., :2]``. Returns (..., 3)."""
+    z = 1.0 - 2.0 * u[..., 0]
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = (2.0 * math.pi) * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)

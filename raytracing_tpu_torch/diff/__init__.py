@@ -1,7 +1,24 @@
-"""Differentiable rendering by decision replay: the packed replay table
-and the replay kernels (K3 forward, K2 backward), the counterparts of
-``raytracing_tpu.diff.replay_fast`` and ``raytracing_tpu.diff.replay_kernel``."""
-from .replay_fast import N_FIELDS, build_replay_table, supported_fast
+"""Differentiable rendering: gradients of image losses with respect to
+scene and camera parameters, the counterpart of ``raytracing_tpu.diff``.
+
+Three replay tiers, newest first:
+
+* ``replay_kernel``: K3 forward and K2 backward (CUDA) over rays sorted by
+  recorded length, with the ``index_add_`` table reduction; the fwd+bwd
+  bench's path (``replay_grads_sorted``) and ``replay_trace_kernel``;
+* ``replay_fast``: the packed table (``build_replay_table``, which the
+  kernel tier reuses) and ``replay_trace_fast``, pure PyTorch with one K4
+  table lookup per bounce; differentiable to the camera too;
+* ``replay``: the full-recompute replay sharing the integrator's bounce
+  body, the simplest and the oracle of the other two.
+
+``gradients`` renders through the wavefront integrator with autograd
+(``render_once``, ``scene_grad``, ``camera_grad``) and ``optimize`` fits
+scene parameters with ``torch.optim.Adam``.
+"""
+from .gradients import camera_grad, mse_loss, render_once, scene_grad
+from .replay import record_decisions, render_replay, render_replay_fast, replay_trace
+from .replay_fast import N_FIELDS, build_replay_table, replay_trace_fast, supported_fast
 from .replay_kernel import (
     NG,
     plan_prefixes,
@@ -15,6 +32,15 @@ from .replay_kernel import (
 )
 
 __all__ = [
+    "camera_grad",
+    "mse_loss",
+    "render_once",
+    "scene_grad",
+    "record_decisions",
+    "render_replay",
+    "render_replay_fast",
+    "replay_trace",
+    "replay_trace_fast",
     "N_FIELDS",
     "NG",
     "build_replay_table",

@@ -1,9 +1,10 @@
 """The scene registry: the counterpart of ``raytracing_tpu.models.scenes``
-for every scene whose textures are solid or checker. The constants are the
-JAX package's, and ``bouncing_spheres`` draws from the same
-``np.random.default_rng(seed)`` stream, so both packages build identical
-tables. (``simple_light``, ``perlin_sphere`` and ``earth`` need noise or
-image textures, which the megakernel port does not shade yet.)
+for every scene but ``earth`` (its image asset is not ported yet). The
+constants are the JAX package's, ``bouncing_spheres`` draws from the same
+``np.random.default_rng(seed)`` stream and the Perlin tables from the same
+seed, so both packages build identical tables. ``perlin_sphere`` and
+``simple_light`` shade marble noise, which only the wavefront integrator
+(``render/integrator.py``) renders so far: the megakernels refuse them.
 """
 from __future__ import annotations
 
@@ -111,6 +112,39 @@ def quads(device=DEFAULT_DEVICE, **cam_overrides):
         aspect_ratio=1.0, image_width=400, samples_per_pixel=100,
         max_depth=50, background=SKY, vfov=80.0, lookfrom=(0.0, 0.0, 9.0),
         lookat=(0.0, 0.0, 0.0), defocus_angle=0.0,
+    )
+    return b.compile(device), _cfg(cfg, cam_overrides)
+
+
+@register("perlin_sphere")
+def perlin_sphere(device=DEFAULT_DEVICE, **cam_overrides):
+    """Marble-noise ground and sphere."""
+    b = SceneBuilder()
+    pertext = b.noise(4.0)
+    b.sphere((0.0, -1000.0, 0.0), 1000.0, b.lambertian(pertext))
+    b.sphere((0.0, 2.0, 0.0), 2.0, b.lambertian(pertext))
+    cfg = CameraConfig(
+        aspect_ratio=16.0 / 9.0, image_width=400, samples_per_pixel=100,
+        max_depth=50, background=SKY, vfov=20.0, lookfrom=(13.0, 2.0, 3.0),
+        lookat=(0.0, 0.0, 0.0), defocus_angle=0.0,
+    )
+    return b.compile(device), _cfg(cfg, cam_overrides)
+
+
+@register("simple_light")
+def simple_light(device=DEFAULT_DEVICE, **cam_overrides):
+    """Marble spheres lit by an emissive sphere and quad, black background."""
+    b = SceneBuilder()
+    pertext = b.noise(4.0)
+    b.sphere((0.0, -1000.0, 0.0), 1000.0, b.lambertian(pertext))
+    b.sphere((0.0, 2.0, 0.0), 2.0, b.lambertian(pertext))
+    difflight = b.diffuse_light((4.0, 4.0, 4.0))
+    b.sphere((0.0, 7.0, 0.0), 2.0, difflight)
+    b.quad((3.0, 1.0, -2.0), (2.0, 0.0, 0.0), (0.0, 2.0, 0.0), difflight)
+    cfg = CameraConfig(
+        aspect_ratio=16.0 / 9.0, image_width=400, samples_per_pixel=100,
+        max_depth=50, background=(0.0, 0.0, 0.0), vfov=20.0,
+        lookfrom=(26.0, 3.0, 6.0), lookat=(0.0, 2.0, 0.0), defocus_angle=0.0,
     )
     return b.compile(device), _cfg(cfg, cam_overrides)
 

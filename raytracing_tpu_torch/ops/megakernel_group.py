@@ -45,7 +45,7 @@ import torch
 
 from ..scene import flatten as fl
 from . import megakernel_block as mb
-from .intersect import PARALLEL_EPS, T_MIN
+from .intersect import PARALLEL_EPS, T_MIN, sqrt_rn
 
 BIG = mb.BIG
 SAFE_INV_EPS = 1e-20  # |direction| floor of the slab test's reciprocals
@@ -55,15 +55,6 @@ NO_GID = 2 ** 31 - 1  # above every unified column: loses every gid tie
 PLAIN_CHUNK = 128
 
 launches = 0  # K5 kernel launches in this process (plain-version calls excluded)
-
-
-def _sqrt_rn(x):
-    """float32 sqrt rounded to nearest, as CUDA's ``sqrtf``: PyTorch's
-    vectorized CPU sqrt is off by an ulp on ~0.7% of inputs, which a
-    cancelling root (a ray grazing the r = 1000 ground) turns into a last
-    bit of t. A float64 sqrt rounded to float32 is the correctly rounded
-    float32 sqrt."""
-    return torch.sqrt(x.double()).float()
 
 
 def _check(mega, ray_f, ray_i):
@@ -139,7 +130,9 @@ def _sphere_cand(cx0, cy0, cz0, vx, vy, vz, r, ox, oy, oz, dx, dy, dz, tm, a, in
     half_b = ocx * dx + ocy * dy + ocz * dz
     cq = (ocx * ocx + ocy * ocy + ocz * ocz) - r * r
     disc = half_b * half_b - a * cq
-    sq = _sqrt_rn(torch.clamp(disc, min=0.0))
+    # rounded as the kernel's sqrtf: a cancelling root (a ray grazing the
+    # r = 1000 ground) turns an ulp of the sqrt into a last bit of t
+    sq = sqrt_rn(torch.clamp(disc, min=0.0))
     root0 = (-half_b - sq) * inv_a
     root1 = (-half_b + sq) * inv_a
     ok0 = (root0 > T_MIN) & (root0 < tb)

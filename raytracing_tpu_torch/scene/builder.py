@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..core.device import DEFAULT_DEVICE, resolve
+from . import perlin
 from .types import (
     MAT_DIELECTRIC,
     MAT_DIFFUSE_LIGHT,
@@ -83,14 +84,15 @@ class SceneBuilder:
 
     def image(self, source: np.ndarray) -> int:
         """Image texture from an (H, W, 3) float array in [0, 1]. The
-        megakernel port does not shade image textures yet and refuses
-        scenes that use them."""
+        megakernels (K1, K5) do not shade image textures yet and refuse
+        scenes that use them; the wavefront integrator does."""
         self.images.append(np.asarray(source, np.float32))
         return self._add_texture_row(TEX_IMAGE, image=len(self.images) - 1)
 
     def noise(self, scale: float) -> int:
-        """Marble noise texture. The megakernel port does not shade noise
-        yet and refuses scenes that use it."""
+        """Marble noise texture. The megakernels (K1, K5) do not shade
+        noise yet and refuse scenes that use it; the wavefront integrator
+        does."""
         return self._add_texture_row(TEX_NOISE, scale=scale)
 
     def _as_tex(self, tex_or_rgb: Union[int, Color]) -> int:
@@ -166,11 +168,13 @@ class SceneBuilder:
     def n_quads(self) -> int:
         return len(self.quad_mat)
 
-    def compile(self, device=DEFAULT_DEVICE) -> Scene:
+    def compile(self, device=DEFAULT_DEVICE, perlin_seed: int = 0,
+                image_bilinear: bool = False) -> Scene:
         """Lower the builder state to a :class:`Scene` on ``device`` (default:
         the card; raises without CUDA unless ``device="cpu"``).
         Primitive tables are padded to a multiple of 8 rows with inert
-        entries (zero-radius spheres, degenerate quads)."""
+        entries (zero-radius spheres, degenerate quads); the Perlin tables
+        are drawn from ``perlin_seed``."""
         device = resolve(device)
         n_sph = _pad_to(max(self.n_spheres, 1), 8)
         n_quad = _pad_to(max(self.n_quads, 1), 8)
@@ -229,9 +233,11 @@ class SceneBuilder:
             has_image=any(t == TEX_IMAGE for t in self.tex_type),
             has_noise=any(t == TEX_NOISE for t in self.tex_type),
             has_moving=any(np.any(v != 0) for v in self.sph_velocity),
+            image_bilinear=image_bilinear,
         )
         return Scene(spheres=spheres, quads=quads, materials=materials,
-                     textures=textures, atlas=atlas, flags=flags)
+                     textures=textures, atlas=atlas,
+                     perlin=perlin.make_tables(perlin_seed, device), flags=flags)
 
 
 class _TranslateScope:

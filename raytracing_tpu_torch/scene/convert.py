@@ -6,7 +6,7 @@ paths of ``raytracing_tpu``'s ``Scene`` (``"spheres.center"``,
 :class:`Scene`; ``camera_params_from_arrays`` does the same for
 ``CameraParams``. With them a scene built by either package computes on
 the same parameters in the other. Keys for fields the port has no use for
-(``perlin.*``, ``bvh.*``) are ignored.
+(``bvh.*``) are ignored.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from .types import (
     TEX_NOISE,
     ImageAtlas,
     Materials,
+    PerlinTables,
     Quads,
     Scene,
     SceneFlags,
@@ -31,7 +32,7 @@ from .types import (
 )
 
 _GROUPS = {"spheres": Spheres, "quads": Quads, "materials": Materials,
-           "textures": Textures, "atlas": ImageAtlas}
+           "textures": Textures, "atlas": ImageAtlas, "perlin": PerlinTables}
 
 
 def scene_from_arrays(d: dict, device=DEFAULT_DEVICE, image_bilinear: bool = False) -> Scene:

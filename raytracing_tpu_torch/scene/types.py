@@ -2,7 +2,8 @@
 of ``raytracing_tpu.scene.types`` (which uses ``flax.struct``).
 
 Geometry is flat per-primitive columns (spheres, quads); materials and
-textures are integer-tagged parameter tables. The tags and the field
+textures are integer-tagged parameter tables; the Perlin tables feed the
+marble texture. The tags and the field
 layout are the JAX package's, so a scene converts between the two field
 by field (scene/convert.py).
 """
@@ -23,7 +24,10 @@ MAT_DIFFUSE_LIGHT = 3
 TEX_SOLID = 0
 TEX_CHECKER = 1
 TEX_IMAGE = 2
-TEX_NOISE = 3
+TEX_NOISE = 3  # marble noise
+
+# levels of checker-of-checker nesting the texture evaluation resolves
+CHECKER_NEST_DEPTH = 2
 
 
 @dataclass
@@ -71,6 +75,17 @@ class ImageAtlas:
     sizes: torch.Tensor   # (n_img, 2) i32
 
 
+@dataclass
+class PerlinTables:
+    """Perlin noise tables: 256 unit gradient vectors and three
+    permutations, drawn on the host from a seeded numpy generator
+    (scene/perlin.py ``make_tables``)."""
+    randvec: torch.Tensor  # (256, 3) f32
+    perm_x: torch.Tensor   # (256,) i32
+    perm_y: torch.Tensor   # (256,) i32
+    perm_z: torch.Tensor   # (256,) i32
+
+
 class SceneFlags(NamedTuple):
     """Facts about a compiled scene that let the renderer skip work."""
     has_checker: bool = True
@@ -82,12 +97,14 @@ class SceneFlags(NamedTuple):
 
 @dataclass
 class Scene:
-    """A compiled scene: geometry, materials, textures and flags."""
+    """A compiled scene: geometry, materials, textures, noise tables and
+    flags."""
     spheres: Spheres
     quads: Quads
     materials: Materials
     textures: Textures
     atlas: ImageAtlas
+    perlin: PerlinTables
     flags: SceneFlags = SceneFlags()
 
     @property

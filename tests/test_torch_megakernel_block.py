@@ -13,10 +13,12 @@ exact scenes, and 5% on bouncing_spheres, whose 488 small spheres graze
 often (measured: 0, 3 and ~2.8%).
 """
 import ctypes
+import functools
 import shutil
 import subprocess
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -38,6 +40,7 @@ STATE_ROWS = [mb.OX, mb.OY, mb.OZ, mb.DX, mb.DY, mb.DZ, mb.TR, mb.TG, mb.TB, mb.
 CSRC = Path(mb.__file__).resolve().parents[1] / "csrc"
 
 
+@functools.lru_cache(maxsize=None)
 def _inputs(name):
     """Camera rays mid-path: random throughput, some radiance already
     gathered and 10% of the rays dead."""
@@ -56,14 +59,23 @@ def _inputs(name):
     return scene, cfg, ray_f, np.stack([pix, smp])
 
 
-def _jax_k1(scene, cfg, ray_f, ray_i, b_off):
+@functools.lru_cache(maxsize=None)
+def _jax_k1_runner(name):
+    """The JAX package's K1 for one scene, interpreted and jitted once, so
+    both ``b_off`` cases (a runtime argument) share its compilation."""
+    scene, cfg, _, _ = _inputs(name)
     mega = jmega(scene)
     run = make_megakernel_block(mega, max_depth=DEPTH, background=cfg.background,
                                 interpret=True)
+    return jax.jit(lambda *a: run(mega.sph_sweep, mega.quad_sweep, mega.tabt_rep,
+                                  mega.noise_rep, mega.atlas_rep, *a))
+
+
+def _jax_k1(name, ray_f, ray_i, b_off):
     f = [jnp.asarray(x.reshape(-1, 128)) for x in ray_f]
     i = [jnp.asarray(x.reshape(-1, 128)) for x in ray_i]
-    out = run(mega.sph_sweep, mega.quad_sweep, mega.tabt_rep, mega.noise_rep,
-              mega.atlas_rep, *f[:mb.TM + 1], *i, *f[mb.TR:], jnp.asarray([SEED, b_off], jnp.uint32))
+    out = _jax_k1_runner(name)(*f[:mb.TM + 1], *i, *f[mb.TR:],
+                               jnp.asarray([SEED, b_off], jnp.uint32))
     return [np.asarray(x).reshape(-1) for x in out]
 
 
@@ -73,7 +85,7 @@ def _jax_k1(scene, cfg, ray_f, ray_i, b_off):
 ])
 def test_plain_k1_matches_pallas_kernel(name, b_off):
     scene, cfg, ray_f, ray_i = _inputs(name)
-    ref = _jax_k1(scene, cfg, ray_f, ray_i, b_off)
+    ref = _jax_k1(name, ray_f, ray_i, b_off)
     mega = pmega(port_scene(scene))
     rad, bc, state = mb.trace_block(mega, torch.from_numpy(ray_f), torch.from_numpy(ray_i),
                                     SEED, b_off, max_depth=DEPTH, background=cfg.background)

@@ -4,7 +4,8 @@ reduction and the fwd+bwd bench chunk) against the JAX package.
 The same inputs go to both packages: rays and ids recorded by JAX's XLA
 decision pass (``record_decisions``) at width 32, spp 1, depth 6, B =
 2048, and a numpy-seeded radiance cotangent. The JAX side runs its XLA
-paths (``replay_trace_fast`` and ``jax.vjp`` of it).
+paths (``replay_trace_fast`` and ``jax.vjp`` of it), jitted with
+torch_parity.FAST_COMPILE.
 
 Bars (tests/test_replay_kernel.py): radiance max |Δ| < 1e-5 on
 three_spheres and cornell_box, mean |Δ| < 2e-3 on bouncing_spheres;
@@ -35,7 +36,7 @@ from raytracing_tpu.render import camera as jcam
 from raytracing_tpu_torch.diff import replay_fast as prf
 from raytracing_tpu_torch.diff import replay_kernel as rk
 from raytracing_tpu_torch.ops.megakernel import build_mega_scene, trace_megakernel
-from torch_parity import port_scene, segments_close, t
+from torch_parity import jit_run, port_scene, segments_close, t
 
 torch.set_num_threads(2)
 B = 2048
@@ -61,7 +62,8 @@ def _recorded(name):
     o, d, tm = jcam.generate_rays(cfg, derived, pix, smp, jnp.uint32(SEED),
                                   motion_blur=scene.flags.has_moving)
     bg = jnp.asarray(cfg.background, jnp.float32)
-    ids = record_decisions(scene, o, d, tm, pix, smp, bg, DEPTH, jnp.uint32(SEED), active0=act0)
+    ids = jit_run(lambda *a: record_decisions(scene, *a, bg, DEPTH, jnp.uint32(SEED),
+                                              active0=act0), o, d, tm, pix, smp)
     rad_bar = np.random.default_rng(3).normal(size=(B, 3)).astype(np.float32)
     return scene, cfg, dict(ids=ids, o=o, d=d, tm=tm, pix=pix, smp=smp, act0=act0, bg=bg), rad_bar
 
@@ -98,7 +100,7 @@ def test_replay_and_grads_match_jax(name):
                                  active0=r["act0"])
 
     jvals = [getattr(getattr(scene, g), f_) for g, f_ in GRAD_FIELDS]
-    (rad_j, seg_j), vjp = jax.vjp(f, *jvals)
+    rad_j, seg_j = jit_run(f, *jvals)
     scene_p = port_scene(scene)
     pvals = [getattr(getattr(scene_p, g), f_).clone().requires_grad_(True)
              for g, f_ in GRAD_FIELDS]
@@ -113,7 +115,8 @@ def test_replay_and_grads_match_jax(name):
     assert flipped.sum() <= max(4, B // 200), flipped.sum()
     rad_bar[flipped] = 0.0
 
-    grads_j = vjp((jnp.asarray(rad_bar), np.zeros((), jax.dtypes.float0)))
+    grads_j = jit_run(lambda rb, *v: jax.vjp(f, *v)[1]((rb, np.zeros((), jax.dtypes.float0))),
+                      jnp.asarray(rad_bar), *jvals)
     (rad_p * torch.from_numpy(rad_bar)).sum().backward()
     for (g, f_), gj, pv in zip(GRAD_FIELDS, grads_j, pvals):
         np.testing.assert_allclose(pv.grad.numpy(), np.asarray(gj), rtol=3e-5, atol=3e-6,

@@ -10,7 +10,11 @@ import torch
 
 from raytracing_tpu_torch.scene.convert import camera_params_from_arrays, scene_from_arrays
 
-SCENE_GROUPS = ("spheres", "quads", "materials", "textures", "atlas")
+SCENE_GROUPS = ("spheres", "quads", "materials", "textures", "atlas", "perlin")
+# XLA's CPU backend at -O0 without its expensive LLVM passes: the JAX
+# references compile ~2x faster, and with few of the FMA contractions that
+# jitted CPU code otherwise has (the port contracts none)
+FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
 
 
 def scene_arrays(scene) -> dict:
@@ -34,6 +38,13 @@ def port_params(params_jax):
     return camera_params_from_arrays(
         {f.name: np.asarray(getattr(params_jax, f.name))
          for f in dataclasses.fields(params_jax)}, device="cpu")
+
+
+def jit_run(fn, *args):
+    """``jax.jit(fn)(*args)``, compiled with FAST_COMPILE."""
+    import jax
+
+    return jax.jit(fn).lower(*args).compile(compiler_options=FAST_COMPILE)(*args)
 
 
 def t(a) -> torch.Tensor:

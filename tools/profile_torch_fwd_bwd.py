@@ -1,21 +1,36 @@
-"""Where the time of the port's fwd+bwd sweep goes, on one CUDA device.
+"""Where the time of the port's gradient paths goes, on one CUDA device.
 
-    python3 tools/profile_torch_fwd_bwd.py
+    python3 tools/profile_torch_fwd_bwd.py [--path bench|fast|render_once]
 
-Builds the fwd+bwd bench (raytracing_tpu_torch.bench._fwd_bwd_setup:
-bouncing_spheres 400x225, 100 spp, depth 20, seed 7, 25 chunks of
-360,448 rays), plans it, then: five timed sweeps (host clock through
+``bench`` (the default) builds the fwd+bwd bench
+(raytracing_tpu_torch.bench._fwd_bwd_setup: bouncing_spheres 400x225,
+100 spp, depth 20, seed 7, 25 chunks of 360,448 rays, K1 decisions and
+K2), plans it, then: five timed sweeps (host clock through
 torch.cuda.synchronize), one sweep under torch.profiler (device time by
 kernel, device busy share), and CUDA-event timings of one whole chunk.
+
+``fast`` runs the same 25 chunks through ``replay_trace_fast`` (K1
+decisions, one K4 lookup per bounce, autograd to sphere centers, texture
+rgbs and the camera's lookfrom, MSE against a fixed random target): three
+timed sweeps, then one chunk under torch.profiler.
+
+``render_once`` times ``diff.gradients.render_once`` forward+backward on
+bouncing_spheres 400x225, spp 1, depth 20, with the sphere roots taken
+through ``ops.intersect.sqrt_rn`` (a float64 sqrt, correctly rounded on
+every device) and through float32 ``torch.sqrt``, in the order A B B A.
+
 Prints the card's name, power limit and max SM clock first.
 """
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -23,18 +38,129 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from raytracing_tpu_torch import _kernels  # noqa: E402
 from raytracing_tpu_torch import bench  # noqa: E402
+from raytracing_tpu_torch.diff import gradients  # noqa: E402
+from raytracing_tpu_torch.diff.replay_fast import replay_trace_fast  # noqa: E402
+from raytracing_tpu_torch.models.scenes import build  # noqa: E402
+from raytracing_tpu_torch.ops import intersect  # noqa: E402
+from raytracing_tpu_torch.ops.megakernel import BLOCK, build_mega_scene, trace_megakernel  # noqa: E402
+from raytracing_tpu_torch.render import camera as cam  # noqa: E402
 
 from profile_torch_render import event_ms  # noqa: E402
 
+SEED = 7
 
-def timed_sweep(s):
+
+def timed(fn):
+    """(host seconds through torch.cuda.synchronize, fn's result)."""
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = s["sweep"]()
+    out = fn()
     torch.cuda.synchronize()
     return time.perf_counter() - t0, out
 
 
+def print_profile(label, fn):
+    """Run ``fn`` once under torch.profiler: device time by kernel and the
+    device's busy share of the host wall time."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall, _ = timed(fn)
+    rows = sorted(((e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+    device_ms = sum(x[0] for x in rows) / 1e3
+    print(f"profiled {label}: wall {wall * 1e3:.2f} ms, device {device_ms:.2f} ms, "
+          f"busy share {device_ms / (wall * 1e3):.3f}, kernels launched {sum(x[2] for x in rows)}")
+    for dt, key, count in rows[:25]:
+        print(f"  {dt / 1e3:9.3f} ms {count:6d}  {key[:100]}")
+
+
+def profile_bench():
+    s = bench._fwd_bwd_setup(device="cuda")
+    print("prefixes", s["plan"](), "decide prefixes", s["ns"]["decide_prefixes"])
+    s["sweep"]()
+    runs = [timed(s["sweep"]) for _ in range(5)]
+    print("sweep seconds", [round(t, 4) for t, _ in runs], "segments", int(runs[0][1][3]),
+          "ok", [bool(o[4]) for _, o in runs])
+    print_profile("sweep", s["sweep"])
+    center, rgb = s["args"]
+    d_ms, h_ms = event_ms(lambda: s["grads_chunk"](center, rgb, 0), reps=10)
+    print(f"whole chunk: device span {d_ms:.3f} ms, host {h_ms:.3f} ms")
+
+
+def profile_fast():
+    dev = torch.device("cuda")
+    scene, cfg = build("bouncing_spheres", device=dev, image_width=400, samples_per_pixel=100,
+                       max_depth=20)
+    spp_chunk, n_pix = 4, cfg.n_pixels
+    npix_pad = -(-n_pix // BLOCK) * BLOCK
+    pix = torch.clamp(torch.arange(npix_pad, device=dev), max=n_pix - 1).repeat(
+        spp_chunk).to(torch.int32)
+    act = (torch.arange(npix_pad, device=dev) < n_pix).repeat(spp_chunk)
+    mega = build_mega_scene(scene)
+    target = torch.from_numpy(np.random.default_rng(11).random((n_pix, 3)).astype(
+        np.float32)).to(dev)
+    center = scene.spheres.center.clone().requires_grad_(True)
+    rgb = scene.textures.rgb.clone().requires_grad_(True)
+    lookfrom = torch.tensor(cfg.lookfrom, dtype=torch.float32, device=dev, requires_grad=True)
+    scene_g = dataclasses.replace(
+        scene, spheres=dataclasses.replace(scene.spheres, center=center),
+        textures=dataclasses.replace(scene.textures, rgb=rgb))
+    params = dataclasses.replace(cam.CameraParams.from_config(cfg, dev), lookfrom=lookfrom)
+
+    def chunk(c):
+        smp = (c * spp_chunk + torch.arange(spp_chunk, device=dev).repeat_interleave(
+            npix_pad)).to(torch.int32)
+        o, d, t = cam.generate_rays(cfg, cam.derive(cfg, params), pix, smp, SEED,
+                                    motion_blur=scene.flags.has_moving)
+        with torch.no_grad():
+            _, _, ids = trace_megakernel(mega, o, d, t, pix, smp, cfg.background, cfg.max_depth,
+                                         SEED, phase_depths=[2, 2, 3, 4, cfg.max_depth - 11],
+                                         active0=act, want_ids=True)
+        rad, seg = replay_trace_fast(scene_g, ids, o, d, t, pix, smp, cfg.background,
+                                     cfg.max_depth, SEED, remat=False, active0=act)
+        img = (rad * act[:, None]).reshape(spp_chunk, npix_pad, 3).mean(0)[:n_pix]
+        ((img - target) ** 2).mean().backward()
+        return seg
+
+    def sweep():
+        return sum(chunk(c) for c in range(cfg.samples_per_pixel // spp_chunk))
+
+    chunk(0)
+    runs = [timed(sweep) for _ in range(3)]
+    print("replay_trace_fast sweep seconds", [round(t, 4) for t, _ in runs], "segments",
+          runs[0][1], "segments/s", [round(s / t) for t, s in runs])
+    print_profile("replay_trace_fast chunk", lambda: chunk(1))
+
+
+def profile_render_once():
+    dev = torch.device("cuda")
+    scene, cfg = build("bouncing_spheres", device=dev, image_width=400, samples_per_pixel=1,
+                       max_depth=20)
+    target = torch.from_numpy(np.random.default_rng(11).random(
+        (cfg.image_height, cfg.image_width, 3)).astype(np.float32)).to(dev)
+    rgb = scene.textures.rgb.clone().requires_grad_(True)
+    scene_g = dataclasses.replace(scene, textures=dataclasses.replace(scene.textures, rgb=rgb))
+    sqrt_rn = intersect.sqrt_rn
+
+    def fwd_bwd():
+        img, seg = gradients.render_once(scene_g, cfg, seed=SEED, return_segments=True)
+        ((img - target) ** 2).mean().backward()
+        return seg
+
+    for name in ("sqrt_rn", "float32", "float32", "sqrt_rn"):
+        intersect.sqrt_rn = sqrt_rn if name == "sqrt_rn" else torch.sqrt
+        try:
+            fwd_bwd()  # warm-up
+            runs = [timed(fwd_bwd) for _ in range(3)]
+        finally:
+            intersect.sqrt_rn = sqrt_rn
+        print(f"render_once fwd+bwd, roots through {name}: seconds "
+              f"{[round(t, 4) for t, _ in runs]} segments {runs[0][1]}")
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--path", choices=("bench", "fast", "render_once"), default="bench")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
@@ -42,27 +168,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip())
     _kernels.library()
-    s = bench._fwd_bwd_setup(device="cuda")
-    print("prefixes", s["plan"](), "decide prefixes", s["ns"]["decide_prefixes"])
-    s["sweep"]()
-    runs = [timed_sweep(s) for _ in range(5)]
-    segs = int(runs[0][1][3])
-    print("sweep seconds", [round(t, 4) for t, _ in runs], "segments", segs,
-          "ok", [bool(o[4]) for _, o in runs])
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall, _ = timed_sweep(s)
-    rows = sorted(((e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
-    device_ms = sum(x[0] for x in rows) / 1e3
-    print(f"profiled sweep: wall {wall * 1e3:.2f} ms, device {device_ms:.2f} ms, "
-          f"busy share {device_ms / (wall * 1e3):.3f}, kernels launched {sum(x[2] for x in rows)}")
-    for dt, key, count in rows[:25]:
-        print(f"  {dt / 1e3:9.3f} ms {count:6d}  {key[:100]}")
-
-    center, rgb = s["args"]
-    d_ms, h_ms = event_ms(lambda: s["grads_chunk"](center, rgb, 0), reps=10)
-    print(f"whole chunk: device span {d_ms:.3f} ms, host {h_ms:.3f} ms")
+    {"bench": profile_bench, "fast": profile_fast, "render_once": profile_render_once}[args.path]()
     return 0
 
 
