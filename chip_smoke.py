@@ -42,6 +42,20 @@ backward at 400x225, spp 1, depth 20, against trace_megakernel's segment
 count on the same rays, and camera_grad through render_once against the
 one through render_replay on perlin_sphere. Phase 14 fits the albedos of
 single_sphere with fit_albedo.
+Phase 15 holds K1's marble and image shading against its plain version
+(perlin_sphere, simple_light, earth; recorded ids), phase 16 K5 on the
+same launches against its plain version and against K1, phase 17 K1's
+depth cap (per-ray depths, the pool's launches) against its plain
+version. Phase 18 times one full-width launch (B = 180,224) of
+perlin_sphere and of earth at depth 50 in K1 and K5, with bounds that
+count the marble and image work. Phase 19 renders the bench workload
+through Renderer(schedule="pool"): the segments of phase 3's phased
+render exactly, its image within one u8 level, both schedules timed in
+turns, K1's launches counted. Phase 20 renders perlin_sphere,
+simple_light and earth at their registry configurations through both
+schedules (equal segments), and small renders on the card against the
+CPU. Phase 21 runs render_replay_fast (K1 decisions) on perlin_sphere
+against render_replay, image and camera gradient.
 
 Prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}. Exits
@@ -50,6 +64,7 @@ fails. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -75,10 +90,89 @@ K5_OPS_PER_NODE = 28         # slab test: 6 sub, 6 mul, 12 min/max, compare, lin
 K5_OPS_PER_SPHERE_MEMBER = 44  # center at time 6, oc 3, b 5, c 7, disc 3, sqrt 2, roots 5, tests 10, fold 3
 K5_OPS_PER_QUAD_MEMBER = 66    # denom 5, plane t 8, point 9, alpha 14, beta 14, tests 11, fold 3
 K5_OPS_SHADE = K1_OPS_SHADE  # the shared shading (rt_shade.cuh)
+# per marble shade: 7 octaves of 3 floor, 3 sub, 3 cvt, 12 Hermite ops and 8
+# corners of 6 index ops, 2 xor, 3 sub, 3 mul, 2 add, 3 weight mul, 1 acc;
+# then 6 for the octave's sum and doubling; then sin and 4 more
+K1_OPS_MARBLE = 7 * (21 + 8 * 20 + 6) + 5
+K1_OPS_IMAGE = 40            # rxz 4, two atan2f, u v 4, clamps 6, texel index 8, 3 reads
 
 
 def segments_close(ref: int, s: int) -> bool:
     return abs(int(ref) - int(s)) <= max(4, int(ref) // 200)
+
+
+def ptxas_summary(log):
+    """One line per compiled kernel from nvcc's ``-Xptxas -v`` output: the
+    kernel, its template switches, registers, stack and spills."""
+    import re
+
+    out, name, frame = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(k\d_[a-z_]+?)(?:I((?:Lb[01]E)+)E|E)", m.group(1))
+            name = k.group(1) if k else m.group(1)
+            if k and k.group(2):
+                name += "<" + ",".join(re.findall(r"Lb([01])E", k.group(2))) + ">"
+        elif "stack frame" in line:
+            frame = line.split(":", 1)[-1].strip()
+        elif "registers" in line and name:
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}; {frame}")
+            name = None
+    return out
+
+
+def texture_shades(torch, fl, mega, ids):
+    """(marble shades, image shades) in a launch, from its recorded global
+    winner ids (max_depth, n), -1 on a miss or after death."""
+    kid = mega.kid_map.long()
+    col_of = torch.full((int(kid.max()) + 1,), -1, dtype=torch.long, device=kid.device)
+    cols = torch.arange(kid.shape[0], device=kid.device)
+    col_of[kid[kid >= 0]] = cols[kid >= 0]
+    hit = ids[ids >= 0].long()
+    tk = mega.table[fl.U_TKIND, col_of[hit]]
+    return int((tk == fl.TK_NOISE).sum()), int((tk == fl.TK_IMAGE).sum())
+
+
+@contextlib.contextmanager
+def texels_read(mb):
+    """Collects the atlas rows the plain shade fetches while the block
+    runs: a list of (k,) index tensors, one per image-shading call."""
+    read, image_texel = [], mb.image_texel
+
+    def recording(*args):
+        out = image_texel(*args)
+        read.append(out[0])
+        return out
+
+    mb.image_texel = recording
+    try:
+        yield read
+    finally:
+        mb.image_texel = image_texel
+
+
+def texel_boundary(torch, mb, fl, mega, ray_f, eps=1e-3):
+    """(n,) bool: rays whose first hit is on an image-textured sphere within
+    ``eps`` texels of a truncation boundary (u·w or (1 - v)·h near an
+    integer), where an ulp of atan2 may pick the neighbouring texel."""
+    t, ib = mb._closest_hit(mega, *ray_f[mb.OX:mb.TM + 1])
+    hit = (t < mb.BIG) & (ray_f[mb.ACT] > 0.5)
+    col = mega.table[:, ib.clamp(min=0)]
+    sel = torch.nonzero(hit & (col[fl.U_TKIND] == fl.TK_IMAGE)
+                        & (ib < mega.n_sph_pad)).flatten()
+    col, tm = col[:, sel], ray_f[mb.TM, sel]
+    p = [ray_f[mb.OX + k, sel] + t[sel] * ray_f[mb.DX + k, sel] for k in range(3)]
+    inv_r = 1.0 / col[fl.U_G6]
+    own = [(p[k] - (col[fl.U_G0 + k] + tm * col[fl.U_G3 + k])) * inv_r for k in range(3)]
+    _, x, y = mb.image_texel(mega, ib[sel], *p, *own)
+
+    def near(v):
+        return torch.minimum(v - torch.floor(v), torch.ceil(v) - v) < eps
+
+    out = torch.zeros(ray_f.shape[1], dtype=torch.bool, device=ray_f.device)
+    out[sel[near(x) | near(y)]] = True
+    return out
 
 
 def bouncing_spheres_64(device):
@@ -261,9 +355,8 @@ def main() -> int:
     k = _kernels.library()
     print(f"phase 1 build: nvcc {k.build_seconds:.2f} s, load {time.perf_counter() - t0:.2f} s "
           f"({k.path.name})")
-    for line in k.build_log.splitlines():
-        if any(w in line for w in ("registers", "spill", "Compiling entry", "stack frame")):
-            print(f"  ptxas: {line.strip()}")
+    for line in ptxas_summary(k.build_log):
+        print(f"  ptxas: {line}")
 
     failures = []
 
@@ -836,14 +929,253 @@ def main() -> int:
     if not ok14:
         failures.append("phase 14 fit_albedo")
 
+    # ---- phase 15: K1 (marble, image) against its plain version, small launches ----
+    from raytracing_tpu_torch.scene import flatten as fl
+
+    tex_scenes = ("perlin_sphere", "simple_light", "earth")
+    for name in tex_scenes:
+        scene_t, cfg_t = build(name, device=dev, image_width=32, samples_per_pixel=2,
+                               max_depth=6)
+        mega_t = build_mega_scene(scene_t)
+        n_block = -(-cfg_t.n_pixels // 1024) * 1024
+        _, (ray_f, ray_i) = first_launch(scene_t, cfg_t, n_block, 2, dev)
+        kw15 = dict(max_depth=6, background=cfg_t.background, want_ids=True)
+        out = mb.trace_block(mega_t, ray_f, ray_i, SEED, 3, **kw15)
+        torch.cuda.synchronize()
+        ref = mb.trace_block_torch(mega_t, ray_f, ray_i, SEED, 3, **kw15)
+        image = name == "earth"
+        ok15, st15 = compare(torch, mb, image, ref, out, ray_f.shape[1])
+        if image:
+            # exact, except a ray whose texel index sits on a truncation
+            # boundary: those are counted, and every disagreeing ray is one
+            edge = texel_boundary(torch, mb, fl, mega_t, ray_f)
+            differs = (out[0] - ref[0]).abs().max(0).values > 0
+            st15.update(boundary_rays=int(edge.sum()), rays_differing=int(differs.sum()),
+                        differing_off_boundary=int((differs & ~edge).sum()))
+            ok15 = (segments_close(st15["segments_plain"], st15["segments"])
+                    and st15["ids_differing"] == 0 and st15["differing_off_boundary"] == 0)
+        else:
+            ok15 &= st15["mean_abs_err"] < 1e-3
+        st15["marble_shades"], st15["image_shades"] = texture_shades(torch, fl, mega_t, ref[3])
+        print(f"phase 15 K1 {name} B={ray_f.shape[1]}: {'ok' if ok15 else 'FAIL'} "
+              f"{json.dumps(st15)}")
+        if not ok15:
+            failures.append(f"phase 15 K1 {name}")
+
+        # ---- phase 16: K5 on the same launch, against its plain version and K1 ----
+        ok16 = True
+        outs16 = {}
+        for use_bvh in (True, False):
+            kw16 = dict(max_depth=6, background=cfg_t.background, use_bvh=use_bvh)
+            o5 = mg.trace_group(mega_t, ray_f, ray_i, SEED, 3, **kw16)
+            torch.cuda.synchronize()
+            r5 = mg.trace_group_torch(mega_t, ray_f, ray_i, SEED, 3, **kw16)
+            ok16 &= equal_outputs(o5, r5)
+            outs16[use_bvh] = o5
+        d51 = (outs16[True][0] - out[0]).abs()
+        ok16 &= (equal_outputs(outs16[True], outs16[False])
+                 and float(d51.mean()) < 1e-3
+                 and segments_close(int(out[1].sum()), int(outs16[True][1].sum())))
+        print(f"phase 16 K5 {name}: {'ok' if ok16 else 'FAIL'} walk and sweep bit-equal to "
+              f"plain and to each other; vs K1 mean_abs_err {float(d51.mean()):.3g} max "
+              f"{float(d51.max()):.3g} segments {int(outs16[True][1].sum())} / "
+              f"{int(out[1].sum())}")
+        if not ok16:
+            failures.append(f"phase 16 K5 {name}")
+
+    # ---- phase 17: K1's depth cap against its plain version, pool-shaped launches ----
+    for name, exact in (("bouncing_spheres", False), ("perlin_sphere", False),
+                        ("earth", True)):
+        scene_c, cfg_c = build(name, device=dev, image_width=64, samples_per_pixel=2,
+                               max_depth=8)
+        mega_c = build_mega_scene(scene_c)
+        n_block = -(-cfg_c.n_pixels // 1024) * 1024
+        _, (ray_f, ray_i) = first_launch(scene_c, cfg_c, n_block, 2, dev)
+        dep = torch.from_numpy(np.random.default_rng(2).integers(
+            0, cfg_c.max_depth, ray_f.shape[1]).astype(np.int32)).to(dev)
+        kw17 = dict(max_depth=2, background=cfg_c.background, depth_cap=cfg_c.max_depth,
+                    dep=dep)
+        out = mb.trace_block(mega_c, ray_f, ray_i, SEED, 0, **kw17)
+        torch.cuda.synchronize()
+        ref = mb.trace_block_torch(mega_c, ray_f, ray_i, SEED, 0, **kw17)
+        ok17, st17 = compare(torch, mb, exact, ref, out, ray_f.shape[1])
+        capped = int(((dep + out[1] == cfg_c.max_depth) & (out[1] > 0)).sum())
+        ok17 &= bool((dep + out[1] <= cfg_c.max_depth).all()) and capped > 0
+        print(f"phase 17 K1 depth cap {name} B={ray_f.shape[1]} cap {cfg_c.max_depth}: "
+              f"{'ok' if ok17 else 'FAIL'} {json.dumps(st17)} rays ending at the cap {capped} "
+              f"bit_equal {equal_outputs(out, ref)}")
+        if not ok17:
+            failures.append(f"phase 17 depth cap {name}")
+
+    # ---- phase 18: one full-width launch of the textured scenes, K1 and K5 ----
+    tex_rows = {}
+    for name in ("perlin_sphere", "earth"):
+        scene_f, cfg_f = build(name, device=dev)
+        mega_f = build_mega_scene(scene_f)
+        r18 = Renderer(cfg_f, max_rays_per_launch=1 << 18)
+        _, (ray_f, ray_i) = first_launch(scene_f, cfg_f, r18.n_block, r18.spp_chunk, dev)
+        B18 = ray_f.shape[1]
+        kw18 = dict(max_depth=cfg_f.max_depth, background=cfg_f.background)
+        out = mb.trace_block(mega_f, ray_f, ray_i, SEED, 0, want_ids=True, **kw18)
+        k1_ms18 = cuda_ms(torch, lambda: mb.trace_block(mega_f, ray_f, ray_i, SEED, 0, **kw18),
+                          5)
+        with texels_read(mb) as read18:
+            ref, k1_plain_ms18 = timed(torch, lambda: mb.trace_block_torch(
+                mega_f, ray_f, ray_i, SEED, 0, want_ids=True, **kw18))
+        image = name == "earth"
+        ok18, st18 = compare(torch, mb, image, ref, out, B18)
+        if image:  # as in phase 15
+            edge = texel_boundary(torch, mb, fl, mega_f, ray_f)
+            differs = (out[0] - ref[0]).abs().max(0).values > 0
+            st18.update(boundary_rays=int(edge.sum()), rays_differing=int(differs.sum()),
+                        differing_off_boundary=int((differs & ~edge).sum()))
+            ok18 = (segments_close(st18["segments_plain"], st18["segments"])
+                    and st18["ids_differing"] == 0 and st18["differing_off_boundary"] == 0)
+        else:
+            ok18 &= st18["mean_abs_err"] < 1e-3
+        n_marble, n_image = texture_shades(torch, fl, mega_f, ref[3])
+        seg18 = st18["segments"]
+        n_sph_rows, n_quad_rows = mb._sweep_rows(mega_f)
+        tex_ops = n_marble * K1_OPS_MARBLE + n_image * K1_OPS_IMAGE
+        # the texture tables count as far as this launch reads them: the
+        # Perlin tables whole once a marble shade runs, and of the atlas the
+        # distinct texels the plain version fetched (12 B each)
+        n_texels = int(torch.unique(torch.cat(read18)).numel()) if read18 else 0
+        tables18 = 4 * (mega_f.sph_sweep.numel() + mega_f.quad_sweep.numel()
+                        + mega_f.table.numel() + mega_f.kid_map.numel()
+                        + (mega_f.perm.numel() + mega_f.grad.numel() if n_marble else 0)
+                        + 3 * n_texels)
+        b18 = bound(seg18 * (K1_OPS_PER_SPHERE_ROW * n_sph_rows + K1_OPS_PER_QUAD_ROW
+                             * n_quad_rows + K1_OPS_SHADE) + tex_ops,
+                    B18 * (mb.N_F * 4 * 2 + 8 + 12 + 4) + tables18)
+        o5 = mg.trace_group(mega_f, ray_f, ray_i, SEED, 0, use_bvh=True, **kw18)
+        k5_ms18 = cuda_ms(torch, lambda: mg.trace_group(mega_f, ray_f, ray_i, SEED, 0,
+                                                        use_bvh=True, **kw18), 5)
+        r5, k5_plain_ms18 = timed(torch, lambda: mg.trace_group_torch(
+            mega_f, ray_f, ray_i, SEED, 0, use_bvh=True, want_counts=True, **kw18))
+        ok18 &= equal_outputs(o5, r5[:3])
+        visits, sph_tests, quad_tests = (int(x) for x in r5[3].sum(1))
+        seg5 = int(o5[1].sum())
+        b5 = bound(visits * K5_OPS_PER_NODE + sph_tests * K5_OPS_PER_SPHERE_MEMBER
+                   + quad_tests * K5_OPS_PER_QUAD_MEMBER + seg5 * K5_OPS_SHADE + tex_ops,
+                   B18 * (mb.N_F * 4 + 8) + B18 * (mb.N_F * 4 + 12 + 4) + tables18)
+        tex_rows[name] = dict(
+            k1=dict(max_abs_err=st18["max_abs_err"], ms=k1_ms18, plain_ms=k1_plain_ms18,
+                    bound_ms=b18[0], bound_by=b18[1]),
+            k5=dict(max_abs_err=float((o5[0] - r5[0]).abs().max()), ms=k5_ms18,
+                    plain_ms=k5_plain_ms18, bound_ms=b5[0], bound_by=b5[1]))
+        print(f"phase 18 full-width launch {name} B={B18} depth {cfg_f.max_depth}: "
+              f"{'ok' if ok18 else 'FAIL'} {json.dumps(st18)} marble shades {n_marble} image "
+              f"shades {n_image} distinct texels {n_texels}; K1 {k1_ms18:.3f} ms plain "
+              f"{k1_plain_ms18:.3f} ms bound {b18[0]:.4f} ms ({b18[1]}); K5 walk {k5_ms18:.3f} "
+              f"ms plain {k5_plain_ms18:.3f} ms bound {b5[0]:.4f} ms ({b5[1]}), bit_equal to plain "
+              f"{equal_outputs(o5, r5[:3])}, segments {seg5} [{card}]")
+        if not ok18:
+            failures.append(f"phase 18 {name}")
+        del ref, r5
+
+    # ---- phase 19: the bench workload through the pool schedule ----
+    rp = Renderer(cfg, max_rays_per_launch=1 << 18, transfer="u8", schedule="pool")
+    rp.render(scene, seed=SEED)  # warm-up
+    zero_counts()
+    resp = rp.render(scene, seed=SEED)
+    pool_counts = counts()
+    # the two schedules in turns: phased, pool, pool, phased
+    turns = [("phased", r), ("pool", rp), ("pool", rp), ("phased", r)]
+    times19 = {"phased": [], "pool": []}
+    for label, rr in turns:
+        x = rr.render(scene, seed=SEED)
+        times19[label].append(round(x.seconds, 4))
+        if x.segments != (res.segments if label == "phased" else resp.segments):
+            failures.append(f"phase 19 {label} segments vary")
+    du8 = np.abs(resp.u8.astype(np.int16) - res.u8.astype(np.int16))
+    ok19 = (resp.segments == res.segments and resp.launches == 1
+            and pool_counts["K1"] > 0
+            and {k: v for k, v in pool_counts.items() if k != "K1"} == dict(K3=0, K2=0, K5=0,
+                                                                           K4=0)
+            and int(du8.max()) <= 1 and float((du8 > 0).mean()) < 0.01)
+    print(f"phase 19 bench pool render: {'ok' if ok19 else 'FAIL'} segments {resp.segments} "
+          f"(phased {res.segments}) K1 launches {pool_counts['K1']} (phased render "
+          f"{render_counts['K1']}) u8 vs phased max |d| {int(du8.max())} values differing "
+          f"{int((du8 > 0).sum())} of {du8.size} (bar: 1 level on < 1%) seconds pool "
+          f"{[round(resp.seconds, 4)] + times19['pool']} phased {times19['phased']} "
+          f"{resp.segments / min(times19['pool']):.4g} rays/s pool best [{card}]")
+    if not ok19:
+        failures.append("phase 19 bench pool render")
+
+    # ---- phase 20: the textured registry scenes through Renderer, both schedules ----
+    reg_counts = {}
+    for name in tex_scenes:
+        scene_r, cfg_r = build(name, device=dev)
+        row = {}
+        for sched in ("phased", "pool"):
+            rr = Renderer(cfg_r, transfer="u8", schedule=sched)
+            rr.render(scene_r, seed=SEED)  # warm-up
+            zero_counts()
+            x = rr.render(scene_r, seed=SEED)
+            row[sched] = (x, counts())
+        (xa, ca), (xb, cb) = row["phased"], row["pool"]
+        d20 = np.abs(xa.u8.astype(np.int16) - xb.u8.astype(np.int16))
+        small_kw = dict(image_width=32, samples_per_pixel=2, max_depth=5)
+        s_g, c_g = build(name, device=dev, **small_kw)
+        s_c, c_c = build(name, device="cpu", **small_kw)
+        errs = []
+        for sched in ("phased", "pool"):
+            g = Renderer(c_g, schedule=sched).render(s_g, seed=SEED)
+            c = Renderer(c_c, schedule=sched).render(s_c, seed=SEED)
+            errs.append((float(abs(g.radiance - c.radiance).mean()), g.segments, c.segments))
+        ok20 = (xa.segments == xb.segments and int(d20.max()) <= 1
+                and float((d20 > 0).mean()) < 0.01 and int(xa.u8.max()) > 0
+                and ca["K1"] == 3 * xa.launches and cb["K1"] > 0
+                and all(e < 1e-3 and segments_close(sc, sg) for e, sg, sc in errs))
+        reg_counts[name] = dict(phased=ca["K1"], pool=cb["K1"])
+        print(f"phase 20 {name} {cfg_r.image_width}x{cfg_r.image_height} "
+              f"{cfg_r.samples_per_pixel} spp depth {cfg_r.max_depth}: "
+              f"{'ok' if ok20 else 'FAIL'} segments phased {xa.segments} pool {xb.segments} "
+              f"u8 max |d| {int(d20.max())} image mean {float(xa.u8.mean()):.2f} seconds "
+              f"phased {xa.seconds:.4f} pool {xb.seconds:.4f} K1 launches phased {ca['K1']} "
+              f"pool {cb['K1']}; small card vs cpu (phased, pool) mean_abs_err and segments "
+              f"{errs} [{card}]")
+        if not ok20:
+            failures.append(f"phase 20 {name}")
+
+    # ---- phase 21: render_replay_fast on the marble scene (K1 decisions) ----
+    from raytracing_tpu_torch.diff.replay import render_replay_fast
+
+    sp21, cp21 = build("perlin_sphere", device=dev, image_width=64, samples_per_pixel=2,
+                       max_depth=5)
+    p21 = cam.CameraParams.from_config(cp21, dev)
+    tgt21 = torch.zeros((cp21.image_height, cp21.image_width, 3), device=dev)
+
+    def grad21(fn):
+        lf = p21.lookfrom.clone().requires_grad_(True)
+        img = fn(sp21, cp21, dataclasses.replace(p21, lookfrom=lf), seed=4)
+        (g,) = torch.autograd.grad(((img - tgt21) ** 2).mean(), lf)
+        return img.detach(), g
+
+    zero_counts()
+    img_f, g_f = grad21(render_replay_fast)
+    c21 = counts()
+    img_r, g_r = grad21(render_replay)
+    e21 = float((img_f - img_r).abs().mean())
+    ok21 = (c21["K1"] >= 1 and e21 < 1e-3 and float(g_r.abs().sum()) > 0
+            and bool(torch.allclose(g_f, g_r, rtol=0.04, atol=3e-3)))
+    print(f"phase 21 render_replay_fast perlin_sphere: {'ok' if ok21 else 'FAIL'} image vs "
+          f"render_replay mean_abs_err {e21:.3g} camera grad {[round(float(x), 6) for x in g_f]} "
+          f"vs {[round(float(x), 6) for x in g_r]} (rtol 0.04, atol 3e-3) kernel launches {c21}")
+    if not ok21:
+        failures.append("phase 21 render_replay_fast")
+
     print(json.dumps({"kernels": [
         {"name": "K1 megakernel_block", "route": "cuda",
          "source": "raytracing_tpu_torch/csrc/megakernel_block.cu",
          "replaces": "raytracing_tpu/ops/megakernel_block.py:155",
          "launches": render_counts["K1"], "path": "forward render (phase 3)",
          "launches_fwd_bwd_sweep": fb_counts["K1"],
+         "launches_pool_render": pool_counts["K1"], "launches_registry_renders": reg_counts,
          "max_abs_err": stats["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
-         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None},
+         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None,
+         **{f"{k}_full_width": v["k1"] for k, v in tex_rows.items()}},
         {"name": "K3 replay_fwd", "route": "cuda",
          "source": "raytracing_tpu_torch/csrc/replay_kernel.cu",
          "replaces": "raytracing_tpu/diff/replay_kernel.py:594",
@@ -860,7 +1192,8 @@ def main() -> int:
          "source": "raytracing_tpu_torch/csrc/megakernel_group.cu",
          "replaces": "raytracing_tpu/ops/megakernel.py:285",
          "launches": k5_counts["K5"], "path": "bouncing_spheres_64 render (phase 10)",
-         **k5_entry, "library_ms": None},
+         **k5_entry, "library_ms": None,
+         **{f"{k}_full_width": v["k5"] for k, v in tex_rows.items()}},
         {"name": "K4 table_gather", "route": "cuda",
          "source": "raytracing_tpu_torch/csrc/table_gather.cu",
          "replaces": "raytracing_tpu/ops/table_gather.py:42",

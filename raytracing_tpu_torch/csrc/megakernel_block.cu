@@ -5,15 +5,21 @@
 // up to max_depth bounces for every ray: closest hit over all sphere rows
 // (moving center at ray time, roots in a*t space, strict < so the lowest
 // index wins ties) and then all quad rows; the winner's fields from the
-// (F, P) resolve table; solid or checker albedo; lambertian, metal,
-// dielectric or light; PCG4D keyed on (pix, smp, (b + b_off)*4 + 2, seed).
+// (F, P) unified table; solid, checker, 7-octave marble or nearest-texel
+// image albedo; lambertian, metal, dielectric or light; PCG4D keyed on
+// (pix, smp, (b + b_off)*4 + 2, seed). In the depth-cap mode of the
+// regenerating pool (render/pool.py) every ray carries its own depth dep:
+// its counter is (b + b_off + dep)*4 + 2, and it dies once dep + b + 1
+// reaches depth_cap.
 //
 // What bounds it: FP32 ALU work in the sweep, about 27 operations per
 // sphere per segment (13 mul, 11 add/sub, a sqrt, 3 compares and selects).
 // The bench workload (bouncing_spheres, 400x225, 100 spp, depth 20) traces
 // about 24.3M segments against 496 sphere rows: 24.3e6 * 496 * 27 ~ 3.3e11
 // operations. Memory traffic is small: 56 B of ray state in and out per
-// ray per phase, plus 17 divergent 4-byte reads per hit.
+// ray per phase, plus 17 divergent 4-byte reads per hit. A marble hit
+// adds about 1,000 operations and 336 table reads (7 octaves x 8 corners x
+// 6 reads), an image hit two atan2f and 3 texel reads.
 //
 // What the design does about it:
 // * one thread traces one ray through the whole phase with its state in
@@ -24,7 +30,11 @@
 //   same moment, which shared memory serves as a broadcast (one 16-byte
 //   load per half row, no bank conflicts);
 // * the winner's fields are per-ray divergent reads, served from global
-//   memory through the read-only cache (__ldg);
+//   memory through the read-only cache (__ldg), and so are image texels;
+// * a noise scene also stages the 6 KB of Perlin tables in shared memory;
+// * marble, image and the depth cap are template switches (as motion
+//   is), so a scene without them runs the code it would run without them
+//   existing, with the same registers;
 // * a ray leaves the bounce loop as soon as it dies; the renderer compacts
 //   live rays to the front between phases so warps stay full.
 //
@@ -58,7 +68,7 @@ struct TraceParams {
   int n_sph_rows;
   const float* quad;     // (n_quad_rows, 16): nx ny nz D qx qy qz wx wy wz ux uy uz vx vy vz
   int n_quad_rows;
-  const float* resolve;  // (17, n_res_cols)
+  const float* table;    // (26, n_res_cols) unified-table rows
   int n_res_cols;
   const float* ray_f;    // (N_F, n)
   const int* ray_i;      // (2, n)
@@ -71,18 +81,25 @@ struct TraceParams {
   uint32_t seed;
   uint32_t b_off;
   int max_depth;
-  int ns_pad;            // first quad column of the resolve table
+  int ns_pad;            // first quad column of the table
   float bg_r, bg_g, bg_b;
+  const int* perm;       // (3, 256) marble permutations
+  const float* grad;     // (256, 3) marble gradients
+  const float* atlas;    // (T, 3) image texels
+  const int* dep;        // (n,) segments before this launch, or null (no depth cap)
+  int depth_cap;
 };
 
 // Trace ray i through one phase. sph/quad point at the staged sweep tables
-// (float4 rows: 2 per sphere, 4 per quad).
-template <bool MOVING>
-RT_DEVICE void trace_ray(const TraceParams& p, const float4* sph, const float4* quad, int i) {
+// (float4 rows: 2 per sphere, 4 per quad), perm/grad at the noise tables.
+template <bool MOVING, bool NOISE, bool IMAGE, bool CAP>
+RT_DEVICE void trace_ray(const TraceParams& p, const float4* sph, const float4* quad,
+                         const int* perm, const float* grad, int i) {
   const int n = p.n;
   rt::Ray r = rt::load_ray(p.ray_f, p.ray_i, n, i);
-  const rt::ShadeParams sp{p.resolve, p.n_res_cols, p.ns_pad, p.seed, p.b_off,
-                           p.bg_r,    p.bg_g,       p.bg_b};
+  if (CAP) r.dep = p.dep[i];
+  const rt::ShadeParams sp{p.table,   p.n_res_cols, p.ns_pad, p.seed, p.b_off, p.bg_r, p.bg_g,
+                           p.bg_b,    perm,         grad,     p.atlas, p.depth_cap};
   int bounces = 0;
 
   for (int b = 0; b < p.max_depth && r.active; ++b) {
@@ -147,7 +164,7 @@ RT_DEVICE void trace_ray(const TraceParams& p, const float4* sph, const float4* 
       }
     }
     if (p.out_ids) p.out_ids[(size_t)b * n + i] = t < BIG ? RT_LDG(p.kid_map + ib) : -1;
-    r.active = rt::shade(r, t, ib, b, sp);
+    r.active = rt::shade<NOISE, IMAGE, CAP>(r, t, ib, b, sp);
   }
 
   rt::store_ray(r, bounces, p.out_rad, p.out_bc, p.out_state, n, i);
@@ -160,7 +177,9 @@ RT_DEVICE void trace_ray(const TraceParams& p, const float4* sph, const float4* 
 constexpr int THREADS = 128;
 constexpr size_t DEFAULT_SHARED = 48 * 1024;
 
-template <bool MOVING>
+// Shared memory of one block: the sweep tables, then with NOISE the
+// permutations (3 x 256 int) and gradients (256 x 3 float), 6 KB.
+template <bool MOVING, bool NOISE, bool IMAGE, bool CAP>
 __global__ void __launch_bounds__(THREADS) k1_trace_block(const TraceParams p) {
   extern __shared__ float4 smem[];
   float4* s_sph = smem;
@@ -169,42 +188,71 @@ __global__ void __launch_bounds__(THREADS) k1_trace_block(const TraceParams p) {
   const float4* g_quad = reinterpret_cast<const float4*>(p.quad);
   for (int k = threadIdx.x; k < 2 * p.n_sph_rows; k += blockDim.x) s_sph[k] = g_sph[k];
   for (int k = threadIdx.x; k < 4 * p.n_quad_rows; k += blockDim.x) s_quad[k] = g_quad[k];
+  int* s_perm = reinterpret_cast<int*>(s_quad + 4 * p.n_quad_rows);
+  float* s_grad = reinterpret_cast<float*>(s_perm + 3 * rt::NOISE_POINTS);
+  if (NOISE) {
+    for (int k = threadIdx.x; k < 3 * rt::NOISE_POINTS; k += blockDim.x) {
+      s_perm[k] = p.perm[k];
+      s_grad[k] = p.grad[k];
+    }
+  }
   __syncthreads();
   const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i < p.n) trace_ray<MOVING>(p, s_sph, s_quad, i);
+  if (i < p.n) trace_ray<MOVING, NOISE, IMAGE, CAP>(p, s_sph, s_quad, s_perm, s_grad, i);
 }
 
-template <bool MOVING>
+template <bool MOVING, bool NOISE, bool IMAGE, bool CAP>
 cudaError_t launch(const TraceParams& p, cudaStream_t stream) {
-  const size_t smem = (size_t)(p.n_sph_rows * 8 + p.n_quad_rows * 16) * sizeof(float);
+  const size_t smem = (size_t)(p.n_sph_rows * 8 + p.n_quad_rows * 16) * sizeof(float) +
+                      (NOISE ? 6 * rt::NOISE_POINTS * sizeof(float) : 0);
+  auto kernel = k1_trace_block<MOVING, NOISE, IMAGE, CAP>;
   if (smem > DEFAULT_SHARED) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        k1_trace_block<MOVING>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   const dim3 grid((p.n + THREADS - 1) / THREADS);
-  k1_trace_block<MOVING><<<grid, THREADS, smem, stream>>>(p);
+  kernel<<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// The instantiation for the scene's motion, textures and cap.
+template <bool MOVING, bool NOISE, bool IMAGE>
+cudaError_t launch_cap(const TraceParams& p, cudaStream_t s) {
+  return p.dep ? launch<MOVING, NOISE, IMAGE, true>(p, s)
+               : launch<MOVING, NOISE, IMAGE, false>(p, s);
+}
+
+template <bool MOVING>
+cudaError_t launch_textures(const TraceParams& p, bool noise, bool image, cudaStream_t s) {
+  if (noise)
+    return image ? launch_cap<MOVING, true, true>(p, s) : launch_cap<MOVING, true, false>(p, s);
+  return image ? launch_cap<MOVING, false, true>(p, s) : launch_cap<MOVING, false, false>(p, s);
 }
 
 }  // namespace
 
 // C entry point (loaded with ctypes). Launches on `stream`, allocates
-// nothing and does not synchronize. Returns a cudaError_t.
+// nothing and does not synchronize. Returns a cudaError_t. `dep` null:
+// no depth cap.
 extern "C" int rt_trace_block(const float* sph, int n_sph_rows, const float* quad,
-                              int n_quad_rows, const float* resolve, int n_res_cols,
+                              int n_quad_rows, const float* table, int n_res_cols,
                               const float* ray_f, const int* ray_i, int n, float* out_rad,
                               int* out_bc, float* out_state, const int* kid_map,
                               int* out_ids, uint32_t seed, uint32_t b_off, int max_depth,
                               int ns_pad, float bg_r, float bg_g, float bg_b, int moving,
+                              int noise, int image, const int* perm, const float* grad,
+                              const float* atlas, const int* dep, int depth_cap,
                               void* stream) {
   if (n <= 0) return 0;
-  const TraceParams p{sph,     n_sph_rows, quad,    n_quad_rows, resolve,   n_res_cols,
+  const TraceParams p{sph,     n_sph_rows, quad,    n_quad_rows, table,     n_res_cols,
                       ray_f,   ray_i,      n,       out_rad,     out_bc,    out_state,
                       kid_map, out_ids,    seed,    b_off,       max_depth, ns_pad,
-                      bg_r,    bg_g,       bg_b};
+                      bg_r,    bg_g,       bg_b,    perm,        grad,      atlas,
+                      dep,     depth_cap};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(moving ? launch<true>(p, s) : launch<false>(p, s));
+  return (int)(moving ? launch_textures<true>(p, noise, image, s)
+                      : launch_textures<false>(p, noise, image, s));
 }
 
 extern "C" const char* rt_error_string(int err) {

@@ -18,7 +18,8 @@
 //   pass with strict <, which is what this kernel does.
 // Spheres are tested with the center at the ray's time and roots in t
 // space, quads through their plane, w and edges. The shading after the
-// hit is K1's (rt_shade.cuh).
+// hit is K1's (rt_shade.cuh): solid, checker, marble and image textures,
+// the last two as template switches, as in K1. K5 has no depth cap.
 //
 // What bounds it: FP32 ALU work in the walk. Per segment a ray visits
 // some tens of nodes (about 20 operations each: 6 subtracts, 6 multiplies,
@@ -35,7 +36,9 @@
 //   fits (NODE_SMEM_BYTES: 1,536 nodes, ~6k primitives); larger trees are
 //   read from global memory through the caches;
 // * leaf members are 32- or 64-byte records read as float4 through the
-//   read-only cache (__ldg), and the winner's fields likewise;
+//   read-only cache (__ldg), and the winner's fields and image texels
+//   likewise; the 6 KB of marble tables stay in global memory, served by
+//   L1 (shared memory holds the nodes);
 // * a ray leaves the bounce loop as soon as it dies; the trace compacts
 //   live rays to the front between phases so warps stay full. The walk
 //   itself diverges within a warp; nothing in this kernel works on that.
@@ -88,6 +91,9 @@ struct GroupParams {
   uint32_t b_off;
   int max_depth;
   float bg_r, bg_g, bg_b;
+  const int* perm;         // (3, 256) marble permutations
+  const float* grad;       // (256, 3) marble gradients
+  const float* atlas;      // (T, 3) image texels
 };
 
 struct RayGeom {
@@ -246,11 +252,12 @@ RT_DEVICE void walk_hit(const GroupParams& p, const float4* nodes, const rt::Ray
 }
 
 // Trace ray i through one phase.
-template <bool BVH>
+template <bool BVH, bool NOISE, bool IMAGE>
 RT_DEVICE void trace_ray_group(const GroupParams& p, const float4* nodes, int i) {
   const int n = p.n;
   rt::Ray r = rt::load_ray(p.ray_f, p.ray_i, n, i);
-  const rt::ShadeParams sp{p.table, p.P, p.ns_pad, p.seed, p.b_off, p.bg_r, p.bg_g, p.bg_b};
+  const rt::ShadeParams sp{p.table, p.P,    p.ns_pad, p.seed,  p.b_off, p.bg_r,
+                           p.bg_g,  p.bg_b, p.perm,   p.grad, p.atlas, 0};
   int bounces = 0;
   for (int b = 0; b < p.max_depth && r.active; ++b) {
     ++bounces;
@@ -260,7 +267,7 @@ RT_DEVICE void trace_ray_group(const GroupParams& p, const float4* nodes, int i)
       walk_hit(p, nodes, r, t, ib, nullptr);
     else
       sweep_hit(p, r, t, ib);
-    r.active = rt::shade(r, t, ib, b, sp);
+    r.active = rt::shade<NOISE, IMAGE, false>(r, t, ib, b, sp);
   }
   rt::store_ray(r, bounces, p.out_rad, p.out_bc, p.out_state, n, i);
 }
@@ -272,7 +279,7 @@ constexpr int THREADS = 256;
 // 48 KB of a block, so no opt-in is needed)
 constexpr size_t NODE_SMEM_BYTES = 48 * 1024;
 
-template <bool BVH, bool STAGED>
+template <bool BVH, bool STAGED, bool NOISE, bool IMAGE>
 __global__ void __launch_bounds__(THREADS) k5_trace_group(const GroupParams p) {
   extern __shared__ float4 s_nodes[];
   const float4* nodes = reinterpret_cast<const float4*>(p.nodes);
@@ -282,14 +289,23 @@ __global__ void __launch_bounds__(THREADS) k5_trace_group(const GroupParams p) {
     nodes = s_nodes;
   }
   const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i < p.n) trace_ray_group<BVH>(p, nodes, i);
+  if (i < p.n) trace_ray_group<BVH, NOISE, IMAGE>(p, nodes, i);
 }
 
-template <bool BVH, bool STAGED>
+template <bool BVH, bool STAGED, bool NOISE, bool IMAGE>
 cudaError_t launch(const GroupParams& p, size_t smem, cudaStream_t stream) {
   const dim3 grid((p.n + THREADS - 1) / THREADS);
-  k5_trace_group<BVH, STAGED><<<grid, THREADS, smem, stream>>>(p);
+  k5_trace_group<BVH, STAGED, NOISE, IMAGE><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// The instantiation for the search and the scene's textures.
+template <bool NOISE, bool IMAGE>
+cudaError_t launch_search(const GroupParams& p, bool use_bvh, cudaStream_t s) {
+  if (!use_bvh) return launch<false, false, NOISE, IMAGE>(p, 0, s);
+  const size_t node_bytes = (size_t)p.n_nodes * 8 * sizeof(float);
+  if (node_bytes <= NODE_SMEM_BYTES) return launch<true, true, NOISE, IMAGE>(p, node_bytes, s);
+  return launch<true, false, NOISE, IMAGE>(p, 0, s);
 }
 
 }  // namespace
@@ -302,16 +318,19 @@ extern "C" int rt_trace_group(const float* table, int P, int ns_pad, const float
                               const float* ray_f, const int* ray_i, int n, float* out_rad,
                               int* out_bc, float* out_state, uint32_t seed, uint32_t b_off,
                               int max_depth, float bg_r, float bg_g, float bg_b, int use_bvh,
-                              void* stream) {
+                              int noise, int image, const int* perm, const float* grad,
+                              const float* atlas, void* stream) {
   if (n <= 0) return 0;
-  const GroupParams p{table, P,     ns_pad,  nodes,    n_nodes,  sph_leaf,  sph_gid, n_sph_chunks,
-                      quad_leaf, quad_gid, ray_f, ray_i, n, out_rad, out_bc, out_state, seed,
-                      b_off,   max_depth, bg_r, bg_g, bg_b};
+  const GroupParams p{table,     P,        ns_pad, nodes, n_nodes, sph_leaf,  sph_gid,
+                      n_sph_chunks, quad_leaf, quad_gid, ray_f, ray_i, n,  out_rad,
+                      out_bc,    out_state, seed,   b_off, max_depth, bg_r, bg_g,
+                      bg_b,      perm,     grad,   atlas};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!use_bvh) return (int)launch<false, false>(p, 0, s);
-  const size_t node_bytes = (size_t)n_nodes * 8 * sizeof(float);
-  if (node_bytes <= NODE_SMEM_BYTES) return (int)launch<true, true>(p, node_bytes, s);
-  return (int)launch<true, false>(p, 0, s);
+  const bool bvh = use_bvh != 0;
+  if (noise) return (int)(image ? launch_search<true, true>(p, bvh, s)
+                                : launch_search<true, false>(p, bvh, s));
+  return (int)(image ? launch_search<false, true>(p, bvh, s)
+                     : launch_search<false, false>(p, bvh, s));
 }
 
 #else

@@ -173,10 +173,8 @@ def render_replay_fast(scene: Scene, cfg: CameraConfig, params: Optional[CameraP
     tensors), and only the replay is differentiated. A scene the
     megakernel's tables cannot express (a checker of non-solid textures,
     bilinear image filtering) takes :func:`render_replay`'s integrator
-    decision pass instead, as in the JAX package; one it can express but
-    K1 cannot shade yet (noise or image textures) raises
-    ``NotImplementedError`` from K1. ``return_ids`` also returns the ids,
-    which ``ids=`` takes back to skip the decision pass."""
+    decision pass instead, as in the JAX package. ``return_ids`` also
+    returns the ids, which ``ids=`` takes back to skip the decision pass."""
     params = _params(cfg, params, scene)
     if ids is None and not fl.unified_table(scene)[3]:
         if return_ids:

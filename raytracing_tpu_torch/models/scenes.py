@@ -1,10 +1,10 @@
-"""The scene registry: the counterpart of ``raytracing_tpu.models.scenes``
-for every scene but ``earth`` (its image asset is not ported yet). The
-constants are the JAX package's, ``bouncing_spheres`` draws from the same
-``np.random.default_rng(seed)`` stream and the Perlin tables from the same
-seed, so both packages build identical tables. ``perlin_sphere`` and
-``simple_light`` shade marble noise, which only the wavefront integrator
-(``render/integrator.py``) renders so far: the megakernels refuse them.
+"""The scene registry: the counterpart of ``raytracing_tpu.models.scenes``,
+all nine scenes. The constants are the JAX package's, ``bouncing_spheres``
+draws from the same ``np.random.default_rng(seed)`` stream, the Perlin
+tables from the same seed and ``earth`` loads the same image, so both
+packages build identical tables. Every scene renders through the
+megakernels (K1, K5) and the wavefront integrator alike: ``perlin_sphere``
+and ``simple_light`` shade marble noise, ``earth`` an image.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import numpy as np
 
 from ..core.device import DEFAULT_DEVICE
 from ..render.camera import CameraConfig
+from ..scene import assets
 from ..scene.builder import SceneBuilder
 from ..scene.types import Scene
 
@@ -111,6 +112,28 @@ def quads(device=DEFAULT_DEVICE, **cam_overrides):
     cfg = CameraConfig(
         aspect_ratio=1.0, image_width=400, samples_per_pixel=100,
         max_depth=50, background=SKY, vfov=80.0, lookfrom=(0.0, 0.0, 9.0),
+        lookat=(0.0, 0.0, 0.0), defocus_angle=0.0,
+    )
+    return b.compile(device), _cfg(cfg, cam_overrides)
+
+
+@register("earth")
+def earth(device=DEFAULT_DEVICE, image: str = "earthmap.jpg", **cam_overrides):
+    """An image-textured globe. The image is the first found of ``image``
+    (the reference's asset, for exact parity with it), the repository's
+    ``images/earthmap.ppm`` (a procedurally generated stand-in) and the
+    in-memory generator, as in the JAX package."""
+    b = SceneBuilder()
+    if assets.find_image(image) is not None:
+        tex = b.image(image)
+    elif assets.find_image("earthmap.ppm") is not None:
+        tex = b.image("earthmap.ppm")
+    else:
+        tex = b.image(assets.generate_earthlike())
+    b.sphere((0.0, 0.0, 0.0), 2.0, b.lambertian(tex))
+    cfg = CameraConfig(
+        aspect_ratio=16.0 / 9.0, image_width=400, samples_per_pixel=100,
+        max_depth=50, background=SKY, vfov=20.0, lookfrom=(0.0, 0.0, 12.0),
         lookat=(0.0, 0.0, 0.0), defocus_angle=0.0,
     )
     return b.compile(device), _cfg(cfg, cam_overrides)

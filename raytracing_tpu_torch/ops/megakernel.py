@@ -53,6 +53,9 @@ class MegaScene:
     sph_gid: torch.Tensor     # (LS, 8) i32 their unified columns
     quad_leaf: torch.Tensor   # (LQ, 8, 16) f32 quad chunk members
     quad_gid: torch.Tensor    # (LQ, 8) i32
+    perm: torch.Tensor        # (3, 256) i32 marble noise permutations (zeros without noise)
+    grad: torch.Tensor        # (256, 3) f32 marble noise gradients (zeros without noise)
+    atlas: torch.Tensor       # (T, 3) f32 image texels (one zero row without images)
     n_sph: int                # real spheres
     n_quad: int               # real quads
     n_sph_pad: int            # first quad column of ``table``
@@ -79,8 +82,8 @@ class MegaScene:
 
 
 def build_mega_scene(scene: Scene, device=None) -> MegaScene:
-    """Flatten ``scene`` into K1's tables on ``device`` (default: the
-    scene's own device)."""
+    """Flatten ``scene`` into K1's and K5's tables on ``device`` (default:
+    the scene's own device)."""
     if device is None:
         device = scene.spheres.radius.device
     table, ns_pad, _, supported = fl.unified_table(scene)
@@ -96,6 +99,13 @@ def build_mega_scene(scene: Scene, device=None) -> MegaScene:
     # reorders spheres in Morton order first, for a cluster cull the port
     # does not have)
     bvh = mega_bvh.build_chunked_bvh(table, ns_pad, n_sph, n_quad)
+    has_noise = bool(np.any(tkind == fl.TK_NOISE))
+    has_image = bool(np.any(tkind == fl.TK_IMAGE))
+    if has_noise:
+        perm, grad = fl.perlin_tables(scene)
+    else:
+        perm, grad = np.zeros((3, 256), np.int32), np.zeros((256, 3), np.float32)
+    atlas = fl.atlas_texels(scene) if has_image else np.zeros((1, 3), np.float32)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -104,10 +114,9 @@ def build_mega_scene(scene: Scene, device=None) -> MegaScene:
         sph_sweep=t(sph), quad_sweep=t(quad), table=t(table[:GROUP_FIELDS]),
         kid_map=t(kid), nodes=t(bvh.nodes), sph_leaf=t(bvh.sph_leaf),
         sph_gid=t(bvh.sph_gid), quad_leaf=t(bvh.quad_leaf), quad_gid=t(bvh.quad_gid),
+        perm=t(perm), grad=t(grad), atlas=t(atlas),
         n_sph=n_sph, n_quad=n_quad, n_sph_pad=ns_pad,
-        moving=bool(np.any(sph[:, 3:6] != 0.0)),
-        has_noise=bool(np.any(tkind == fl.TK_NOISE)),
-        has_image=bool(np.any(tkind == fl.TK_IMAGE)),
+        moving=bool(np.any(sph[:, 3:6] != 0.0)), has_noise=has_noise, has_image=has_image,
     )
 
 

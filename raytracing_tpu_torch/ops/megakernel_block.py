@@ -5,11 +5,14 @@ every ray of a launch. It replaces the Pallas kernel
 Per bounce and ray: the closest hit over every sphere row (moving center
 at ray time, roots searched in a·t space, strict < so the lowest index
 wins ties) and then every quad row; the winner's attributes from the
-resolve table; solid or checker albedo; lambertian, metal, dielectric or
-light; the next direction from PCG4D keyed on (pix, smp, (b + b_off)·4 + 2,
-seed). With ``want_ids`` it also records, per bounce, the global scene id
-of the winner (through ``MegaScene.kid_map``): the decision pass that the
-gradient replay (``diff/replay_kernel.py``) differentiates.
+unified table; solid, checker, 7-octave marble or nearest-texel image
+albedo; lambertian, metal, dielectric or light; the next direction from
+PCG4D keyed on (pix, smp, (b + b_off)·4 + 2, seed). With ``want_ids`` it
+also records, per bounce, the global scene id of the winner (through
+``MegaScene.kid_map``): the decision pass that the gradient replay
+(``diff/replay_kernel.py``) differentiates. With ``depth_cap`` (the
+regenerating pool, ``render/pool.py``) every ray carries its own depth
+``dep``, which offsets its RNG counter and caps its path.
 
 Two implementations compute it:
 
@@ -40,6 +43,8 @@ import torch
 from ..core import rng as rng_mod
 from ..core.vecmath import NEAR_ZERO_EPS
 from ..scene import flatten as fl
+from ..scene import perlin
+from ..scene.types import PerlinTables
 from .intersect import PARALLEL_EPS, T_MIN
 
 OX, OY, OZ, DX, DY, DZ, TM, TR, TG, TB, RR, RG, RB, ACT = range(14)
@@ -51,7 +56,8 @@ MT_METAL = 1.0
 MT_DIELECTRIC = 2.0
 MT_LIGHT = 3.0
 
-# the kernel stages both sweep tables in one block's shared memory
+# the kernel stages the sweep tables (and the noise tables) in one block's
+# shared memory
 MAX_SHARED_BYTES = 232448
 # primitives per vectorized step of the plain version's sweep
 PLAIN_CHUNK = 128
@@ -69,36 +75,47 @@ def _sweep_rows(mega):
 def trace_block(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
                 b_off: int, *, max_depth: int, background,
                 want_state: bool = True, want_ids: bool = False,
-                depth_cap=None):
+                depth_cap=None, dep=None):
     """Trace one phase of ``max_depth`` bounces. Returns
     ``(rad (3, n), bounces (n,) i32, state (N_F, n) or None)``, and
-    ``ids (max_depth, n) i32`` after them with ``want_ids``."""
-    if depth_cap is not None:
-        raise NotImplementedError("K1 port: depth_cap is not ported yet")
-    if mega.has_noise or mega.has_image:
-        raise NotImplementedError("K1 port: noise and image textures are not ported yet")
+    ``ids (max_depth, n) i32`` after them with ``want_ids``.
+
+    ``depth_cap`` (the regenerating pool, ``render/pool.py``) takes
+    ``dep (n,) i32``, each ray's segments traced before this launch: its
+    bounce ``b`` draws from RNG counter ``(b + b_off + dep)·4 + 2``, and
+    it dies, its state kept, once ``dep + b + 1`` reaches ``depth_cap``.
+    Pass ``dep`` exactly when ``depth_cap`` is set."""
     n = ray_f.shape[1]
+    if (dep is None) != (depth_cap is None):
+        raise ValueError("pass dep exactly when depth_cap is set")
     if ray_f.shape != (N_F, n) or ray_f.dtype != torch.float32:
         raise ValueError(f"ray_f must be ({N_F}, n) float32, got {tuple(ray_f.shape)} {ray_f.dtype}")
     if ray_i.shape != (2, n) or ray_i.dtype != torch.int32:
         raise ValueError(f"ray_i must be (2, n) int32, got {tuple(ray_i.shape)} {ray_i.dtype}")
+    if dep is not None and (dep.shape != (n,) or dep.dtype != torch.int32):
+        raise ValueError(f"dep must be ({n},) int32, got {tuple(dep.shape)} {dep.dtype}")
     dev = ray_f.device
-    tables = (mega.sph_sweep, mega.quad_sweep, mega.resolve, mega.kid_map)
-    if any(t.device != dev for t in (ray_i, *tables)):
+    tables = (mega.sph_sweep, mega.quad_sweep, mega.table, mega.kid_map, mega.perm, mega.grad,
+              mega.atlas)
+    rays = (ray_f, ray_i) if dep is None else (ray_f, ray_i, dep)
+    if any(t.device != dev for t in (*rays, *tables)):
         raise ValueError("scene tables and ray state must be on one device")
     if dev.type == "cpu":
         return trace_block_torch(mega, ray_f, ray_i, seed, b_off,
                                  max_depth=max_depth, background=background,
-                                 want_state=want_state, want_ids=want_ids)
+                                 want_state=want_state, want_ids=want_ids,
+                                 depth_cap=depth_cap, dep=dep)
     if dev.type != "cuda":
         raise ValueError(f"K1 runs on CUDA tensors (kernel) or CPU tensors (plain version), not {dev}")
-    if not all(t.is_contiguous() for t in (ray_f, ray_i, *tables)):
+    if not all(t.is_contiguous() for t in (*rays, *tables)):
         raise ValueError("K1 needs contiguous tensors")
     n_sph_rows, n_quad_rows = _sweep_rows(mega)
-    smem = (n_sph_rows * 8 + n_quad_rows * 16) * 4
+    # staged per block: the sweep tables, and the 6 KB of noise tables
+    smem = ((n_sph_rows * 8 + n_quad_rows * 16)
+            + (mega.perm.numel() + mega.grad.numel() if mega.has_noise else 0)) * 4
     if smem > MAX_SHARED_BYTES:
-        raise ValueError(f"sweep tables need {smem} B of shared memory; K1 stages at most "
-                         f"{MAX_SHARED_BYTES} B (tiling larger scenes is not ported yet)")
+        raise ValueError(f"sweep and noise tables need {smem} B of shared memory; K1 stages at "
+                         f"most {MAX_SHARED_BYTES} B (tiling larger scenes is not ported yet)")
     if n >= 2 ** 31 // N_F:
         raise ValueError(f"K1 launch of {n} rays exceeds its 32-bit indexing")
 
@@ -118,13 +135,16 @@ def trace_block(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
         err = lib.rt_trace_block(
             mega.sph_sweep.data_ptr(), n_sph_rows,
             mega.quad_sweep.data_ptr(), n_quad_rows,
-            mega.resolve.data_ptr(), mega.resolve.shape[1],
+            mega.table.data_ptr(), mega.n_prims,
             ray_f.data_ptr(), ray_i.data_ptr(), n,
             rad.data_ptr(), bounces.data_ptr(),
             state.data_ptr() if want_state else None, mega.kid_map.data_ptr(),
             ids.data_ptr() if want_ids else None, ctypes.c_uint32(seed), ctypes.c_uint32(b_off), max_depth,
             mega.n_sph_pad, float(background[0]), float(background[1]),
-            float(background[2]), int(mega.moving), stream)
+            float(background[2]), int(mega.moving), int(mega.has_noise), int(mega.has_image),
+            mega.perm.data_ptr(), mega.grad.data_ptr(), mega.atlas.data_ptr(),
+            dep.data_ptr() if dep is not None else None,
+            depth_cap if depth_cap is not None else 0, stream)
     launches += 1
     if err != 0:
         raise RuntimeError(f"K1 launch failed: {lib.rt_error_string(err).decode()}")
@@ -193,13 +213,54 @@ def _closest_hit(mega, ox, oy, oz, dx, dy, dz, tm):
     return t, ib
 
 
-def shade(mega, st, t, ib, b: int, b_off: int, seed: int, pix, smp, background):
+def image_texel(mega, ib, px, py, pz, own_x, own_y, own_z):
+    """The nearest texel of an image hit: ``(flat, x, y)``, the atlas row
+    and the continuous texel coordinates it truncates (``x = u·w``, ``y =
+    (1 - v)·h`` after clamping). A sphere's (u, v) comes from its outward
+    normal: θ = atan2(√(x²+z²), -y), φ = atan2(-z, x) + π (x taken as 1 on
+    the poles); a quad's is (α, β) from its corner, edges and w."""
+    col = mega.table[:, ib]
+    rxz = torch.sqrt(torch.clamp(own_x * own_x + own_z * own_z, min=0.0))
+    theta = torch.atan2(rxz, -own_y)
+    x_safe = torch.where(rxz > 0.0, own_x, 1.0)
+    phi = torch.atan2(-own_z, x_safe) + math.pi
+    u = phi * (1.0 / (2.0 * math.pi))
+    v = theta * (1.0 / math.pi)
+    if mega.n_quad > 0:
+        is_quad = ib >= mega.n_sph_pad
+        pqx = px - col[fl.U_QX]
+        pqy = py - col[fl.U_QY]
+        pqz = pz - col[fl.U_QZ]
+        ux, uy, uz = col[fl.U_UX], col[fl.U_UY], col[fl.U_UZ]
+        vx, vy, vz = col[fl.U_VX], col[fl.U_VY], col[fl.U_VZ]
+        wx, wy, wz = col[fl.U_G4], col[fl.U_G5], col[fl.U_G6]
+        alpha = (wx * (pqy * vz - pqz * vy) + wy * (pqz * vx - pqx * vz)
+                 + wz * (pqx * vy - pqy * vx))
+        beta = (wx * (uy * pqz - uz * pqy) + wy * (uz * pqx - ux * pqz)
+                + wz * (ux * pqy - uy * pqx))
+        u = torch.where(is_quad, alpha, u)
+        v = torch.where(is_quad, beta, v)
+    w_img, h_img = col[fl.U_A2G], col[fl.U_A2B]
+    w_i, h_i = w_img.to(torch.int32), h_img.to(torch.int32)
+    x = torch.clamp(u, 0.0, 1.0) * w_img
+    y = (1.0 - torch.clamp(v, 0.0, 1.0)) * h_img
+    ti = torch.minimum(torch.clamp(x.to(torch.int32), min=0), torch.clamp(w_i - 1, min=0))
+    tj = torch.minimum(torch.clamp(y.to(torch.int32), min=0), torch.clamp(h_i - 1, min=0))
+    flat = col[fl.U_A2R].to(torch.int32) + tj * w_i + ti
+    return flat.long(), x, y
+
+
+def shade(mega, st, t, ib, b: int, b_off: int, seed: int, pix, smp, background,
+          dep=None, depth_cap=None):
     """One bounce after the closest hit ``(t, ib)`` (``t == BIG`` on a miss),
     shared by K1's and K5's plain versions: background on a miss, the
-    winner's fields from the resolve table, solid or checker albedo,
-    emission, and the scatter of a lambertian, metal or dielectric surface.
-    ``st`` is the ray state as a list in ``ray_f``'s row order, with a bool
-    ``active`` last; returns the state after the bounce."""
+    winner's fields from the unified table, solid, checker, marble or image
+    albedo, emission, and the scatter of a lambertian, metal or dielectric
+    surface. ``st`` is the ray state as a list in ``ray_f``'s row order,
+    with a bool ``active`` last; returns the state after the bounce. With
+    ``depth_cap``, ``dep (n,) i32`` holds each ray's segments before this
+    phase: its RNG counter gains ``dep·4`` and the ray dies after segment
+    ``depth_cap``."""
     ox, oy, oz, dx, dy, dz, tm, thr_r, thr_g, thr_b, rad_r, rad_g, rad_b, active = st
     bg_r, bg_g, bg_b = (float(x) for x in background)
     res = mega.resolve
@@ -240,10 +301,27 @@ def shade(mega, st, t, ib, b: int, b_off: int, seed: int, pix, smp, background):
     ar = torch.where(use2, at[fl.U_A2R], at[fl.U_AR])
     ag = torch.where(use2, at[fl.U_A2G], at[fl.U_AG])
     ab = torch.where(use2, at[fl.U_A2B], at[fl.U_AB])
+    # marble and image albedo, evaluated only on the rays that hit them
+    # (a miss's hit point may be infinite)
+    shaded = active & hit
+    if mega.has_noise:
+        # scene/perlin.py's marble, in the kernels' operation order
+        sel = torch.nonzero(shaded & (at[fl.U_TKIND] == fl.TK_NOISE)).flatten()
+        m = perlin.marble(PerlinTables(mega.grad, *mega.perm),
+                          torch.stack([px[sel], py[sel], pz[sel]], dim=-1), ts[sel])
+        ar, ag, ab = (x.index_put((sel,), m) for x in (ar, ag, ab))
+    if mega.has_image:
+        sel = torch.nonzero(shaded & (at[fl.U_TKIND] == fl.TK_IMAGE)).flatten()
+        flat = image_texel(mega, ib[sel], px[sel], py[sel], pz[sel], own_x[sel], own_y[sel],
+                           own_z[sel])[0]
+        tex = mega.atlas[flat]
+        ar, ag, ab = (x.index_put((sel,), tex[:, c]) for c, x in enumerate((ar, ag, ab)))
 
-    ctr = (b + b_off) * rng_mod.N_STREAMS + rng_mod.STREAM_SCATTER
-    v0, v1, v2, _ = rng_mod.pcg4d(pix, smp, torch.full_like(pix, ctr, dtype=torch.int64),
-                                  torch.full_like(pix, seed, dtype=torch.int64))
+    ctr = torch.full_like(pix, (b + b_off) * rng_mod.N_STREAMS + rng_mod.STREAM_SCATTER,
+                          dtype=torch.int64)
+    if dep is not None:  # each ray's stream continues at its own bounce index
+        ctr = ctr + dep.to(torch.int64) * rng_mod.N_STREAMS
+    v0, v1, v2, _ = rng_mod.pcg4d(pix, smp, ctr, torch.full_like(pix, seed, dtype=torch.int64))
     u0 = rng_mod.to_unit_float(v0)
     u1 = rng_mod.to_unit_float(v1)
     u2 = rng_mod.to_unit_float(v2)
@@ -317,6 +395,8 @@ def shade(mega, st, t, ib, b: int, b_off: int, seed: int, pix, smp, background):
     rad_b = rad_b + torch.where(emit, thr_b * ab, 0.0)
 
     live = hit_mask & ((is_metal & metal_ok) | (~is_metal & ~is_light))
+    if depth_cap is not None:  # the ray's last segment: it dies with its state kept
+        live = live & (dep + (b + 1) < depth_cap)
     thr_r = torch.where(live, thr_r * att_r, thr_r)
     thr_g = torch.where(live, thr_g * att_g, thr_g)
     thr_b = torch.where(live, thr_b * att_b, thr_b)
@@ -337,10 +417,13 @@ def state_out(st):
 
 def trace_block_torch(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
                       b_off: int, *, max_depth: int, background,
-                      want_state: bool = True, want_ids: bool = False):
+                      want_state: bool = True, want_ids: bool = False,
+                      depth_cap=None, dep=None):
     """Plain PyTorch K1 with the kernel's inputs, outputs and arithmetic
     (each multiply and add rounded on its own, as the kernel is built with
     ``-fmad=false``). Runs on any device."""
+    if (dep is None) != (depth_cap is None):
+        raise ValueError("pass dep exactly when depth_cap is set")
     st = list(ray_f.unbind(0))
     st[ACT] = st[ACT] > 0.5
     pix, smp = ray_i[PIX], ray_i[SMP]
@@ -354,7 +437,7 @@ def trace_block_torch(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
         t, ib = _closest_hit(mega, *st[OX:TM + 1])
         if want_ids:
             ids[b] = torch.where(active & (t < BIG), mega.kid_map[ib.clamp(min=0)], -1)
-        st = shade(mega, st, t, ib, b, b_off, seed, pix, smp, background)
+        st = shade(mega, st, t, ib, b, b_off, seed, pix, smp, background, dep, depth_cap)
         bounces = bounces + active.to(torch.int32)
 
     rad, state = state_out(st)

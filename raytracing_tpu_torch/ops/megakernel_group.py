@@ -19,9 +19,10 @@ Closest hit, per bounce and ray:
 
 Both test a sphere with its center at the ray's time and its roots in t
 space, and a quad through its plane, w and edges. The shading after the
-hit is K1's (``megakernel_block.shade``): background, resolve, solid or
-checker albedo, lambertian, metal, dielectric or light, PCG4D keyed on
-(pix, smp, (b + b_off)·4 + 2, seed).
+hit is K1's (``megakernel_block.shade``): background, resolve, solid,
+checker, marble or image albedo, lambertian, metal, dielectric or light,
+PCG4D keyed on (pix, smp, (b + b_off)·4 + 2, seed). As in the JAX
+package, K5 has no depth cap.
 
 Two implementations compute it:
 
@@ -58,15 +59,13 @@ launches = 0  # K5 kernel launches in this process (plain-version calls excluded
 
 
 def _check(mega, ray_f, ray_i):
-    if mega.has_noise or mega.has_image:
-        raise NotImplementedError("K5 port: noise and image textures are not ported yet")
     n = ray_f.shape[1]
     if ray_f.shape != (mb.N_F, n) or ray_f.dtype != torch.float32:
         raise ValueError(f"ray_f must be ({mb.N_F}, n) float32, got {tuple(ray_f.shape)} {ray_f.dtype}")
     if ray_i.shape != (2, n) or ray_i.dtype != torch.int32:
         raise ValueError(f"ray_i must be (2, n) int32, got {tuple(ray_i.shape)} {ray_i.dtype}")
     tables = (mega.table, mega.nodes, mega.sph_leaf, mega.sph_gid, mega.quad_leaf,
-              mega.quad_gid)
+              mega.quad_gid, mega.perm, mega.grad, mega.atlas)
     if any(t.device != ray_f.device for t in (ray_i, *tables)):
         raise ValueError("scene tables and ray state must be on one device")
     return tables
@@ -110,7 +109,8 @@ def trace_group(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int, b_off
             rad.data_ptr(), bounces.data_ptr(), state.data_ptr() if want_state else None,
             ctypes.c_uint32(seed), ctypes.c_uint32(b_off), max_depth,
             float(background[0]), float(background[1]), float(background[2]),
-            int(bool(use_bvh)), stream)
+            int(bool(use_bvh)), int(mega.has_noise), int(mega.has_image),
+            mega.perm.data_ptr(), mega.grad.data_ptr(), mega.atlas.data_ptr(), stream)
     launches += 1
     if err != 0:
         raise RuntimeError(f"K5 launch failed: {lib.rt_error_string(err).decode()}")

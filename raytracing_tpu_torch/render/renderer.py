@@ -1,10 +1,14 @@
-"""Top-level renderer: launches of (pixel block × sample chunk) rays
-through the megakernel trace, accumulated into the image. The counterpart
-of ``raytracing_tpu.render.renderer`` for the phased megakernel schedule.
+"""Top-level renderer, the counterpart of ``raytracing_tpu.render.renderer``
+for the megakernel schedules:
 
-The JAX package fuses every launch into one jitted loop; here the launches
-are a Python loop that never waits on the device until the image is
-copied to the host at the end.
+* ``schedule="phased"``: launches of (pixel block × sample chunk) rays
+  through the phased megakernel trace, accumulated into the image. The
+  JAX package fuses every launch into one jitted loop; here the launches
+  are a Python loop that never waits on the device until the image is
+  copied to the host at the end.
+* ``schedule="pool"``: the regenerating pool (``render/pool.py``), one
+  persistent wavefront for the whole render, split into sample windows
+  only where the (pixel, sample) stream passes ``MAX_POOL_STREAM``.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ from ..core.color import to_u8_image
 from ..ops.megakernel import build_mega_scene, select_layout, trace_megakernel
 from ..scene.types import Scene
 from . import camera as cam_mod
+from . import pool as pool_mod
 from .camera import CameraConfig, CameraParams
 
 
@@ -83,21 +88,26 @@ def _render_chunk(mega, cfg: CameraConfig, derived, pixel_start: int,
 
 
 class Renderer:
-    """Renders a scene on the device its tensors live on, through the
-    phased megakernel schedule. The trace picks its layout from the scene
+    """Renders a scene on the device its tensors live on. The phased
+    schedule's trace picks its layout from the scene
     (``ops.megakernel.select_layout``): K1's sweep, or K5's BVH walk above
-    ``BVH_MIN_CHUNKS`` chunks of 8 primitives."""
+    ``BVH_MIN_CHUNKS`` chunks of 8 primitives. The pool schedule runs K1
+    (its depth cap is K1's alone) with ``pool.POOL_SIZE`` lanes, at most
+    the stream's length."""
 
     def __init__(self, cfg: CameraConfig, *, hit_method: str = "mega",
                  max_rays_per_launch: int = 1 << 18, phase_depths=None,
                  transfer: str = "f32", phase_prefixes=None,
-                 strict_prefixes: bool = True):
+                 strict_prefixes: bool = True, schedule: str = "phased"):
         if hit_method != "mega":
             raise ValueError(f"the port renders through the megakernel only, got hit_method={hit_method!r}")
         if transfer not in ("f32", "u8"):
             raise ValueError(f"transfer must be 'f32' or 'u8', got {transfer!r}")
+        if schedule not in ("phased", "pool"):
+            raise ValueError(f"schedule must be 'phased' or 'pool', got {schedule!r}")
         self.cfg = cfg
         self.transfer = transfer
+        self.schedule = schedule
         self.phase_depths = _default_phases(cfg, phase_depths)
         self.phase_prefixes = tuple(phase_prefixes) if phase_prefixes is not None else None
         self.strict_prefixes = strict_prefixes
@@ -175,6 +185,34 @@ class Renderer:
                 "strict_prefixes=False to inspect the flagged result.")
         return result
 
+    def _render_pool(self, scene: Scene, mega, params: CameraParams,
+                     seed: int) -> RenderResult:
+        """The regenerating-pool schedule: one pool per sample window, the
+        windows' radiance summed on the device. ``transfer="u8"`` quantizes
+        on the device when the render is one window; a split render
+        returns its f32 radiance, as in the JAX package."""
+        cfg = self.cfg
+        spp = cfg.samples_per_pixel
+        spp_w = min(spp, max(1, (pool_mod.MAX_POOL_STREAM - 1) // cfg.n_pixels))
+        windows = [(s, min(spp_w, spp - s)) for s in range(0, spp, spp_w)]
+        u8_mode = self.transfer == "u8" and len(windows) == 1
+        t0 = _time.perf_counter()
+        acc, seg_parts = None, []
+        for start, n in windows:
+            rad, seg = pool_mod.trace_pool(
+                mega, cfg, params, seed,
+                pool_size=min(pool_mod.POOL_SIZE, -(-cfg.n_pixels * n // 1024) * 1024),
+                sample_start=start, n_samples=n, motion_blur=scene.flags.has_moving)
+            acc = rad if acc is None else acc + rad
+            seg_parts.append(seg)
+        mean = (acc / spp).reshape(cfg.image_height, cfg.image_width, 3)
+        img_h = (to_u8_image(mean) if u8_mode else mean).cpu().numpy()
+        seconds = _time.perf_counter() - t0
+        segments = int(torch.stack(seg_parts).sum())
+        if u8_mode:
+            return RenderResult(None, segments, seconds, len(windows), u8=img_h)
+        return RenderResult(img_h, segments, seconds, len(windows))
+
     def render(self, scene: Scene, params: Optional[CameraParams] = None,
                seed: int = 0) -> RenderResult:
         cfg = self.cfg
@@ -186,6 +224,8 @@ class Renderer:
             from .. import _kernels
 
             _kernels.library()  # build outside the timed region
+        if self.schedule == "pool":
+            return self._render_pool(scene, mega, params, seed)
         launches = self._launches()
         n_blocks = -(-cfg.n_pixels // self.n_block)
         kw = self._chunk_kwargs(scene)

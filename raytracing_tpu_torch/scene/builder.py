@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ..core.device import DEFAULT_DEVICE, resolve
-from . import perlin
+from . import assets, perlin
 from .types import (
     MAT_DIELECTRIC,
     MAT_DIFFUSE_LIGHT,
@@ -82,17 +82,16 @@ class SceneBuilder:
         odd_id = odd if isinstance(odd, int) else self.solid(odd)
         return self._add_texture_row(TEX_CHECKER, scale=1.0 / scale, child=(even_id, odd_id))
 
-    def image(self, source: np.ndarray) -> int:
-        """Image texture from an (H, W, 3) float array in [0, 1]. The
-        megakernels (K1, K5) do not shade image textures yet and refuse
-        scenes that use them; the wavefront integrator does."""
-        self.images.append(np.asarray(source, np.float32))
+    def image(self, source: Union[str, np.ndarray]) -> int:
+        """Image texture from a file name (probed and decoded by
+        ``assets.load_image``) or an (H, W, 3) float array in [0, 1]."""
+        arr = (assets.load_image(source) if isinstance(source, str)
+               else np.asarray(source, np.float32))
+        self.images.append(arr)
         return self._add_texture_row(TEX_IMAGE, image=len(self.images) - 1)
 
     def noise(self, scale: float) -> int:
-        """Marble noise texture. The megakernels (K1, K5) do not shade
-        noise yet and refuse scenes that use it; the wavefront integrator
-        does."""
+        """Marble noise texture."""
         return self._add_texture_row(TEX_NOISE, scale=scale)
 
     def _as_tex(self, tex_or_rgb: Union[int, Color]) -> int:

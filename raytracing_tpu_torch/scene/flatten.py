@@ -9,11 +9,16 @@ and the same values.
   ``[0, ns_pad)`` and quads after them; its first ``RESOLVE_FIELDS`` rows
   are the resolve table the kernel reads the winner's attributes from.
 * ``global_id_map``: kernel primitive index → global scene id.
+* ``perlin_tables``: the marble noise's permutations ``(3, 256) i32`` and
+  gradients ``(256, 3) f32``.
+* ``atlas_texels``: every image's texels row-major, one image after
+  another, ``(T, 3) f32``; an image texture's ``A2R`` holds its first
+  texel.
 
 Materials and textures are folded into each primitive's row. The TPU
 package replicates the resolve, noise and atlas tables eight times for its
-(8, 128) gathers; a GPU thread reads a plain table, so none of that is
-here.
+(8, 128) gathers and packs large atlases into u8 words behind a texel
+cap; a GPU thread reads a plain table, so none of that is here.
 """
 from __future__ import annotations
 
@@ -50,6 +55,9 @@ U_QX, U_QY, U_QZ, U_UX, U_UY, U_UZ, U_VX, U_VY, U_VZ = range(17, 26)
 U_FIELDS = 32
 # the resolve table is rows [0, RESOLVE_FIELDS) of the unified table
 RESOLVE_FIELDS = 17
+
+# the atlas base texel is stored in an f32 column, exact below 2^24
+MAX_ATLAS_TEXELS = 1 << 24
 
 # sphere sweep rows are padded to a multiple of this (the JAX kernel's
 # culling-cluster size; kept so both packages build the same table)
@@ -263,3 +271,30 @@ def global_id_map(scene: Scene):
     out[:ns] = sidx
     out[ns_pad:ns_pad + nq] = scene.n_spheres + qidx
     return out
+
+
+def perlin_tables(scene: Scene):
+    """The marble noise's tables as the kernels read them: ``perm (3, 256)
+    i32`` (rows perm_x, perm_y, perm_z) and ``vec (256, 3) f32`` (the
+    gradient vectors)."""
+    pt = scene.perlin
+    perm = np.stack([_np(pt.perm_x), _np(pt.perm_y), _np(pt.perm_z)]).astype(np.int32)
+    return perm, _np(pt.randvec).astype(np.float32)
+
+
+def atlas_texels(scene: Scene) -> np.ndarray:
+    """Every image's texels, row-major, images one after another at the
+    bases ``_shading_columns`` folds into ``A2R``: ``(T, 3) f32`` (one
+    zero row when the scene has no image). Raises ValueError from
+    ``MAX_ATLAS_TEXELS`` texels on, whose bases an f32 column cannot hold."""
+    sizes = _np(scene.atlas.sizes)
+    texels = _np(scene.atlas.texels)
+    parts = [texels[k, :h, :w].reshape(h * w, 3) for k, (h, w) in enumerate(sizes)
+             if h > 0 and w > 0]
+    total = sum(len(p) for p in parts)
+    if total >= MAX_ATLAS_TEXELS:
+        raise ValueError(f"image atlas of {total} texels: the kernels address at most "
+                         f"{MAX_ATLAS_TEXELS - 1} (the base texel is an f32 table entry)")
+    if not parts:
+        return np.zeros((1, 3), np.float32)
+    return np.ascontiguousarray(np.concatenate(parts).astype(np.float32))

@@ -174,10 +174,15 @@ def test_layout_selection_and_refusals():
     with pytest.raises(ValueError):
         mg.trace_group(mega, ray_f, ray_i.long(), 0, 0, max_depth=1, background=(0, 0, 0),
                        use_bvh=True)
-    mega.has_noise = True
-    with pytest.raises(NotImplementedError):
-        mg.trace_group(mega, ray_f, ray_i, 0, 0, max_depth=1, background=(0, 0, 0),
-                       use_bvh=True)
+    # K5 shades marble noise, as K1's plain version does
+    sn, cfg_n = _jax_scene("perlin_sphere")
+    mega_n = pmega(port_scene(sn))
+    _, rays_n = _rays(sn, cfg_n)
+    args = (mega_n, *rays_n, cfg_n.background, 3, SEED)
+    r5, s5 = trace_megakernel(*args, layout="group", use_bvh=True)
+    r1, s1 = trace_megakernel(*args, layout="block")
+    assert mega_n.has_noise and mg.launches == 0
+    assert float((r5 - r1).abs().mean()) < 1e-3 and segments_close(int(s1), int(s5))
 
 
 HOST_HARNESS = r"""
@@ -186,10 +191,18 @@ static GroupParams params(const float* table, int P, int ns_pad, const float* no
     int n_nodes, const float* sph_leaf, const int* sph_gid, int n_sph_chunks,
     const float* quad_leaf, const int* quad_gid, const float* ray_f, const int* ray_i,
     int n, float* out_rad, int* out_bc, float* out_state, uint32_t seed, uint32_t b_off,
-    int max_depth, float bg_r, float bg_g, float bg_b) {
+    int max_depth, float bg_r, float bg_g, float bg_b, const int* perm, const float* grad,
+    const float* atlas) {
   return GroupParams{table, P, ns_pad, nodes, n_nodes, sph_leaf, sph_gid, n_sph_chunks,
                      quad_leaf, quad_gid, ray_f, ray_i, n, out_rad, out_bc, out_state, seed,
-                     b_off, max_depth, bg_r, bg_g, bg_b};
+                     b_off, max_depth, bg_r, bg_g, bg_b, perm, grad, atlas};
+}
+template <bool N, bool I>
+static void run(const GroupParams& p, int use_bvh) {
+  const float4* nd = reinterpret_cast<const float4*>(p.nodes);
+  for (int i = 0; i < p.n; ++i) {
+    if (use_bvh) trace_ray_group<true, N, I>(p, nd, i); else trace_ray_group<false, N, I>(p, nd, i);
+  }
 }
 // closest hit of every ray's first segment; counts (3, n) with the walk
 extern "C" void host_hit(const float* table, int P, int ns_pad, const float* nodes,
@@ -197,7 +210,8 @@ extern "C" void host_hit(const float* table, int P, int ns_pad, const float* nod
     const float* quad_leaf, const int* quad_gid, const float* ray_f, const int* ray_i,
     int n, int use_bvh, float* out_t, int* out_ib, long long* counts) {
   GroupParams p = params(table, P, ns_pad, nodes, n_nodes, sph_leaf, sph_gid, n_sph_chunks,
-                         quad_leaf, quad_gid, ray_f, ray_i, n, 0, 0, 0, 0, 0, 0, 0, 0, 0);
+                         quad_leaf, quad_gid, ray_f, ray_i, n, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                         0, 0);
   const float4* nd = reinterpret_cast<const float4*>(nodes);
   for (int i = 0; i < n; ++i) {
     rt::Ray r = rt::load_ray(ray_f, ray_i, n, i);
@@ -211,14 +225,13 @@ extern "C" void host_trace(const float* table, int P, int ns_pad, const float* n
     int n_nodes, const float* sph_leaf, const int* sph_gid, int n_sph_chunks,
     const float* quad_leaf, const int* quad_gid, const float* ray_f, const int* ray_i,
     int n, float* out_rad, int* out_bc, float* out_state, uint32_t seed, uint32_t b_off,
-    int max_depth, float bg_r, float bg_g, float bg_b, int use_bvh) {
+    int max_depth, float bg_r, float bg_g, float bg_b, int use_bvh, int noise, int image,
+    const int* perm, const float* grad, const float* atlas) {
   GroupParams p = params(table, P, ns_pad, nodes, n_nodes, sph_leaf, sph_gid, n_sph_chunks,
                          quad_leaf, quad_gid, ray_f, ray_i, n, out_rad, out_bc, out_state,
-                         seed, b_off, max_depth, bg_r, bg_g, bg_b);
-  const float4* nd = reinterpret_cast<const float4*>(nodes);
-  for (int i = 0; i < n; ++i) {
-    if (use_bvh) trace_ray_group<true>(p, nd, i); else trace_ray_group<false>(p, nd, i);
-  }
+                         seed, b_off, max_depth, bg_r, bg_g, bg_b, perm, grad, atlas);
+  if (noise) { if (image) run<true, true>(p, use_bvh); else run<true, false>(p, use_bvh); }
+  else if (image) run<false, true>(p, use_bvh); else run<false, false>(p, use_bvh);
 }
 """
 
@@ -241,7 +254,7 @@ def host_k5(tmp_path_factory):
     tables = [P, I, I, P, I, P, P, I, P, P, P, P, I]
     lib.host_hit.argtypes = tables + [I, P, P, P]
     lib.host_hit.restype = None
-    lib.host_trace.argtypes = tables + [P, P, P, U, U, I, F, F, F, I]
+    lib.host_trace.argtypes = tables + [P, P, P, U, U, I, F, F, F, I, I, I, P, P, P]
     lib.host_trace.restype = None
     return lib
 
@@ -266,13 +279,14 @@ def _table_args(mega, ray_f, ray_i):
             ray_f.data_ptr(), ray_i.data_ptr(), ray_f.shape[1])
 
 
-@pytest.mark.parametrize("name", ["bouncing_spheres", "mixed"])
+@pytest.mark.parametrize("name", ["bouncing_spheres", "mixed", "simple_light", "earth"])
 def test_kernel_source_on_the_host_matches_plain(host_k5, name):
     """The closest hit of the walk and of the sweep, compiled for the CPU
     without FMA contraction, is bit-equal to the plain version's, node
     visits and member tests included. A whole phase agrees within K1's
     bars (tests/test_torch_megakernel_block.py: host libm and PyTorch may
-    differ by an ulp in sin/cos)."""
+    differ by an ulp in sin, cos and atan2), marble at the JAX package's
+    mean bar and the image exact."""
     sj, cfg = _jax_scene(name)
     mega = pmega(port_scene(sj))
     ray_f, ray_i = _mid_path_rays(sj, cfg)
@@ -293,17 +307,22 @@ def test_kernel_source_on_the_host_matches_plain(host_k5, name):
             t_ref, ib_ref = mg._sweep(mega, *geo)
         assert torch.equal(t, t_ref)
         assert torch.equal(ib.long(), ib_ref)
-        assert int((ib >= 0).sum()) > B // 2
+        # the globe fills a fifth of its frame; the other scenes more than half
+        assert int((ib >= 0).sum()) > (B // 8 if name == "earth" else B // 2)
 
     rad = torch.empty(3, B)
     bc = torch.empty(B, dtype=torch.int32)
     state = torch.empty(mb.N_F, B)
     host_k5.host_trace(*args, rad.data_ptr(), bc.data_ptr(), state.data_ptr(), SEED, 2, 6,
-                       *cfg.background, 1)
+                       *cfg.background, 1, int(mega.has_noise), int(mega.has_image),
+                       mega.perm.data_ptr(), mega.grad.data_ptr(), mega.atlas.data_ptr())
     ref = mg.trace_group_torch(mega, ray_f, ray_i, SEED, 2, max_depth=6,
                                background=cfg.background, use_bvh=True)
     diff = (rad - ref[0]).abs()
-    assert diff.mean() < 2e-3
+    if name == "earth":
+        assert diff.max() < 1e-5
+    else:
+        assert diff.mean() < (1e-3 if name == "simple_light" else 2e-3)
     assert segments_close(ref[1].sum(), bc.sum())
     bad = ((state - ref[2]).abs() > 1e-3 * ref[2].abs().clamp(min=1)).any(0) | (bc != ref[1])
     assert int(bad.sum()) <= max(4, B // 200)

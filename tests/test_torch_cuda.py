@@ -1,7 +1,8 @@
-"""The port's CUDA kernels on the card: K1 (with recorded ids), K3, K2, K5
-(walk and dense sweep) and K4 (the table gather) against their plain
-PyTorch versions, and a render on the card against the same render on the
-CPU. Marked ``cuda``; each test skips when no CUDA
+"""The port's CUDA kernels on the card: K1 (with recorded ids, marble and
+image textures, and its depth cap), K3, K2, K5 (walk and dense sweep) and
+K4 (the table gather) against their plain PyTorch versions, a render on
+the card against the same render on the CPU, and the pool schedule
+against the phased one. Marked ``cuda``; each test skips when no CUDA
 device is present. On a GPU machine:
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
@@ -18,6 +19,7 @@ from raytracing_tpu_torch.diff import replay_fast as rf
 from raytracing_tpu_torch.diff import replay_kernel as rk
 from raytracing_tpu_torch.ops.megakernel import build_mega_scene, pack_rays, trace_megakernel
 from raytracing_tpu_torch.render import camera as cam
+from raytracing_tpu_torch.render import pool as pool_mod
 from torch_parity import segments_close
 
 pytestmark = pytest.mark.cuda
@@ -32,7 +34,8 @@ def dev():
 
 
 @pytest.mark.parametrize("name,exact", [
-    ("three_spheres", True), ("cornell_box", True), ("bouncing_spheres", False)])
+    ("three_spheres", True), ("cornell_box", True), ("bouncing_spheres", False),
+    ("perlin_sphere", False), ("earth", True)])
 @pytest.mark.parametrize("b_off", [0, 3])
 def test_kernel_matches_plain_version(dev, name, exact, b_off):
     scene, cfg = build(name, device=dev, image_width=64, samples_per_pixel=1, max_depth=6)
@@ -102,7 +105,7 @@ def test_replay_kernels_match_plain_versions(dev, name):
                                rtol=3e-5, atol=3e-6)
 
 
-@pytest.mark.parametrize("name", ["cornell_box", "bouncing_spheres"])
+@pytest.mark.parametrize("name", ["cornell_box", "bouncing_spheres", "simple_light", "earth"])
 def test_group_kernel_matches_plain_version(dev, name):
     """K5 through the BVH walk and through the dense sweep: every output
     bit-equal to the plain version, and the walk equal to the sweep."""
@@ -150,3 +153,40 @@ def test_table_gather_matches_plain_version(dev, L, F, B):
     tc = table.cpu().requires_grad_(True)
     (tg.table_lookup(tc, ids.cpu()) * w).sum().backward()
     torch.testing.assert_close(tb.grad.cpu(), tc.grad, rtol=1e-5, atol=2e-6 * max(1, B // L))
+
+
+def test_depth_cap_matches_plain_version(dev):
+    """K1's depth-cap mode on pool-shaped rays (each with its own depth):
+    bit-equal to the plain version, no ray past the cap."""
+    scene, cfg = build("perlin_sphere", device=dev, image_width=64, samples_per_pixel=1,
+                       max_depth=8)
+    mega = build_mega_scene(scene)
+    B = -(-cfg.n_pixels // 1024) * 1024
+    pix = torch.clamp(torch.arange(B, device=dev), max=cfg.n_pixels - 1)
+    smp = torch.zeros_like(pix)
+    o, d, t = cam.generate_rays(cfg, cam.derive(cfg, cam.CameraParams.from_config(cfg, dev)),
+                                pix, smp, SEED, motion_blur=scene.flags.has_moving)
+    ray_f, ray_i = pack_rays(o, d, t, pix, smp)
+    dep = torch.from_numpy(np.random.default_rng(1).integers(0, 8, B).astype(np.int32)).to(dev)
+    kw = dict(max_depth=3, background=cfg.background, depth_cap=8, dep=dep)
+    out = mb.trace_block(mega, ray_f, ray_i, SEED, 0, **kw)
+    torch.cuda.synchronize()
+    ref = mb.trace_block_torch(mega, ray_f, ray_i, SEED, 0, **kw)
+    for x, y in zip(out, ref):
+        assert torch.equal(x, y)
+    assert bool((dep + out[1] <= 8).all())
+
+
+def test_pool_render_matches_phased(dev, monkeypatch):
+    """Renderer(schedule="pool") on the card, its pool smaller than the
+    stream so lanes are refilled: the phased render's segments exactly
+    and its image to float32 reassociation of the per-pixel sums."""
+    scene, cfg = build("bouncing_spheres", device=dev, image_width=64, samples_per_pixel=4,
+                       max_depth=8)
+    monkeypatch.setattr(pool_mod, "POOL_SIZE", 4096)
+    before = mb.launches
+    pool = Renderer(cfg, schedule="pool").render(scene, seed=SEED)
+    assert mb.launches > before
+    phased = Renderer(cfg).render(scene, seed=SEED)
+    assert pool.segments == phased.segments
+    np.testing.assert_allclose(pool.radiance, phased.radiance, rtol=2e-6, atol=2e-6)

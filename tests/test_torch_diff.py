@@ -242,13 +242,35 @@ def test_render_replay_fast_on_cpu():
 
 
 def test_render_replay_fast_raises_on_noise_textures():
-    """As in the JAX package, only a scene the megakernel's tables cannot
-    express takes the integrator's decision pass; marble is expressible,
-    and K1 does not shade it yet, so the decision pass raises."""
-    scene, cfg = pbuild("perlin_sphere", device="cpu", image_width=8, samples_per_pixel=1,
-                        max_depth=2)
-    with pytest.raises(NotImplementedError, match="noise"):
-        render_replay_fast(scene, cfg, seed=3)
+    """render_replay_fast on the marble scene: K1's plain version shades
+    marble, so its decisions drive the replay, and the image and the
+    camera gradient match render_replay's (the integrator's decisions)
+    within the JAX package's bars for this scene (tests/test_replay.py:
+    the two closest-hit computations may send a grazing ray another way).
+    A scene the tables cannot express (bilinear images) takes the
+    integrator's decision pass and cannot return ids."""
+    scene, cfg = pbuild("perlin_sphere", device="cpu", image_width=10, samples_per_pixel=2,
+                        max_depth=3)
+    params = pcam.CameraParams.from_config(cfg, "cpu")
+    target = torch.zeros((cfg.image_height, cfg.image_width, 3))
+
+    def render_and_grad(fn):
+        lookfrom = params.lookfrom.clone().requires_grad_(True)
+        img = fn(scene, cfg, dataclasses.replace(params, lookfrom=lookfrom), seed=4)
+        (g,) = torch.autograd.grad(((img - target) ** 2).mean(), lookfrom)
+        return img.detach(), g
+
+    img_fast, g_fast = render_and_grad(render_replay_fast)
+    img_ref, g_ref = render_and_grad(render_replay)
+    assert tg.launches == 0
+    assert float((img_fast - img_ref).abs().mean()) < 1e-3
+    assert float(g_ref.abs().sum()) > 0
+    assert torch.allclose(g_fast, g_ref, rtol=0.04, atol=3e-3), (g_fast, g_ref)
+    b = SceneBuilder()
+    b.sphere((0.0, 0.0, -1.0), 0.5, b.lambertian(b.image(np.full((4, 4, 3), 0.5, np.float32))))
+    bilinear = b.compile(device="cpu", image_bilinear=True)
+    with pytest.raises(ValueError, match="no ids"):
+        render_replay_fast(bilinear, cfg, seed=4, return_ids=True)
 
 
 def test_fit_albedo_recovers_albedo():

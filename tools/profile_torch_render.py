@@ -1,6 +1,6 @@
 """Where the time of the port's bench render goes, on one CUDA device.
 
-    python3 tools/profile_torch_render.py [--scene bouncing_spheres_64]
+    python3 tools/profile_torch_render.py [--scene bouncing_spheres_64] [--schedule pool]
 
 Renders the bench workload (bouncing_spheres 400x225, 100 spp, depth 20,
 seed 7, schedule [2,2,3,4,9] with planned prefixes) through
@@ -9,7 +9,12 @@ torch.profiler (device time by kernel, device busy share), then CUDA-event
 timings of one launch's camera rays and of one whole launch. Prints the
 card's name, power limit and max SM clock first. ``--scene
 bouncing_spheres_64`` renders chip_smoke.py's 64x64-grid scene instead
-(~4,100 spheres, traced by K5's BVH walk, which takes no prefixes).
+(~4,100 spheres, traced by K5's BVH walk, which takes no prefixes);
+``--scene perlin_sphere``, ``simple_light`` or ``earth`` a textured
+registry scene at its registry configuration (400x225, 100 spp, depth
+50, phases [2, 3, 45]). ``--schedule pool`` renders through the
+regenerating pool instead (K1 only, no phases or prefixes; the two
+per-launch timings are the phased schedule's and are skipped).
 """
 from __future__ import annotations
 
@@ -48,8 +53,10 @@ def event_ms(fn, reps=20):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scene", choices=("bouncing_spheres", "bouncing_spheres_64"),
+    ap.add_argument("--scene", choices=("bouncing_spheres", "bouncing_spheres_64",
+                                        "perlin_sphere", "simple_light", "earth"),
                     default="bouncing_spheres")
+    ap.add_argument("--schedule", choices=("phased", "pool"), default="phased")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -63,17 +70,24 @@ def main() -> int:
         from chip_smoke import bouncing_spheres_64
 
         scene, cfg = bouncing_spheres_64(dev)
-    else:
+    elif args.scene == "bouncing_spheres":
         scene, cfg = build("bouncing_spheres", device=dev, image_width=400,
                            samples_per_pixel=100, max_depth=20)
-    kw = dict(max_rays_per_launch=1 << 18, transfer="u8", phase_depths=[2, 2, 3, 4, 9])
-    pref = (None if args.scene == "bouncing_spheres_64"
-            else Renderer(cfg, **kw).plan_phase_prefixes(scene, seed=SEED))
+    else:
+        scene, cfg = build(args.scene, device=dev)
+    kw = dict(max_rays_per_launch=1 << 18, transfer="u8")
+    pref = None
+    if args.schedule == "pool":
+        kw["schedule"] = "pool"
+    elif args.scene.startswith("bouncing_spheres"):
+        kw["phase_depths"] = [2, 2, 3, 4, 9]
+        if args.scene == "bouncing_spheres":
+            pref = Renderer(cfg, **kw).plan_phase_prefixes(scene, seed=SEED)
     r = Renderer(cfg, **kw, phase_prefixes=pref)
     for _ in range(2):
         r.render(scene, seed=SEED)
     runs = [r.render(scene, seed=SEED) for _ in range(5)]
-    print(f"{args.scene}: segments {runs[0].segments}, render seconds",
+    print(f"{args.scene} ({args.schedule}): segments {runs[0].segments}, render seconds",
           [x.seconds for x in runs])
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -88,6 +102,8 @@ def main() -> int:
     for dt, key, count in rows[:20]:
         print(f"  {dt / 1e3:9.3f} ms {count:6d}  {key[:100]}")
 
+    if args.schedule == "pool":
+        return 0
     mega = r._get_mega(scene)
     derived = cam.derive(cfg, cam.CameraParams.from_config(cfg, dev))
     chunk = dict(n_block=r.n_block, spp_chunk=r.spp_chunk, has_moving=True, device=dev)
