@@ -56,6 +56,20 @@ simple_light and earth at their registry configurations through both
 schedules (equal segments), and small renders on the card against the
 CPU. Phase 21 runs render_replay_fast (K1 decisions) on perlin_sphere
 against render_replay, image and camera gradient.
+K1 has two searches with one result: the sweep over every row and the
+walk of the chunked BVH (trace_block's ``cull``). Phases 2, 4, 15, 17
+and 18 run both, hold each bit for bit against the plain version (rad,
+bounces, state, ids) and print both times; phase 9 holds the walk
+against the sweep on bouncing_spheres_64. Phase 22 times both on one
+full-width launch of every registry scene and of bench-like grids of 8 to
+257 primitives (the walk's threshold, CULL_MIN_PRIMS), holds both against
+the plain version on a pool-shaped launch of bouncing_spheres_64 with the
+depth cap, renders that scene through the pool schedule with each search
+(K1 walks, K5 is not used), and runs the walk on a scene too large for
+the sweep's shared memory.
+Phase 23 renders a scene the megakernels cannot express (bilinear image
+filtering) through Renderer(hit_method="auto"), which takes the
+integrator, against the same render on the CPU.
 
 Prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}. Exits
@@ -73,6 +87,7 @@ import time
 from pathlib import Path
 
 BENCH_SEGMENTS = 24_280_645  # bench workload's traced segments (JAX reference)
+PORT_BENCH_SEGMENTS = 24_259_990  # the port's, in both schedules
 SEED = 7
 
 # Bounds: the larger of operations over the card's FP32 peak and bytes
@@ -175,11 +190,12 @@ def texel_boundary(torch, mb, fl, mega, ray_f, eps=1e-3):
     return out
 
 
-def bouncing_spheres_64(device):
+def bouncing_spheres_64(device, half=32):
     """The bench scene with its grid widened from 22x22 to 64x64 (the same
     rng stream, materials, camera and 3 big spheres; ~4,100 spheres, 514
     chunks of 8, so the trace walks the BVH in K5). Returns (scene, cfg)
-    at 400x225, 100 spp, depth 20."""
+    at 400x225, 100 spp, depth 20. ``half`` < 32 builds the
+    (2 half)x(2 half) grid instead (phase 22's crossover)."""
     import numpy as np
     from raytracing_tpu_torch.render.camera import CameraConfig
     from raytracing_tpu_torch.scene.builder import SceneBuilder
@@ -188,8 +204,8 @@ def bouncing_spheres_64(device):
     ground = b.lambertian(b.checker(0.32, (0.2, 0.3, 0.1), (0.9, 0.9, 0.9)))
     b.sphere((0.0, -1000.0, -1.0), 1000.0, ground)
     rng = np.random.default_rng(42)
-    for a in range(-32, 32):
-        for bb in range(-32, 32):
+    for a in range(-half, half):
+        for bb in range(-half, half):
             choose_mat = rng.random()
             center = np.array([a + 0.9 * rng.random(), 0.2, bb + 0.9 * rng.random()])
             if np.linalg.norm(center - np.array([4.0, 0.2, 0.0])) > 0.9:
@@ -269,6 +285,32 @@ def compare(torch, mb, exact, ref, out, n):
     return bool(ok), stats
 
 
+def bit_equal(torch, out, ref):
+    """Whether two K1 outputs (rad, bounces, state or None[, ids]) are
+    equal bit for bit."""
+    return len(out) == len(ref) and all(
+        (a is None and b is None) or (a is not None and b is not None and torch.equal(a, b))
+        for a, b in zip(out, ref))
+
+
+def both_searches(torch, mb, args, kw, ref, reps=5):
+    """K1 by the sweep and by the walk on one launch: for each, its output,
+    whether it equals ``ref`` (the plain version's) bit for bit, and its
+    device ms over ``reps`` launches."""
+    res = {}
+    for search, cull in (("sweep", False), ("walk", True)):
+        out = mb.trace_block(*args, cull=cull, **kw)
+        torch.cuda.synchronize()
+        res[search] = dict(out=out, bit_equal=bit_equal(torch, out, ref), ms=cuda_ms(
+            torch, lambda: mb.trace_block(*args, cull=cull, **kw), reps))
+    return res
+
+
+def searches_line(res):
+    """The print of :func:`both_searches`."""
+    return " ".join(f"{k} bit_equal {v['bit_equal']} {v['ms']:.3f} ms" for k, v in res.items())
+
+
 def cuda_ms(torch, fn, reps):
     """Mean device milliseconds of ``fn()`` over ``reps`` runs, after one warm-up."""
     fn()
@@ -332,6 +374,7 @@ def main() -> int:
     from raytracing_tpu_torch.ops.megakernel import (build_mega_scene, select_layout,
                                                      trace_megakernel)
     from raytracing_tpu_torch.render import camera as cam
+    from raytracing_tpu_torch.render import pool as pool_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -370,12 +413,12 @@ def main() -> int:
         for b_off in (0, 3):
             args = (mega, ray_f, ray_i, SEED, b_off)
             kw = dict(max_depth=6, background=cfg.background, want_ids=True)
-            out = mb.trace_block(*args, **kw)
-            torch.cuda.synchronize()
             ref = mb.trace_block_torch(*args, **kw)
-            ok, stats = compare(torch, mb, exact, ref, out, ray_f.shape[1])
+            both = both_searches(torch, mb, args, kw, ref)
+            ok, stats = compare(torch, mb, exact, ref, both["walk"]["out"], ray_f.shape[1])
+            ok &= all(v["bit_equal"] for v in both.values())
             print(f"phase 2 {name} b_off={b_off} B={ray_f.shape[1]}: "
-                  f"{'ok' if ok else 'FAIL'} {json.dumps(stats)}")
+                  f"{'ok' if ok else 'FAIL'} {json.dumps(stats)} {searches_line(both)}")
             if not ok:
                 failures.append(f"phase 2 {name} b_off={b_off}")
 
@@ -399,6 +442,7 @@ def main() -> int:
     render_ok = (res.ok is True
                  and render_counts == dict(K1=5 * res.launches, K3=0, K2=0, K5=0, K4=0)
                  and segments_close(BENCH_SEGMENTS, res.segments)
+                 and res.segments == PORT_BENCH_SEGMENTS
                  and all(x.segments == res.segments for x in runs)
                  and img.shape == (cfg.image_height, cfg.image_width, 3)
                  and 20 < float(img.mean()) < 235)
@@ -429,20 +473,24 @@ def main() -> int:
     B = ray_f.shape[1]
     args = (mega, ray_f, ray_i, SEED, 0)
     kw4 = dict(max_depth=cfg.max_depth, background=cfg.background)
-    out = mb.trace_block(*args, **kw4)
     ref = mb.trace_block_torch(*args, **kw4)
-    ok4, stats = compare(torch, mb, False, ref, out, B)
-    ms = cuda_ms(torch, lambda: mb.trace_block(*args, **kw4), 5)
+    both4 = both_searches(torch, mb, args, kw4, ref)
+    ok4, stats = compare(torch, mb, False, ref, both4["walk"]["out"], B)
+    ok4 &= all(v["bit_equal"] for v in both4.values())
+    ms, ms_sweep = both4["walk"]["ms"], both4["sweep"]["ms"]
     plain_ms = cuda_ms(torch, lambda: mb.trace_block_torch(*args, **kw4), 2)
-    n_sph_rows, n_quad_rows = mb._sweep_rows(mega)
-    k1_bound = bound(stats["segments"] * (K1_OPS_PER_SPHERE_ROW * n_sph_rows
-                                          + K1_OPS_PER_QUAD_ROW * n_quad_rows + K1_OPS_SHADE),
-                     B * (mb.N_F * 4 * 2 + 8 + 12 + 4)
-                     + 4 * (mega.sph_sweep.numel() + mega.quad_sweep.numel()
-                            + mega.resolve.numel() + mega.kid_map.numel()))
+    # the sweep tests the real rows (mega.n_sph, mega.n_quad); the walk's
+    # bound comes from K5's plain walk on this launch (phase 9)
+    k1_sweep_bound = bound(
+        stats["segments"] * (K1_OPS_PER_SPHERE_ROW * mega.n_sph + K1_OPS_PER_QUAD_ROW * mega.n_quad
+                             + K1_OPS_SHADE),
+        B * (mb.N_F * 4 * 2 + 8 + 12 + 4)
+        + 4 * (8 * mega.n_sph + 16 * mega.n_quad + mega.resolve.numel() + mega.kid_map.numel()))
     print(f"phase 4 single launch B={B} depth {cfg.max_depth}: {'ok' if ok4 else 'FAIL'} "
-          f"{json.dumps(stats)} kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
-          f"bound {k1_bound[0]:.4f} ms ({k1_bound[1]}) [{card}]")
+          f"{json.dumps(stats)} {searches_line(both4)} plain {plain_ms:.3f} ms "
+          f"sweep bound {k1_sweep_bound[0]:.4f} ms ({k1_sweep_bound[1]}, {mega.n_sph} rows) "
+          f"[{card}]")
+    del both4
     if not ok4:
         failures.append("phase 4 single launch")
 
@@ -669,15 +717,23 @@ def main() -> int:
                                                       use_bvh=True, **kw9), 5)
         ref, plain9_ms = timed(torch, lambda: mg.trace_group_torch(
             mega9, ray_f, ray_i, SEED, 0, use_bvh=True, want_counts=True, **kw9))
-        k1 = mb.trace_block(mega9, ray_f, ray_i, SEED, 0, **kw9)
-        k1_ms = cuda_ms(torch, lambda: mb.trace_block(mega9, ray_f, ray_i, SEED, 0, **kw9), 5)
+        k1 = mb.trace_block(mega9, ray_f, ray_i, SEED, 0, cull=True, **kw9)
+        k1_ms = cuda_ms(torch, lambda: mb.trace_block(mega9, ray_f, ray_i, SEED, 0, cull=True,
+                                                      **kw9), 3)
+        k1_sweep = mb.trace_block(mega9, ray_f, ray_i, SEED, 0, cull=False, **kw9)
+        k1_sweep_ms = cuda_ms(torch, lambda: mb.trace_block(mega9, ray_f, ray_i, SEED, 0,
+                                                            cull=False, **kw9), 3)
+        walk_eq = bit_equal(torch, k1, k1_sweep)
+        del k1_sweep
         seg5, seg_p, seg1 = int(out[1].sum()), int(ref[1].sum()), int(k1[1].sum())
         d_p = (out[0] - ref[0]).abs()
         ok9 = float(d_p.mean()) < 2e-3 and segments_close(seg_p, seg5)
         d_1 = (out[0] - k1[0]).abs()
         m5, m1 = out[0].mean(1), k1[0].mean(1)
         rel = float(((m5 - m1).abs() / m1.abs()).max())
-        ok9 &= segments_close(seg1, seg5) and rel < 0.01
+        ok9 &= segments_close(seg1, seg5) and rel < 0.01 and walk_eq
+        if k5_entry is not None:  # the bench case: phase 4's launch
+            ok9 &= B9 == B
         visits, sph_tests, quad_tests = (int(x) for x in ref[3].sum(1))
         ops = (visits * K5_OPS_PER_NODE + sph_tests * K5_OPS_PER_SPHERE_MEMBER
                + quad_tests * K5_OPS_PER_QUAD_MEMBER + seg5 * K5_OPS_SHADE)
@@ -692,7 +748,8 @@ def main() -> int:
               f"{[round(float(x), 5) for x in m5]} / {[round(float(x), 5) for x in m1]} "
               f"(max rel {rel:.3g}), per-ray mean_abs_err {float(d_1.mean()):.3g}, rays "
               f"differing {float((d_1.max(0).values > 1e-5).float().mean()):.4f}; "
-              f"K5 {k5_ms:.3f} ms plain {plain9_ms:.3f} ms K1 {k1_ms:.3f} ms; node visits "
+              f"K5 {k5_ms:.3f} ms plain {plain9_ms:.3f} ms K1 walk {k1_ms:.3f} ms sweep "
+              f"{k1_sweep_ms:.3f} ms (bit-equal {walk_eq}); node visits "
               f"{visits} ({visits / max(seg5, 1):.1f} per segment) sphere member tests "
               f"{sph_tests} quad member tests {quad_tests}; bound {b9[0]:.4f} ms ({b9[1]}) "
               f"[{card}]")
@@ -701,6 +758,9 @@ def main() -> int:
         if k5_entry is None:
             k5_entry = dict(max_abs_err=float(d_p.max()), ms=k5_ms, plain_ms=plain9_ms,
                             bound_ms=b9[0], bound_by=b9[1])
+            k1_64 = dict(ms_walk=k1_ms, ms_sweep=k1_sweep_ms)
+        else:  # phase 4's launch: K1's walk bound, its operations from K5's plain walk
+            k1_walk_bound = b9
         del ref
 
     # ---- phase 10: the bouncing_spheres_64 render through Renderer ----
@@ -940,9 +1000,9 @@ def main() -> int:
         n_block = -(-cfg_t.n_pixels // 1024) * 1024
         _, (ray_f, ray_i) = first_launch(scene_t, cfg_t, n_block, 2, dev)
         kw15 = dict(max_depth=6, background=cfg_t.background, want_ids=True)
-        out = mb.trace_block(mega_t, ray_f, ray_i, SEED, 3, **kw15)
-        torch.cuda.synchronize()
         ref = mb.trace_block_torch(mega_t, ray_f, ray_i, SEED, 3, **kw15)
+        both15 = both_searches(torch, mb, (mega_t, ray_f, ray_i, SEED, 3), kw15, ref)
+        out = both15["sweep"]["out"]
         image = name == "earth"
         ok15, st15 = compare(torch, mb, image, ref, out, ray_f.shape[1])
         if image:
@@ -956,9 +1016,10 @@ def main() -> int:
                     and st15["ids_differing"] == 0 and st15["differing_off_boundary"] == 0)
         else:
             ok15 &= st15["mean_abs_err"] < 1e-3
+        ok15 &= all(v["bit_equal"] for v in both15.values())
         st15["marble_shades"], st15["image_shades"] = texture_shades(torch, fl, mega_t, ref[3])
         print(f"phase 15 K1 {name} B={ray_f.shape[1]}: {'ok' if ok15 else 'FAIL'} "
-              f"{json.dumps(st15)}")
+              f"{json.dumps(st15)} {searches_line(both15)}")
         if not ok15:
             failures.append(f"phase 15 K1 {name}")
 
@@ -995,15 +1056,16 @@ def main() -> int:
             0, cfg_c.max_depth, ray_f.shape[1]).astype(np.int32)).to(dev)
         kw17 = dict(max_depth=2, background=cfg_c.background, depth_cap=cfg_c.max_depth,
                     dep=dep)
-        out = mb.trace_block(mega_c, ray_f, ray_i, SEED, 0, **kw17)
-        torch.cuda.synchronize()
         ref = mb.trace_block_torch(mega_c, ray_f, ray_i, SEED, 0, **kw17)
+        both17 = both_searches(torch, mb, (mega_c, ray_f, ray_i, SEED, 0), kw17, ref)
+        out = both17["walk"]["out"]
         ok17, st17 = compare(torch, mb, exact, ref, out, ray_f.shape[1])
+        ok17 &= all(v["bit_equal"] for v in both17.values())
         capped = int(((dep + out[1] == cfg_c.max_depth) & (out[1] > 0)).sum())
         ok17 &= bool((dep + out[1] <= cfg_c.max_depth).all()) and capped > 0
         print(f"phase 17 K1 depth cap {name} B={ray_f.shape[1]} cap {cfg_c.max_depth}: "
               f"{'ok' if ok17 else 'FAIL'} {json.dumps(st17)} rays ending at the cap {capped} "
-              f"bit_equal {equal_outputs(out, ref)}")
+              f"{searches_line(both17)}")
         if not ok17:
             failures.append(f"phase 17 depth cap {name}")
 
@@ -1016,12 +1078,13 @@ def main() -> int:
         _, (ray_f, ray_i) = first_launch(scene_f, cfg_f, r18.n_block, r18.spp_chunk, dev)
         B18 = ray_f.shape[1]
         kw18 = dict(max_depth=cfg_f.max_depth, background=cfg_f.background)
-        out = mb.trace_block(mega_f, ray_f, ray_i, SEED, 0, want_ids=True, **kw18)
-        k1_ms18 = cuda_ms(torch, lambda: mb.trace_block(mega_f, ray_f, ray_i, SEED, 0, **kw18),
-                          5)
         with texels_read(mb) as read18:
             ref, k1_plain_ms18 = timed(torch, lambda: mb.trace_block_torch(
                 mega_f, ray_f, ray_i, SEED, 0, want_ids=True, **kw18))
+        both18 = both_searches(torch, mb, (mega_f, ray_f, ray_i, SEED, 0),
+                               dict(kw18, want_ids=True), ref)
+        out = both18["sweep"]["out"]
+        k1_ms18 = both18["walk" if mb.walks(mega_f) else "sweep"]["ms"]
         image = name == "earth"
         ok18, st18 = compare(torch, mb, image, ref, out, B18)
         if image:  # as in phase 15
@@ -1035,25 +1098,24 @@ def main() -> int:
             ok18 &= st18["mean_abs_err"] < 1e-3
         n_marble, n_image = texture_shades(torch, fl, mega_f, ref[3])
         seg18 = st18["segments"]
-        n_sph_rows, n_quad_rows = mb._sweep_rows(mega_f)
         tex_ops = n_marble * K1_OPS_MARBLE + n_image * K1_OPS_IMAGE
         # the texture tables count as far as this launch reads them: the
         # Perlin tables whole once a marble shade runs, and of the atlas the
         # distinct texels the plain version fetched (12 B each)
         n_texels = int(torch.unique(torch.cat(read18)).numel()) if read18 else 0
-        tables18 = 4 * (mega_f.sph_sweep.numel() + mega_f.quad_sweep.numel()
+        tables18 = 4 * (8 * mega_f.n_sph + 16 * mega_f.n_quad
                         + mega_f.table.numel() + mega_f.kid_map.numel()
                         + (mega_f.perm.numel() + mega_f.grad.numel() if n_marble else 0)
                         + 3 * n_texels)
-        b18 = bound(seg18 * (K1_OPS_PER_SPHERE_ROW * n_sph_rows + K1_OPS_PER_QUAD_ROW
-                             * n_quad_rows + K1_OPS_SHADE) + tex_ops,
+        b18 = bound(seg18 * (K1_OPS_PER_SPHERE_ROW * mega_f.n_sph + K1_OPS_PER_QUAD_ROW
+                             * mega_f.n_quad + K1_OPS_SHADE) + tex_ops,
                     B18 * (mb.N_F * 4 * 2 + 8 + 12 + 4) + tables18)
         o5 = mg.trace_group(mega_f, ray_f, ray_i, SEED, 0, use_bvh=True, **kw18)
         k5_ms18 = cuda_ms(torch, lambda: mg.trace_group(mega_f, ray_f, ray_i, SEED, 0,
                                                         use_bvh=True, **kw18), 5)
         r5, k5_plain_ms18 = timed(torch, lambda: mg.trace_group_torch(
             mega_f, ray_f, ray_i, SEED, 0, use_bvh=True, want_counts=True, **kw18))
-        ok18 &= equal_outputs(o5, r5[:3])
+        ok18 &= equal_outputs(o5, r5[:3]) and all(v["bit_equal"] for v in both18.values())
         visits, sph_tests, quad_tests = (int(x) for x in r5[3].sum(1))
         seg5 = int(o5[1].sum())
         b5 = bound(visits * K5_OPS_PER_NODE + sph_tests * K5_OPS_PER_SPHERE_MEMBER
@@ -1066,13 +1128,13 @@ def main() -> int:
                     plain_ms=k5_plain_ms18, bound_ms=b5[0], bound_by=b5[1]))
         print(f"phase 18 full-width launch {name} B={B18} depth {cfg_f.max_depth}: "
               f"{'ok' if ok18 else 'FAIL'} {json.dumps(st18)} marble shades {n_marble} image "
-              f"shades {n_image} distinct texels {n_texels}; K1 {k1_ms18:.3f} ms plain "
+              f"shades {n_image} distinct texels {n_texels}; K1 {searches_line(both18)} plain "
               f"{k1_plain_ms18:.3f} ms bound {b18[0]:.4f} ms ({b18[1]}); K5 walk {k5_ms18:.3f} "
               f"ms plain {k5_plain_ms18:.3f} ms bound {b5[0]:.4f} ms ({b5[1]}), bit_equal to plain "
               f"{equal_outputs(o5, r5[:3])}, segments {seg5} [{card}]")
         if not ok18:
             failures.append(f"phase 18 {name}")
-        del ref, r5
+        del ref, r5, both18
 
     # ---- phase 19: the bench workload through the pool schedule ----
     rp = Renderer(cfg, max_rays_per_launch=1 << 18, transfer="u8", schedule="pool")
@@ -1089,7 +1151,7 @@ def main() -> int:
         if x.segments != (res.segments if label == "phased" else resp.segments):
             failures.append(f"phase 19 {label} segments vary")
     du8 = np.abs(resp.u8.astype(np.int16) - res.u8.astype(np.int16))
-    ok19 = (resp.segments == res.segments and resp.launches == 1
+    ok19 = (resp.segments == res.segments == PORT_BENCH_SEGMENTS and resp.launches == 1
             and pool_counts["K1"] > 0
             and {k: v for k, v in pool_counts.items() if k != "K1"} == dict(K3=0, K2=0, K5=0,
                                                                            K4=0)
@@ -1166,15 +1228,151 @@ def main() -> int:
     if not ok21:
         failures.append("phase 21 render_replay_fast")
 
+    # ---- phase 22: K1's two searches: registry crossover, a large scene, the pool ----
+    from raytracing_tpu_torch.models.scenes import SCENES
+
+    crossover = [(name, lambda n=name: build(n, device=dev)) for name in SCENES]
+    crossover += [(f"bouncing_spheres {2 * h}x{2 * h} grid",
+                   lambda h=h: bouncing_spheres_64(dev, half=h)) for h in (1, 2, 3, 4, 6, 8)]
+    for name, make in crossover:
+        scene_x, cfg_x = make()
+        mega_x = build_mega_scene(scene_x)
+        rx = Renderer(cfg_x, max_rays_per_launch=1 << 18)
+        _, (ray_f, ray_i) = first_launch(scene_x, cfg_x, rx.n_block, rx.spp_chunk, dev)
+        kwx = dict(max_depth=cfg_x.max_depth, background=cfg_x.background)
+        ref = mb.trace_block(mega_x, ray_f, ray_i, SEED, 0, cull=False, **kwx)
+        bx = both_searches(torch, mb, (mega_x, ray_f, ray_i, SEED, 0), kwx, ref, reps=10)
+        okx = bx["walk"]["bit_equal"]
+        print(f"phase 22 crossover {name}: {'ok' if okx else 'FAIL'} primitives "
+              f"{mega_x.n_sph + mega_x.n_quad} nodes {mega_x.cull_nodes.shape[0]} B="
+              f"{ray_f.shape[1]} depth {cfg_x.max_depth} segments {int(ref[1].sum())} "
+              f"{searches_line(bx)} (walk against sweep) default "
+              f"{'walk' if mb.walks(mega_x) else 'sweep'} [{card}]")
+        if not okx:
+            failures.append(f"phase 22 crossover {name}")
+        del ref, bx
+
+    mega64 = build_mega_scene(s64)
+    r64 = Renderer(c64, max_rays_per_launch=1 << 18)
+    _, (ray_f, ray_i) = first_launch(s64, c64, r64.n_block, r64.spp_chunk, dev)
+    dep = torch.from_numpy(np.random.default_rng(2).integers(
+        0, c64.max_depth, ray_f.shape[1]).astype(np.int32)).to(dev)
+    kw22 = dict(max_depth=pool_mod.K_BOUNCES, background=c64.background,
+                depth_cap=c64.max_depth, dep=dep)
+    ref, plain22_ms = timed(torch, lambda: mb.trace_block_torch(mega64, ray_f, ray_i, SEED, 0,
+                                                                **kw22))
+    both22 = both_searches(torch, mb, (mega64, ray_f, ray_i, SEED, 0), kw22, ref, reps=3)
+    ok22 = all(v["bit_equal"] for v in both22.values()) and int(ref[1].sum()) > 0
+    k1_pool64 = {k: v["ms"] for k, v in both22.items()}
+    print(f"phase 22 bouncing_spheres_64 pool-shaped launch B={ray_f.shape[1]} "
+          f"{pool_mod.K_BOUNCES} bounces cap {c64.max_depth}: {'ok' if ok22 else 'FAIL'} "
+          f"segments {int(ref[1].sum())} {searches_line(both22)} plain {plain22_ms:.3f} ms "
+          f"[{card}]")
+    if not ok22:
+        failures.append("phase 22 bouncing_spheres_64 pool-shaped launch")
+    del ref, both22
+
+    rp64 = {search: Renderer(c64, max_rays_per_launch=1 << 18, transfer="u8", schedule="pool",
+                             cull=search == "walk") for search in ("walk", "sweep")}
+    pool64 = {}
+    for search in ("walk", "walk", "sweep", "walk"):  # the first is a warm-up
+        zero_counts()
+        x = rp64[search].render(s64, seed=SEED)
+        pool64.setdefault(search, []).append((x, counts()))
+    xw, cw = pool64["walk"][1]
+    xs, cs = pool64["sweep"][0]
+    ok22p = (xw.segments == xs.segments and bool(np.array_equal(xw.u8, xs.u8))
+             and cw["K1"] > 0 and cw["K1"] == cs["K1"]
+             and {k: v for k, v in cw.items() if k != "K1"} == dict(K3=0, K2=0, K5=0, K4=0)
+             and 20 < float(xw.u8.mean()) < 235)
+    pool64_s = {k: [round(x.seconds, 4) for x, _ in v[k == "walk":]] for k, v in pool64.items()}
+    print(f"phase 22 bouncing_spheres_64 pool render: {'ok' if ok22p else 'FAIL'} segments "
+          f"{xw.segments} (sweep {xs.segments}, phased K5 render {res10.segments}) u8 equal "
+          f"{bool(np.array_equal(xw.u8, xs.u8))} K1 launches {cw['K1']} seconds walk "
+          f"{pool64_s['walk']} sweep {pool64_s['sweep']} (phased K5 render {res10.seconds:.4f}) "
+          f"[{card}]")
+    if not ok22p:
+        failures.append("phase 22 bouncing_spheres_64 pool render")
+
+    # a scene whose sweep tables exceed the sweep's shared memory: the walk only
+    from raytracing_tpu_torch.render.camera import CameraConfig
+    from raytracing_tpu_torch.scene.builder import SceneBuilder
+
+    b = SceneBuilder()
+    b.sphere((0.0, -1000.0, 0.0), 1000.0, b.lambertian((0.5, 0.5, 0.5)))
+    rng = np.random.default_rng(9)
+    mats = [b.lambertian(tuple(rng.random(3))) for _ in range(16)] + [b.metal((0.8, 0.8, 0.8),
+                                                                              0.1)]
+    for k in range(9000):
+        b.sphere((rng.uniform(-48, 48), 0.2, rng.uniform(-48, 48)), 0.2, mats[k % len(mats)])
+    big = b.compile(dev)
+    cbig = CameraConfig(aspect_ratio=16.0 / 9.0, image_width=64, samples_per_pixel=2,
+                        max_depth=6, background=(0.7, 0.8, 1.0), vfov=20.0,
+                        lookfrom=(13.0, 2.0, 3.0), lookat=(0.0, 0.0, 0.0))
+    mbig = build_mega_scene(big)
+    _, (ray_f, ray_i) = first_launch(big, cbig, -(-cbig.n_pixels // 1024) * 1024, 2, dev)
+    kwb = dict(max_depth=cbig.max_depth, background=cbig.background, want_ids=True)
+    before = mb.launches
+    outb = mb.trace_block(mbig, ray_f, ray_i, SEED, 0, **kwb)
+    torch.cuda.synchronize()
+    refb = mb.trace_block_torch(mbig, ray_f, ray_i, SEED, 0, **kwb)
+    try:
+        mb.trace_block(mbig, ray_f, ray_i, SEED, 0, cull=False, **kwb)
+        refused = False
+    except ValueError:
+        refused = True
+    okb = (mb.walks(mbig) and mb.launches == before + 1 and bit_equal(torch, outb, refb)
+           and refused and int(outb[1].sum()) > 0)
+    print(f"phase 22 large scene ({mbig.n_sph} spheres, sweep tables "
+          f"{4 * (mbig.sph_sweep.numel() + mbig.quad_sweep.numel())} B): "
+          f"{'ok' if okb else 'FAIL'} walk bit-equal to plain {bit_equal(torch, outb, refb)}, "
+          f"sweep refused {refused}, segments {int(outb[1].sum())}")
+    if not okb:
+        failures.append("phase 22 large scene")
+
+    # ---- phase 23: a scene the megakernels cannot express, through hit_method="auto" ----
+    def bilinear(device):
+        b = SceneBuilder()
+        img = np.random.default_rng(5).random((6, 9, 3)).astype(np.float32)
+        b.sphere((0.0, -100.0, 0.0), 99.5, b.lambertian((0.5, 0.5, 0.5)))
+        b.sphere((0.0, 0.3, 0.0), 0.8, b.lambertian(b.image(img)))
+        b.sphere((1.6, 0.0, 0.5), 0.5, b.metal((0.8, 0.7, 0.6), 0.1))
+        return b.compile(device, image_bilinear=True)
+
+    c23 = CameraConfig(aspect_ratio=1.0, image_width=64, samples_per_pixel=4, max_depth=8,
+                       vfov=30.0, lookfrom=(0.0, 1.5, 6.0), lookat=(0.0, 0.3, 0.0),
+                       background=(0.7, 0.8, 1.0))
+    s23 = bilinear(dev)
+    r23 = Renderer(c23)
+    zero_counts()
+    g23 = r23.render(s23, seed=SEED)
+    c23_counts = counts()
+    cpu23 = Renderer(c23).render(bilinear("cpu"), seed=SEED)
+    e23 = float(np.abs(g23.radiance - cpu23.radiance).mean())
+    ok23 = (r23.resolve_hit_method(s23) == "brute" and all(v == 0 for v in c23_counts.values())
+            and bool(np.isfinite(g23.radiance).all()) and e23 < 1e-3
+            and segments_close(cpu23.segments, g23.segments)
+            and 0.05 < float(g23.radiance.mean()) < 1.0)
+    print(f"phase 23 bilinear image through hit_method='auto': {'ok' if ok23 else 'FAIL'} path "
+          f"{r23.resolve_hit_method(s23)} kernel launches {c23_counts} card vs cpu mean_abs_err "
+          f"{e23:.3g} segments {g23.segments} cpu {cpu23.segments} seconds {g23.seconds:.4f} "
+          f"[{card}]")
+    if not ok23:
+        failures.append("phase 23 hit_method auto")
+
     print(json.dumps({"kernels": [
-        {"name": "K1 megakernel_block", "route": "cuda",
-         "source": "raytracing_tpu_torch/csrc/megakernel_block.cu",
+        {"name": "K1 megakernel_block (BVH walk; the guarded sweep below CULL_MIN_PRIMS)",
+         "route": "cuda", "source": "raytracing_tpu_torch/csrc/megakernel_block.cu",
          "replaces": "raytracing_tpu/ops/megakernel_block.py:155",
          "launches": render_counts["K1"], "path": "forward render (phase 3)",
          "launches_fwd_bwd_sweep": fb_counts["K1"],
          "launches_pool_render": pool_counts["K1"], "launches_registry_renders": reg_counts,
-         "max_abs_err": stats["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
-         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None,
+         "launches_pool_render_bouncing_spheres_64": cw["K1"],
+         "max_abs_err": stats["max_abs_err"], "ms": ms, "ms_sweep": ms_sweep,
+         "plain_ms": plain_ms, "bound_ms": k1_walk_bound[0], "bound_by": k1_walk_bound[1],
+         "bound_sweep_ms": k1_sweep_bound[0], "bound_sweep_by": k1_sweep_bound[1],
+         "library_ms": None, "bouncing_spheres_64_full_width": k1_64,
+         "bouncing_spheres_64_pool_shaped": k1_pool64,
          **{f"{k}_full_width": v["k1"] for k, v in tex_rows.items()}},
         {"name": "K3 replay_fwd", "route": "cuda",
          "source": "raytracing_tpu_torch/csrc/replay_kernel.cu",

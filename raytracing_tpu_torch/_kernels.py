@@ -51,7 +51,7 @@ def _nvcc() -> str:
 def _declare(lib: ctypes.CDLL) -> None:
     P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
     lib.rt_trace_block.argtypes = [P, I, P, I, P, I, P, P, I, P, P, P, P, P, U, U, I, I,
-                                   F, F, F, I, I, I, P, P, P, P, I, P]
+                                   F, F, F, I, I, I, P, P, P, P, I, P, I, P, I, P, F, F, F, F, F, I, P]
     lib.rt_trace_block.restype = ctypes.c_int
     lib.rt_trace_group.argtypes = [P, I, I, P, I, P, P, I, P, P, P, P, I, P, P, P, U, U, I,
                                    F, F, F, I, I, I, P, P, P, P]

@@ -61,7 +61,7 @@ def bench_forward(width=400, spp=100, max_depth=20, seed=7, device=DEFAULT_DEVIC
 
 
 def _fwd_bwd_setup(width=400, spp=100, max_depth=20, seed=7, spp_chunk=4, phases="default",
-                   device=DEFAULT_DEVICE):
+                   device=DEFAULT_DEVICE, cull=None):
     """The fwd+bwd chunk machinery, as the JAX bench's ``_fwd_bwd_setup``.
 
     Each chunk (``spp_chunk`` samples of every pixel, B rays) runs the
@@ -76,7 +76,8 @@ def _fwd_bwd_setup(width=400, spp=100, max_depth=20, seed=7, spp_chunk=4, phases
     installs the per-bounce prefixes and the decision pass's phase
     prefixes into ``ns``), ``sweep()`` (every chunk, summed: ``(loss,
     g_center, g_rgb, segments, ok)``), ``args``, ``n_chunks``,
-    ``spp_chunk``, ``B``, ``ns`` and ``device``."""
+    ``spp_chunk``, ``B``, ``ns`` and ``device``. ``cull`` forces K1's
+    search in the decision pass (``trace_megakernel``)."""
     dev = resolve(device)
     scene, cfg = build("bouncing_spheres", device=dev, image_width=width,
                        samples_per_pixel=spp, max_depth=max_depth)
@@ -114,7 +115,8 @@ def _fwd_bwd_setup(width=400, spp=100, max_depth=20, seed=7, spp_chunk=4, phases
         o, d, t, smp = make_rays(sample0)
         out = trace_megakernel(mega, o, d, t, pix, smp, cfg.background, max_depth, seed,
                                phase_depths=phases, active0=act0, want_ids="compacted",
-                               want_counts=True, phase_prefixes=ns["decide_prefixes"])
+                               want_counts=True, phase_prefixes=ns["decide_prefixes"],
+                               cull=cull)
         rad, _, ids0, later, perm, cnt, cnt_c, *ok = out
         bundle = dict(ids0=ids0, later=later, perm=perm, counts_c=cnt_c,
                       phase_depths=tuple(phases) if phases is not None else (max_depth,))

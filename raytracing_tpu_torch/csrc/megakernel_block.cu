@@ -12,37 +12,62 @@
 // its counter is (b + b_off + dep)*4 + 2, and it dies once dep + b + 1
 // reaches depth_cap.
 //
-// What bounds it: FP32 ALU work in the sweep, about 27 operations per
-// sphere per segment (13 mul, 11 add/sub, a sqrt, 3 compares and selects).
+// The closest hit comes from one of two searches with one result, bit for
+// bit (the WALK template switch; the wrapper walks scenes of at least
+// CULL_MIN_PRIMS primitives):
+// * the sweep: every sphere row, then every quad row;
+// * the walk: a stackless preorder walk of the chunked BVH (ops/mega_bvh.py,
+//   the nodes K5 walks, with boxes padded for this arithmetic) that tests
+//   the rows of a hit leaf with the sweep's own arithmetic and tie rule.
+//   The pads hold for rays that start within a ball around the scene
+//   (mega_bvh.cull_ball); a ray from outside widens each box it meets by
+//   its own rounding band, so the result is the sweep's for every ray.
+//
+// What bounds it: FP32 ALU work in the search, about 27 operations per
+// sphere row tested (13 mul, 11 add/sub, a sqrt, 3 compares and selects).
 // The bench workload (bouncing_spheres, 400x225, 100 spp, depth 20) traces
-// about 24.3M segments against 496 sphere rows: 24.3e6 * 496 * 27 ~ 3.3e11
-// operations. Memory traffic is small: 56 B of ray state in and out per
-// ray per phase, plus 17 divergent 4-byte reads per hit. A marble hit
-// adds about 1,000 operations and 336 table reads (7 octaves x 8 corners x
-// 6 reads), an image hit two atan2f and 3 texel reads.
+// about 24.3M segments against 496 sphere rows: the sweep does 24.3e6 * 496
+// * 27 ~ 3.3e11 operations; the walk visits some tens of nodes and tests a
+// few dozen rows a segment. Memory traffic is small: 56 B of ray state in
+// and out per ray per phase, plus 17 divergent 4-byte reads per hit. A
+// marble hit adds about 1,000 operations and 336 table reads (7 octaves x
+// 8 corners x 6 reads), an image hit two atan2f and 3 texel reads.
 //
 // What the design does about it:
 // * one thread traces one ray through the whole phase with its state in
 //   registers, so nothing but the phase's inputs and outputs touches
 //   device memory;
-// * the sweep tables (16 KB at the bench size) are staged once per block
+// * the guarded root: a sphere whose discriminant is negative (most rows
+//   of a sweep) never reaches sqrtf. Without fast math sqrtf is the
+//   correctly rounded sequence MUFU.RSQ + Newton step, which calls a
+//   22-instruction slow-path subroutine for any input that is not a
+//   positive normal number, a negative one included. In the SASS of the
+//   bench instantiation (tools/k1_sass.py, sm_90a) the sweep's loop took
+//   192 instructions per 4 unrolled rows (48 a row) and called the slow
+//   path on every miss; with the guard it is 210 (52.5 a row), and a miss
+//   branches past the root's 16-17 instructions (~36 a row), with no call;
+// * the walk reads the nodes from shared memory (staged per block up to
+//   NODE_SMEM_BYTES) and the sweep rows of a hit leaf from global memory
+//   through the read-only cache, so a large scene keeps its occupancy and
+//   has no shared-memory limit;
+// * the sweep stages its real rows (15.5 KB at the bench size; the
+//   tables' pad rows never win, so it skips them) once per block
 //   into shared memory; all threads of a warp read the same row at the
-//   same moment, which shared memory serves as a broadcast (one 16-byte
-//   load per half row, no bank conflicts);
+//   same moment, which shared memory serves as a broadcast;
 // * the winner's fields are per-ray divergent reads, served from global
 //   memory through the read-only cache (__ldg), and so are image texels;
 // * a noise scene also stages the 6 KB of Perlin tables in shared memory;
-// * marble, image and the depth cap are template switches (as motion
-//   is), so a scene without them runs the code it would run without them
-//   existing, with the same registers;
+// * marble, image, the depth cap and the walk are template switches (as
+//   motion is), so a scene without them runs the code it would run
+//   without them existing, with the same registers;
 // * a ray leaves the bounce loop as soon as it dies; the renderer compacts
 //   live rays to the front between phases so warps stay full.
 //
 // Parity: the build uses -fmad=false and no fast math, so every multiply
 // and add rounds on its own as in the JAX reference and the plain PyTorch
-// version (ops/megakernel_block.py trace_block_torch). A miss rejects
-// itself through sqrtf(negative) = NaN, which fails every comparison; pad
-// sphere rows carry r^2 = -1e30. A miss stays exactly BIG.
+// version (ops/megakernel_block.py trace_block_torch, the sweep over
+// every row). A rejected sphere is a miss, as its NaN root was before the
+// guard; pad sphere rows carry r^2 = -1e30. A miss stays exactly BIG.
 //
 // Layout: ray_f is (14, n) f32 with rows ox oy oz dx dy dz tm tr tg tb
 // rr rg rb act; ray_i is (2, n) i32 with rows pix smp. Outputs: rad
@@ -63,10 +88,21 @@ namespace {
 using rt::BIG;
 using rt::T_MIN;
 
+// Walk: a relative margin on the cull bound. The best hit t is within
+// about sqrt(15 * 2^-24) ~ 1e-3 of the point where the ray really passes
+// its primitive (a grazing root: the discriminant's rounding error, of
+// order eps * half_b^2, enters t through its square root); a box whose
+// entry lies beyond t * (1 + 2^-6) can hold no hit the sweep would take.
+constexpr float CULL_MARGIN = 1.0f + 1.0f / 64.0f;
+// A wide ray's band (walk_hit): 2^-10 of the distance, and 2^-19 of the
+// origin's and the distance's coordinates.
+constexpr float WIDE_ROOT = 1.0f / 1024.0f;
+constexpr float WIDE_COORD = 1.0f / 524288.0f;
+
 struct TraceParams {
-  const float* sph;      // (n_sph_rows, 8): cx cy cz vx vy vz r2 0
-  int n_sph_rows;
-  const float* quad;     // (n_quad_rows, 16): nx ny nz D qx qy qz wx wy wz ux uy uz vx vy vz
+  const float* sph;      // sphere rows (8 floats): cx cy cz vx vy vz r2 0
+  int n_sph_rows;        // the rows the sweep tests (the wrapper passes the real ones)
+  const float* quad;     // quad rows (16 floats): nx ny nz D qx qy qz wx wy wz ux uy uz vx vy vz
   int n_quad_rows;
   const float* table;    // (26, n_res_cols) unified-table rows
   int n_res_cols;
@@ -88,13 +124,217 @@ struct TraceParams {
   const float* atlas;    // (T, 3) image texels
   const int* dep;        // (n,) segments before this launch, or null (no depth cap)
   int depth_cap;
+  const float* nodes;    // walk: (n_nodes, 8) BVH nodes with padded boxes
+  int n_nodes;
+  const int* sph_gid;    // walk: (n_sph_chunks, 8) sphere rows of each chunk
+  int n_sph_chunks;
+  const int* quad_gid;   // walk: (n_quad_chunks, 8) unified columns of each quad chunk
+  float ball_x, ball_y, ball_z, ball_r2;  // walk: origins the padded boxes hold for
+  float band_k;          // walk: a wide ray's sphere band over |box far point|^2
 };
 
-// Trace ray i through one phase. sph/quad point at the staged sweep tables
-// (float4 rows: 2 per sphere, 4 per quad), perm/grad at the noise tables.
-template <bool MOVING, bool NOISE, bool IMAGE, bool CAP>
+// One segment's ray, with the terms both searches share.
+struct HitRay {
+  float ox, oy, oz, dx, dy, dz, tm;
+  float a, inv_a, ta;  // |d|^2, its inverse, and T_MIN in a*t space
+};
+
+RT_DEVICE HitRay hit_ray(const rt::Ray& r) {
+  const float a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
+  return HitRay{r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.tm, a, 1.0f / a, T_MIN * a};
+}
+
+// A sphere row's root in a*t space: the nearer root when it lies above
+// ta, else the farther one; -1 (below every ta) when the discriminant is
+// negative or NaN. The guard keeps a miss away from sqrtf, whose
+// correctly rounded sequence branches to a slow path for any input that
+// is not a positive normal number. Every disc >= 0 gets the root it got
+// without the guard, and a rejected row is a miss as its NaN root was.
+template <bool MOVING>
+RT_DEVICE float sphere_s(const HitRay& g, const float4 c0, const float4 c1) {
+  float ocx, ocy, ocz;
+  if (MOVING) {
+    ocx = (g.ox - c0.x) - g.tm * c0.w;
+    ocy = (g.oy - c0.y) - g.tm * c1.x;
+    ocz = (g.oz - c0.z) - g.tm * c1.y;
+  } else {
+    ocx = g.ox - c0.x;
+    ocy = g.oy - c0.y;
+    ocz = g.oz - c0.z;
+  }
+  const float half_b = ocx * g.dx + ocy * g.dy + ocz * g.dz;
+  const float cq = ocx * ocx + ocy * ocy + (ocz * ocz - c1.z);
+  const float disc = half_b * half_b - g.a * cq;
+  if (!(disc >= 0.0f)) return -1.0f;
+  const float sq = sqrtf(disc);
+  const float nhb = -half_b;
+  const float s0 = nhb - sq;
+  return s0 > g.ta ? s0 : nhb + sq;
+}
+
+// A quad row's plane hit in t space, when it lies above T_MIN inside the
+// quad's edges: true and tq, else false.
+RT_DEVICE bool quad_t(const HitRay& g, const float4 q0, const float4 q1, const float4 q2,
+                      const float4 q3, float& tq) {
+  // q0 = nx ny nz D, q1 = qx qy qz wx, q2 = wy wz ux uy, q3 = uz vx vy vz
+  const float denom = q0.x * g.dx + q0.y * g.dy + q0.z * g.dz;
+  const float safe = fabsf(denom) < 1e-8f ? 1.0f : denom;
+  tq = (q0.w - (q0.x * g.ox + q0.y * g.oy + q0.z * g.oz)) / safe;
+  const float px = g.ox + tq * g.dx - q1.x;
+  const float py = g.oy + tq * g.dy - q1.y;
+  const float pz = g.oz + tq * g.dz - q1.z;
+  const float wx = q1.w, wy = q2.x, wz = q2.y;
+  const float ux = q2.z, uy = q2.w, uz = q3.x;
+  const float vx = q3.y, vy = q3.z, vz = q3.w;
+  const float alpha = wx * (py * vz - pz * vy) + wy * (pz * vx - px * vz)
+                      + wz * (px * vy - py * vx);
+  const float beta = wx * (uy * pz - uz * py) + wy * (uz * px - ux * pz)
+                     + wz * (ux * py - uy * px);
+  return fabsf(denom) >= 1e-8f && tq > T_MIN && alpha >= 0.0f && alpha <= 1.0f &&
+         beta >= 0.0f && beta <= 1.0f;
+}
+
+// The sweep: every sphere row (strict <, so the lowest row wins ties),
+// then every quad row against the sphere winner's t. t = BIG and ib = -1
+// on a miss. sph/quad are the staged tables.
+template <bool MOVING>
+RT_DEVICE void sweep_hit(const TraceParams& p, const float4* sph, const float4* quad,
+                         const HitRay& g, float& t, int& ib) {
+  float sb = BIG;
+  ib = -1;
+#pragma unroll 4
+  for (int j = 0; j < p.n_sph_rows; ++j) {
+    const float s = sphere_s<MOVING>(g, sph[2 * j], sph[2 * j + 1]);
+    if (s > g.ta && s < sb) {
+      sb = s;
+      ib = j;
+    }
+  }
+  t = ib >= 0 ? sb * g.inv_a : BIG;
+  for (int j = 0; j < p.n_quad_rows; ++j) {
+    float tq;
+    if (quad_t(g, quad[4 * j], quad[4 * j + 1], quad[4 * j + 2], quad[4 * j + 3], tq) &&
+        tq < t) {
+      t = tq;
+      ib = j + p.ns_pad;
+    }
+  }
+}
+
+RT_DEVICE float safe_inv(float v) {
+  return (v < 0.0f ? -1.0f : 1.0f) / fmaxf(fabsf(v), 1e-20f);
+}
+
+// The walk: the same winner as sweep_hit, from the chunked BVH
+// (ops/mega_bvh.py: preorder nodes with skip links, sphere chunks first).
+// A node is entered when its box meets the ray between T_MIN and the cull
+// bound: the best hit so far times CULL_MARGIN. The boxes are padded in
+// the build (mega_bvh.cull_nodes) so that every ray the sweep's rounding
+// lets hit a primitive passes through each box holding it, for a ray that
+// starts inside the ball mega_bvh.cull_ball gives (within 448 radii of
+// every sphere). A ray from outside it (one that bounces inside the
+// bench's r = 1000 ground, or starts far out) is "wide": each box it meets
+// is widened by its own band, the smaller of two bounds on how far
+// outside a sphere of radius >= r_min the rounded discriminant can accept
+// a ray from distance F (F the box's farthest point, |oc| <= F):
+// 16 * 2^-25 * F^2 / r_min and sqrt(16 * 2^-24) * F = 2^-10 * F; plus
+// 2^-19 * (|o| + F) for a quad's hit point and the slab test. A hit leaf
+// tests its members with the sweep's own arithmetic, sphere rows in a*t
+// space and quad rows in t space, read through the read-only cache.
+// Leaves come in preorder, not row order, so ties go to the lower row
+// explicitly; spheres and quads keep separate bests, and a quad wins only
+// when strictly nearer than the sphere winner, as in the sweep. `nodes` is
+// the staged or the global node table. Adds the nodes visited, the sphere
+// and quad rows tested and the wide rays to `counts` when it is not null.
+template <bool MOVING>
+RT_DEVICE void walk_hit(const TraceParams& p, const float4* nodes, const HitRay& g, float& t,
+                        int& ib, long long* counts) {
+  const float4* sph = reinterpret_cast<const float4*>(p.sph);
+  const float4* quad = reinterpret_cast<const float4*>(p.quad);
+  const float ivx = safe_inv(g.dx), ivy = safe_inv(g.dy), ivz = safe_inv(g.dz);
+  const float ex = g.ox - p.ball_x, ey = g.oy - p.ball_y, ez = g.oz - p.ball_z;
+  const bool wide = !(ex * ex + ey * ey + ez * ez <= p.ball_r2);
+  const float o1 = fabsf(g.ox) + fabsf(g.oy) + fabsf(g.oz);
+  if (counts && wide) ++counts[3];
+  float sb = BIG;  // sphere best, a*t space
+  int is = -1;
+  float tq = BIG;  // quad best, t space
+  int iq = -1;
+  float bound = BIG;
+  int node = p.n_nodes > 0 ? 0 : -1;
+  while (node >= 0) {
+    // b0 = bminx bminy bminz bmaxx, b1 = bmaxy bmaxz miss leaf
+    const float4 b0 = nodes[2 * node], b1 = nodes[2 * node + 1];
+    float lx = b0.x - g.ox, hx = b0.w - g.ox;
+    float ly = b0.y - g.oy, hy = b1.x - g.oy;
+    float lz = b0.z - g.oz, hz = b1.y - g.oz;
+    if (wide) {
+      const float fx = fmaxf(fabsf(lx), fabsf(hx)), fy = fmaxf(fabsf(ly), fabsf(hy)),
+                  fz = fmaxf(fabsf(lz), fabsf(hz));
+      const float f1 = fx + fy + fz;  // >= the distance to the box's farthest point
+      const float w = fminf((fx * fx + fy * fy + fz * fz) * p.band_k, f1 * WIDE_ROOT) +
+                      (o1 + f1) * WIDE_COORD;
+      lx -= w, ly -= w, lz -= w;
+      hx += w, hy += w, hz += w;
+    }
+    const float t0x = lx * ivx, t1x = hx * ivx;
+    const float t0y = ly * ivy, t1y = hy * ivy;
+    const float t0z = lz * ivz, t1z = hz * ivz;
+    const float enter = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                              fmaxf(fminf(t0z, t1z), T_MIN));
+    const float exit_ = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                              fminf(fmaxf(t0z, t1z), bound));
+    const bool boxhit = enter < exit_;
+    const int leaf = (int)b1.w;
+    if (counts) ++counts[0];
+    node = (boxhit && leaf < 0) ? node + 1 : (int)b1.z;
+    if (!boxhit || leaf < 0) continue;
+    if (leaf < p.n_sph_chunks) {
+      const int* gid = p.sph_gid + (size_t)leaf * 8;
+      const int g0 = RT_LDG(gid);
+      for (int m = 0; m < 8; ++m) {
+        const int j = m == 0 ? g0 : RT_LDG(gid + m);
+        if (m > 0 && j == g0) break;  // a short chunk's pad slots repeat its first row
+        const float s = sphere_s<MOVING>(g, RT_LDG(sph + 2 * j), RT_LDG(sph + 2 * j + 1));
+        if (s > g.ta && (s < sb || (s == sb && j < is))) {
+          sb = s;
+          is = j;
+        }
+        if (counts) ++counts[1];
+      }
+    } else {
+      const int* gid = p.quad_gid + (size_t)(leaf - p.n_sph_chunks) * 8;
+      const int g0 = RT_LDG(gid);
+      for (int m = 0; m < 8; ++m) {
+        const int c = m == 0 ? g0 : RT_LDG(gid + m);
+        if (m > 0 && c == g0) break;
+        const int j = c - p.ns_pad;
+        float tc;
+        if (quad_t(g, RT_LDG(quad + 4 * j), RT_LDG(quad + 4 * j + 1), RT_LDG(quad + 4 * j + 2),
+                   RT_LDG(quad + 4 * j + 3), tc) &&
+            (tc < tq || (tc == tq && j < iq))) {
+          tq = tc;
+          iq = j;
+        }
+        if (counts) ++counts[2];
+      }
+    }
+    bound = fminf(is >= 0 ? sb * g.inv_a : BIG, tq) * CULL_MARGIN;
+  }
+  t = is >= 0 ? sb * g.inv_a : BIG;
+  ib = is;
+  if (iq >= 0 && tq < t) {
+    t = tq;
+    ib = iq + p.ns_pad;
+  }
+}
+
+// Trace ray i through one phase. The sweep reads the staged sweep tables
+// sph/quad (float4 rows: 2 per sphere, 4 per quad), the walk the node
+// table `nodes`; perm/grad point at the noise tables.
+template <bool MOVING, bool NOISE, bool IMAGE, bool CAP, bool WALK>
 RT_DEVICE void trace_ray(const TraceParams& p, const float4* sph, const float4* quad,
-                         const int* perm, const float* grad, int i) {
+                         const float4* nodes, const int* perm, const float* grad, int i) {
   const int n = p.n;
   rt::Ray r = rt::load_ray(p.ray_f, p.ray_i, n, i);
   if (CAP) r.dep = p.dep[i];
@@ -104,65 +344,13 @@ RT_DEVICE void trace_ray(const TraceParams& p, const float4* sph, const float4* 
 
   for (int b = 0; b < p.max_depth && r.active; ++b) {
     ++bounces;
-    const float ox = r.ox, oy = r.oy, oz = r.oz, dx = r.dx, dy = r.dy, dz = r.dz;
-    const float tm = r.tm;
-    // ---- closest hit: spheres in a*t space, then quads in t space ----
-    const float a = dx * dx + dy * dy + dz * dz;
-    const float inv_a = 1.0f / a;
-    const float ta = T_MIN * a;
-    float sb = BIG;
-    int ib = -1;
-#pragma unroll 4
-    for (int j = 0; j < p.n_sph_rows; ++j) {
-      const float4 c0 = sph[2 * j];
-      const float4 c1 = sph[2 * j + 1];
-      float ocx, ocy, ocz;
-      if (MOVING) {
-        ocx = (ox - c0.x) - tm * c0.w;
-        ocy = (oy - c0.y) - tm * c1.x;
-        ocz = (oz - c0.z) - tm * c1.y;
-      } else {
-        ocx = ox - c0.x;
-        ocy = oy - c0.y;
-        ocz = oz - c0.z;
-      }
-      const float half_b = ocx * dx + ocy * dy + ocz * dz;
-      const float cq = ocx * ocx + ocy * ocy + (ocz * ocz - c1.z);
-      const float disc = half_b * half_b - a * cq;
-      const float sq = sqrtf(disc);
-      const float nhb = -half_b;
-      const float s0 = nhb - sq;
-      const float s1 = nhb + sq;
-      const float s = s0 > ta ? s0 : s1;
-      if (s > ta && s < sb) {
-        sb = s;
-        ib = j;
-      }
-    }
-    float t = ib >= 0 ? sb * inv_a : BIG;
-    for (int j = 0; j < p.n_quad_rows; ++j) {
-      const float4 q0 = quad[4 * j], q1 = quad[4 * j + 1];
-      const float4 q2 = quad[4 * j + 2], q3 = quad[4 * j + 3];
-      // q0 = nx ny nz D, q1 = qx qy qz wx, q2 = wy wz ux uy, q3 = uz vx vy vz
-      const float denom = q0.x * dx + q0.y * dy + q0.z * dz;
-      const float safe = fabsf(denom) < 1e-8f ? 1.0f : denom;
-      const float tq = (q0.w - (q0.x * ox + q0.y * oy + q0.z * oz)) / safe;
-      const float px = ox + tq * dx - q1.x;
-      const float py = oy + tq * dy - q1.y;
-      const float pz = oz + tq * dz - q1.z;
-      const float wx = q1.w, wy = q2.x, wz = q2.y;
-      const float ux = q2.z, uy = q2.w, uz = q3.x;
-      const float vx = q3.y, vy = q3.z, vz = q3.w;
-      const float alpha = wx * (py * vz - pz * vy) + wy * (pz * vx - px * vz)
-                          + wz * (px * vy - py * vx);
-      const float beta = wx * (uy * pz - uz * py) + wy * (uz * px - ux * pz)
-                         + wz * (ux * py - uy * px);
-      if (fabsf(denom) >= 1e-8f && tq > T_MIN && tq < t && alpha >= 0.0f &&
-          alpha <= 1.0f && beta >= 0.0f && beta <= 1.0f) {
-        t = tq;
-        ib = j + p.ns_pad;
-      }
-    }
+    const HitRay g = hit_ray(r);
+    float t;
+    int ib;
+    if (WALK)
+      walk_hit<MOVING>(p, nodes, g, t, ib, nullptr);
+    else
+      sweep_hit<MOVING>(p, sph, quad, g, t, ib);
     if (p.out_ids) p.out_ids[(size_t)b * n + i] = t < BIG ? RT_LDG(p.kid_map + ib) : -1;
     r.active = rt::shade<NOISE, IMAGE, CAP>(r, t, ib, b, sp);
   }
@@ -176,19 +364,30 @@ RT_DEVICE void trace_ray(const TraceParams& p, const float4* sph, const float4* 
 
 constexpr int THREADS = 128;
 constexpr size_t DEFAULT_SHARED = 48 * 1024;
+// the walk stages node tables up to this size in shared memory (1,536
+// nodes, ~6k primitives) and reads larger ones through the caches
+constexpr size_t NODE_SMEM_BYTES = 48 * 1024;
 
-// Shared memory of one block: the sweep tables, then with NOISE the
-// permutations (3 x 256 int) and gradients (256 x 3 float), 6 KB.
-template <bool MOVING, bool NOISE, bool IMAGE, bool CAP>
-__global__ void __launch_bounds__(THREADS) k1_trace_block(const TraceParams p) {
+// Shared memory of one block: the sweep tables (or, walking, the node
+// table when it is staged), then with NOISE the permutations (3 x 256 int)
+// and gradients (256 x 3 float), 6 KB.
+template <bool MOVING, bool NOISE, bool IMAGE, bool CAP, bool WALK>
+__global__ void __launch_bounds__(THREADS) k1_trace_block(const TraceParams p, int staged4) {
   extern __shared__ float4 smem[];
-  float4* s_sph = smem;
-  float4* s_quad = smem + 2 * p.n_sph_rows;
-  const float4* g_sph = reinterpret_cast<const float4*>(p.sph);
-  const float4* g_quad = reinterpret_cast<const float4*>(p.quad);
-  for (int k = threadIdx.x; k < 2 * p.n_sph_rows; k += blockDim.x) s_sph[k] = g_sph[k];
-  for (int k = threadIdx.x; k < 4 * p.n_quad_rows; k += blockDim.x) s_quad[k] = g_quad[k];
-  int* s_perm = reinterpret_cast<int*>(s_quad + 4 * p.n_quad_rows);
+  const float4* sph = smem;
+  const float4* quad = smem + 2 * p.n_sph_rows;
+  const float4* nodes = reinterpret_cast<const float4*>(p.nodes);
+  if (WALK) {
+    for (int k = threadIdx.x; k < staged4; k += blockDim.x) smem[k] = nodes[k];
+    if (staged4 > 0) nodes = smem;
+  } else {
+    const float4* g_sph = reinterpret_cast<const float4*>(p.sph);
+    const float4* g_quad = reinterpret_cast<const float4*>(p.quad);
+    for (int k = threadIdx.x; k < 2 * p.n_sph_rows; k += blockDim.x) smem[k] = g_sph[k];
+    for (int k = threadIdx.x; k < 4 * p.n_quad_rows; k += blockDim.x)
+      smem[2 * p.n_sph_rows + k] = g_quad[k];
+  }
+  int* s_perm = reinterpret_cast<int*>(smem + staged4);
   float* s_grad = reinterpret_cast<float*>(s_perm + 3 * rt::NOISE_POINTS);
   if (NOISE) {
     for (int k = threadIdx.x; k < 3 * rt::NOISE_POINTS; k += blockDim.x) {
@@ -198,43 +397,54 @@ __global__ void __launch_bounds__(THREADS) k1_trace_block(const TraceParams p) {
   }
   __syncthreads();
   const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i < p.n) trace_ray<MOVING, NOISE, IMAGE, CAP>(p, s_sph, s_quad, s_perm, s_grad, i);
+  if (i < p.n)
+    trace_ray<MOVING, NOISE, IMAGE, CAP, WALK>(p, sph, quad, nodes, s_perm, s_grad, i);
 }
 
-template <bool MOVING, bool NOISE, bool IMAGE, bool CAP>
+template <bool MOVING, bool NOISE, bool IMAGE, bool CAP, bool WALK>
 cudaError_t launch(const TraceParams& p, cudaStream_t stream) {
-  const size_t smem = (size_t)(p.n_sph_rows * 8 + p.n_quad_rows * 16) * sizeof(float) +
-                      (NOISE ? 6 * rt::NOISE_POINTS * sizeof(float) : 0);
-  auto kernel = k1_trace_block<MOVING, NOISE, IMAGE, CAP>;
+  // float4s staged before the noise tables
+  int staged4 = 2 * p.n_sph_rows + 4 * p.n_quad_rows;
+  if (WALK) staged4 = (size_t)p.n_nodes * 8 * sizeof(float) <= NODE_SMEM_BYTES ? 2 * p.n_nodes : 0;
+  const size_t smem =
+      (size_t)staged4 * sizeof(float4) + (NOISE ? 6 * rt::NOISE_POINTS * sizeof(float) : 0);
+  auto kernel = k1_trace_block<MOVING, NOISE, IMAGE, CAP, WALK>;
   if (smem > DEFAULT_SHARED) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   const dim3 grid((p.n + THREADS - 1) / THREADS);
-  kernel<<<grid, THREADS, smem, stream>>>(p);
+  kernel<<<grid, THREADS, smem, stream>>>(p, staged4);
   return cudaGetLastError();
 }
 
-// The instantiation for the scene's motion, textures and cap.
+// The instantiation for the search, the scene's motion, textures and cap.
 template <bool MOVING, bool NOISE, bool IMAGE>
-cudaError_t launch_cap(const TraceParams& p, cudaStream_t s) {
-  return p.dep ? launch<MOVING, NOISE, IMAGE, true>(p, s)
-               : launch<MOVING, NOISE, IMAGE, false>(p, s);
+cudaError_t launch_cap(const TraceParams& p, bool walk, cudaStream_t s) {
+  if (walk)
+    return p.dep ? launch<MOVING, NOISE, IMAGE, true, true>(p, s)
+                 : launch<MOVING, NOISE, IMAGE, false, true>(p, s);
+  return p.dep ? launch<MOVING, NOISE, IMAGE, true, false>(p, s)
+               : launch<MOVING, NOISE, IMAGE, false, false>(p, s);
 }
 
 template <bool MOVING>
-cudaError_t launch_textures(const TraceParams& p, bool noise, bool image, cudaStream_t s) {
+cudaError_t launch_textures(const TraceParams& p, bool noise, bool image, bool walk,
+                            cudaStream_t s) {
   if (noise)
-    return image ? launch_cap<MOVING, true, true>(p, s) : launch_cap<MOVING, true, false>(p, s);
-  return image ? launch_cap<MOVING, false, true>(p, s) : launch_cap<MOVING, false, false>(p, s);
+    return image ? launch_cap<MOVING, true, true>(p, walk, s)
+                 : launch_cap<MOVING, true, false>(p, walk, s);
+  return image ? launch_cap<MOVING, false, true>(p, walk, s)
+               : launch_cap<MOVING, false, false>(p, walk, s);
 }
 
 }  // namespace
 
 // C entry point (loaded with ctypes). Launches on `stream`, allocates
 // nothing and does not synchronize. Returns a cudaError_t. `dep` null:
-// no depth cap.
+// no depth cap. `walk` nonzero: the BVH walk (nodes, sph_gid, quad_gid,
+// the ball and band of mega_bvh.cull_ball), else the sweep.
 extern "C" int rt_trace_block(const float* sph, int n_sph_rows, const float* quad,
                               int n_quad_rows, const float* table, int n_res_cols,
                               const float* ray_f, const int* ray_i, int n, float* out_rad,
@@ -243,16 +453,21 @@ extern "C" int rt_trace_block(const float* sph, int n_sph_rows, const float* qua
                               int ns_pad, float bg_r, float bg_g, float bg_b, int moving,
                               int noise, int image, const int* perm, const float* grad,
                               const float* atlas, const int* dep, int depth_cap,
-                              void* stream) {
+                              const float* nodes, int n_nodes, const int* sph_gid,
+                              int n_sph_chunks, const int* quad_gid, float ball_x,
+                              float ball_y, float ball_z, float ball_r2, float band_k,
+                              int walk, void* stream) {
   if (n <= 0) return 0;
   const TraceParams p{sph,     n_sph_rows, quad,    n_quad_rows, table,     n_res_cols,
                       ray_f,   ray_i,      n,       out_rad,     out_bc,    out_state,
                       kid_map, out_ids,    seed,    b_off,       max_depth, ns_pad,
                       bg_r,    bg_g,       bg_b,    perm,        grad,      atlas,
-                      dep,     depth_cap};
+                      dep,     depth_cap,  nodes,   n_nodes,     sph_gid,   n_sph_chunks,
+                      quad_gid, ball_x,    ball_y,  ball_z,      ball_r2,   band_k};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(moving ? launch_textures<true>(p, noise, image, s)
-                      : launch_textures<false>(p, noise, image, s));
+  const bool w = walk != 0;
+  return (int)(moving ? launch_textures<true>(p, noise, image, w, s)
+                      : launch_textures<false>(p, noise, image, w, s));
 }
 
 extern "C" const char* rt_error_string(int err) {

@@ -32,6 +32,10 @@ Layouts (no lane padding, one record per row):
 A chunk with fewer than 8 members is padded with zero records whose gid
 is the first member's: a pad sphere has r = 0 and a pad quad a zero
 normal, and the intersection tests reject both.
+
+K1's walk (csrc/megakernel_block.cu) reads the same nodes with boxes
+padded for its sweep arithmetic (:func:`cull_nodes`), and the ball of ray
+origins those pads hold for (:func:`cull_ball`).
 """
 from __future__ import annotations
 
@@ -46,6 +50,17 @@ LEAF_SIZE = 8
 # quads thinner than this along an axis are padded to it
 # (aabb::pad_to_minimums; raytracing_tpu/ops/bvh.py PAD_DELTA)
 PAD_DELTA = 1e-4
+
+# K1's walk pads each primitive's box by SPHERE_PAD of its radius
+# (spheres) and COORD_PAD of its largest coordinate magnitude (both kinds),
+# which holds for rays that start within SAFE_RADII radii of each sphere
+# and QUAD_SAFE_SCALE * (the quad's largest coordinate) + QUAD_SAFE_ABS of
+# the origin (see cull_nodes and cull_ball)
+SPHERE_PAD = 1.0 / 8.0
+COORD_PAD = 2.0 ** -12
+SAFE_RADII = 448.0
+QUAD_SAFE_SCALE = 128.0
+QUAD_SAFE_ABS = 64.0
 
 # nodes columns
 N_BMINX, N_BMINY, N_BMINZ, N_BMAXX, N_BMAXY, N_BMAXZ, N_MISS, N_LEAF = range(8)
@@ -79,15 +94,22 @@ class ChunkedBVH(NamedTuple):
         return self.quad_leaf.shape[0]
 
 
-def _prim_boxes(table, n_sph_pad, n_sph, n_quad):
+def _prim_boxes(table, n_sph_pad, n_sph, n_quad, cull=False):
     """Per-primitive AABBs: spheres over their centers at times 0 and 1,
-    quads over their four corners, padded where thin."""
-    bmin = np.zeros((n_sph + n_quad, 3), np.float32)
-    bmax = np.zeros((n_sph + n_quad, 3), np.float32)
+    quads over their four corners, padded where thin. With ``cull``, K1's
+    walk's boxes in float64 (:func:`cull_nodes`): every box also padded by
+    ``COORD_PAD`` of its largest coordinate magnitude, each sphere by
+    ``SPHERE_PAD`` of its radius and each quad by ``PAD_DELTA``."""
+    dt = np.float64 if cull else np.float32
+    table = np.asarray(table, dt)
+    bmin = np.zeros((n_sph + n_quad, 3), dt)
+    bmax = np.zeros((n_sph + n_quad, 3), dt)
+    r = table[fl.U_G6, :n_sph][:, None]
+    if cull:
+        r = np.abs(r)
     if n_sph:
         c0 = table[[fl.U_G0, fl.U_G1, fl.U_G2]][:, :n_sph].T
         vel = table[[fl.U_G3, fl.U_G4, fl.U_G5]][:, :n_sph].T
-        r = table[fl.U_G6, :n_sph][:, None]
         c1 = c0 + vel
         bmin[:n_sph] = np.minimum(c0 - r, c1 - r)
         bmax[:n_sph] = np.maximum(c0 + r, c1 + r)
@@ -102,6 +124,11 @@ def _prim_boxes(table, n_sph_pad, n_sph, n_quad):
         thin = (qmax - qmin) < PAD_DELTA
         bmin[n_sph:] = np.where(thin, qmin - PAD_DELTA / 2, qmin)
         bmax[n_sph:] = np.where(thin, qmax + PAD_DELTA / 2, qmax)
+    if cull:
+        pad = COORD_PAD * np.maximum(np.abs(bmin), np.abs(bmax)).max(axis=1, keepdims=True)
+        pad[:n_sph] += SPHERE_PAD * r
+        pad[n_sph:] += PAD_DELTA
+        bmin, bmax = bmin - pad, bmax + pad
     return bmin, bmax
 
 
@@ -206,3 +233,85 @@ def build_chunked_bvh(table: np.ndarray, n_sph_pad: int, n_sph: int, n_quad: int
     quad_leaf, quad_gid = _leaf_table([m for k, m in ordered if k == 1], table, _QUAD_ROWS,
                                       QUAD_LEAF_FIELDS)
     return ChunkedBVH(nodes, sph_leaf, sph_gid, quad_leaf, quad_gid, depth_max)
+
+
+def cull_nodes(bvh: ChunkedBVH, table: np.ndarray, n_sph_pad: int, n_sph: int,
+               n_quad: int) -> np.ndarray:
+    """``bvh.nodes`` (same order, skip links and chunks) with each box
+    refitted to its primitives' padded boxes (``_prim_boxes(cull=True)``)
+    and rounded outward to float32: the node table of K1's walk.
+
+    K1 tests a sphere in a·t space, where the discriminant's rounding
+    error (up to ~15·2⁻²⁴·a·|oc|², oc = origin - center) lets a ray that
+    passes up to 15·2⁻²⁴·|oc|²/(2r) outside the sphere hit it. The pad of
+    r/8 covers that band, and the slab test's rounding, for every ray that
+    starts within ``SAFE_RADII`` = 448 radii of the center (the band is
+    then below r/10, even at 16·2⁻²⁴). COORD_PAD of the box's largest
+    coordinate covers the rounding of a quad's hit point and edge tests,
+    PAD_DELTA a flat quad, for a ray that starts within
+    ``QUAD_SAFE_SCALE`` times the quad's largest coordinate (plus
+    ``QUAD_SAFE_ABS``) of the origin. With these boxes the walk never
+    culls a box holding a hit the sweep takes, for a ray that starts in
+    :func:`cull_ball`; the kernel widens the boxes by a ray's own band for
+    the others."""
+    nodes = bvh.nodes.copy()
+    if len(nodes) == 0:
+        return nodes
+    lo, hi = _prim_boxes(table, n_sph_pad, n_sph, n_quad, cull=True)
+    box_lo = np.zeros((len(nodes), 3))
+    box_hi = np.zeros((len(nodes), 3))
+    for i in range(len(nodes) - 1, -1, -1):
+        leaf = int(nodes[i, N_LEAF])
+        if leaf < 0:  # children: i + 1 and the left child's miss link
+            kids = [i + 1, int(nodes[i + 1, N_MISS])]
+            box_lo[i] = box_lo[kids].min(axis=0)
+            box_hi[i] = box_hi[kids].max(axis=0)
+            continue
+        if leaf < bvh.n_sph_chunks:
+            prims = bvh.sph_gid[leaf]
+        else:
+            prims = n_sph + bvh.quad_gid[leaf - bvh.n_sph_chunks] - n_sph_pad
+        box_lo[i] = lo[prims].min(axis=0)
+        box_hi[i] = hi[prims].max(axis=0)
+    lo32, hi32 = box_lo.astype(np.float32), box_hi.astype(np.float32)
+    nodes[:, N_BMINX:N_BMINZ + 1] = np.where(lo32 > box_lo, np.nextafter(lo32, -np.inf), lo32)
+    nodes[:, N_BMAXX:N_BMAXZ + 1] = np.where(hi32 < box_hi, np.nextafter(hi32, np.inf), hi32)
+    return nodes
+
+
+def cull_ball(table: np.ndarray, n_sph_pad: int, n_sph: int, n_quad: int):
+    """``(cx, cy, cz, r2, band_k)``, float32, for K1's walk over
+    :func:`cull_nodes`. A ray that starts inside the ball of center
+    ``(cx, cy, cz)`` and squared radius ``r2`` (negative: no ray) meets
+    the conditions of those boxes: within ``SAFE_RADII`` radii of every
+    sphere's center at both ends of its motion, and within
+    ``QUAD_SAFE_SCALE`` times each quad's largest coordinate plus
+    ``QUAD_SAFE_ABS`` of the origin. The center is that of the box these
+    conditions bound; r2 is shrunk by 2⁻¹⁰ for the kernel's rounding of
+    |o - c|². A ray from outside widens each box by its own rounding band,
+    ``band_k`` = 16·2⁻²⁵/(smallest radius) times the squared distance to
+    the box's farthest point (see csrc/megakernel_block.cu)."""
+    t64 = np.asarray(table, np.float64)
+    centers, reach = [], []  # constraints |o - center| <= reach
+    band_k = 0.0
+    if n_sph:
+        c0 = t64[[fl.U_G0, fl.U_G1, fl.U_G2], :n_sph].T
+        c1 = c0 + t64[[fl.U_G3, fl.U_G4, fl.U_G5], :n_sph].T
+        r = np.abs(t64[fl.U_G6, :n_sph])
+        centers += [c0, c1]
+        reach += [SAFE_RADII * r, SAFE_RADII * r]
+        band_k = 2.0 ** -21 / r.min() if r.min() > 0 else np.inf
+    if n_quad:
+        lo, hi = _prim_boxes(table, n_sph_pad, n_sph, n_quad, cull=True)
+        q = np.maximum(np.abs(lo[n_sph:]), np.abs(hi[n_sph:])).max(axis=1)
+        centers.append(np.zeros((n_quad, 3)))
+        reach.append(QUAD_SAFE_SCALE * q + QUAD_SAFE_ABS)
+    if not centers:
+        return 0.0, 0.0, 0.0, -1.0, 0.0
+    centers, reach = np.concatenate(centers), np.concatenate(reach)
+    lo = (centers - reach[:, None]).max(axis=0)
+    hi = (centers + reach[:, None]).min(axis=0)
+    c = (0.5 * (lo + hi)).astype(np.float32).astype(np.float64)
+    rad = float((reach - np.linalg.norm(centers - c, axis=1)).min())
+    r2 = np.float32(rad * rad * (1.0 - 2.0 ** -10)) if rad > 0 else -1.0
+    return (*(float(x) for x in c), float(r2), float(np.float32(band_k) * np.float32(1 + 2 ** -20)))

@@ -3,11 +3,13 @@ trace that drives them, the counterpart of ``raytracing_tpu.ops.megakernel``
 (``MegaScene``, ``build_mega_scene``, ``trace_megakernel``).
 
 Two layouts trace a phase. The block layout is K1 (ops/megakernel_block.py),
-a sweep over every primitive. The group layout is K5
-(ops/megakernel_group.py), whose closest hit is a walk of the chunked BVH
-(ops/mega_bvh.py) or a dense sweep of the unified table. By default a
-scene of more than ``BVH_MIN_CHUNKS`` chunks of 8 primitives walks the BVH
-in the group layout, and every other scene sweeps in the block layout.
+whose closest hit is a sweep over every primitive or, from
+``CULL_MIN_PRIMS`` primitives, a walk of the chunked BVH with the sweep's
+arithmetic and result. The group layout is K5 (ops/megakernel_group.py),
+whose closest hit is a walk of the same BVH in its own arithmetic or a
+dense sweep of the unified table. By default a scene of more than
+``BVH_MIN_CHUNKS`` chunks of 8 primitives walks the BVH in the group
+layout, and every other scene takes the block layout.
 
 A trace runs its phases in turn, each one kernel launch of
 ``phase_depths[k]`` bounces. Between phases the rays are compacted
@@ -49,6 +51,8 @@ class MegaScene:
     table: torch.Tensor       # (GROUP_FIELDS, P) f32: unified-table rows
     kid_map: torch.Tensor     # (P,) i32: kernel primitive → global scene id, -1 padding
     nodes: torch.Tensor       # (K, 8) f32 BVH nodes (ops/mega_bvh.py)
+    cull_nodes: torch.Tensor  # (K, 8) f32 the same nodes with K1's padded boxes
+    cull_ball: tuple          # K1's walk: (cx, cy, cz, r2, band_k), mega_bvh.cull_ball
     sph_leaf: torch.Tensor    # (LS, 8, 8) f32 sphere chunk members
     sph_gid: torch.Tensor     # (LS, 8) i32 their unified columns
     quad_leaf: torch.Tensor   # (LQ, 8, 16) f32 quad chunk members
@@ -81,6 +85,12 @@ class MegaScene:
         return self.quad_leaf.shape[0]
 
 
+def expressible(scene: Scene) -> bool:
+    """Whether K1's and K5's tables can express ``scene``: False for a
+    checker of non-solid textures or bilinear image filtering."""
+    return fl.flatten_scene(scene).supported
+
+
 def build_mega_scene(scene: Scene, device=None) -> MegaScene:
     """Flatten ``scene`` into K1's and K5's tables on ``device`` (default:
     the scene's own device)."""
@@ -88,8 +98,9 @@ def build_mega_scene(scene: Scene, device=None) -> MegaScene:
         device = scene.spheres.radius.device
     table, ns_pad, _, supported = fl.unified_table(scene)
     if not supported:
-        raise ValueError("scene is not expressible in the megakernel's tables "
-                         "(checker of non-solid textures, or bilinear image filtering)")
+        raise ValueError("scene is not expressible in the megakernel's tables (checker of "
+                         "non-solid textures, or bilinear image filtering); use "
+                         "hit_method='brute' or 'auto'")
     sph, quad, n_sph, n_quad, _ = fl.sweep_tables(scene)
     tkind = table[fl.U_TKIND]
     kid = np.full(table.shape[1], -1, np.int32)
@@ -112,8 +123,11 @@ def build_mega_scene(scene: Scene, device=None) -> MegaScene:
 
     return MegaScene(
         sph_sweep=t(sph), quad_sweep=t(quad), table=t(table[:GROUP_FIELDS]),
-        kid_map=t(kid), nodes=t(bvh.nodes), sph_leaf=t(bvh.sph_leaf),
-        sph_gid=t(bvh.sph_gid), quad_leaf=t(bvh.quad_leaf), quad_gid=t(bvh.quad_gid),
+        kid_map=t(kid), nodes=t(bvh.nodes),
+        cull_nodes=t(mega_bvh.cull_nodes(bvh, table, ns_pad, n_sph, n_quad)),
+        cull_ball=mega_bvh.cull_ball(table, ns_pad, n_sph, n_quad),
+        sph_leaf=t(bvh.sph_leaf), sph_gid=t(bvh.sph_gid), quad_leaf=t(bvh.quad_leaf),
+        quad_gid=t(bvh.quad_gid),
         perm=t(perm), grad=t(grad), atlas=t(atlas),
         n_sph=n_sph, n_quad=n_quad, n_sph_pad=ns_pad,
         moving=bool(np.any(sph[:, 3:6] != 0.0)), has_noise=has_noise, has_image=has_image,
@@ -155,12 +169,13 @@ def trace_megakernel(mega: MegaScene, o: torch.Tensor, d: torch.Tensor,
                      sample_ids: torch.Tensor, background, max_depth: int, seed: int,
                      phase_depths=None, active0=None, want_counts: bool = False,
                      phase_prefixes=None, want_ids=False, layout=None, use_bvh=None,
-                     plain: bool = False):
+                     plain: bool = False, cull=None):
     """Trace B rays (a multiple of BLOCK) through K1 or K5.
 
     ``layout`` is ``"block"`` (K1), ``"group"`` (K5) or None, and
     ``use_bvh`` a bool or None: see :func:`select_layout`. The group layout
-    takes none of ``want_ids``, ``want_counts`` and ``phase_prefixes``.
+    takes none of ``want_ids``, ``want_counts``, ``phase_prefixes`` and
+    ``cull`` (K1's search, ``mb.trace_block``; the plain version has one).
 
     Returns ``(radiance (B, 3), segments)`` in camera order, ``segments``
     an int64 0-d tensor on the rays' device, then the extras in this
@@ -195,7 +210,7 @@ def trace_megakernel(mega: MegaScene, o: torch.Tensor, d: torch.Tensor,
     layout, use_bvh = select_layout(mega, layout, use_bvh)
     if layout == "group":
         for name, v in (("want_ids", want_ids), ("want_counts", want_counts),
-                        ("phase_prefixes", phase_prefixes)):
+                        ("phase_prefixes", phase_prefixes), ("cull", cull)):
             if v not in (None, False):
                 raise ValueError(f"{name} requires the block layout (K1); this trace "
                                  f"runs the group layout (K5)")
@@ -227,7 +242,11 @@ def trace_megakernel(mega: MegaScene, o: torch.Tensor, d: torch.Tensor,
             n = phase_prefixes[pi]
             # exact iff every ray past the prefix is already dead
             ok = ok & ~torch.any(ray_f[mb.ACT, n:] > 0.0)
-        kw = dict(use_bvh=use_bvh) if layout == "group" else dict(want_ids=bool(want_ids))
+        if layout == "group":
+            kw = dict(use_bvh=use_bvh)
+        else:
+            kw = dict(want_ids=bool(want_ids)) if plain else dict(want_ids=bool(want_ids),
+                                                                  cull=cull)
         rad, bc, state, *ids = phase_fn(
             mega, ray_f[:, :n].contiguous(), ray_i[:, :n].contiguous(), seed, offset,
             max_depth=pd, background=background, want_state=not last, **kw)

@@ -17,13 +17,19 @@ regenerating pool, ``render/pool.py``) every ray carries its own depth
 Two implementations compute it:
 
 * ``csrc/megakernel_block.cu``, a CUDA C++ kernel for sm_90a, one thread
-  per ray (see the note at the top of that file);
-* :func:`trace_block_torch`, the plain PyTorch version, vectorized over
-  rays and over primitives in chunks.
+  per ray (see the note at the top of that file). Its closest hit comes
+  from one of two searches with one result, bit for bit: the sweep over
+  every row, or a walk of the chunked BVH (``MegaScene.cull_nodes``) that
+  tests a hit leaf's rows with the sweep's arithmetic;
+* :func:`trace_block_torch`, the plain PyTorch version (the sweep),
+  vectorized over rays and over primitives in chunks.
 
 :func:`trace_block` is the wrapper: tensors on the CPU go to the plain
 version, tensors on a CUDA device launch the kernel, anything else
-raises. Each kernel launch adds one to :data:`launches`.
+raises. Each kernel launch adds one to :data:`launches`. Its ``cull``
+keyword picks the kernel's search: None walks on scenes of at least
+:data:`CULL_MIN_PRIMS` primitives and sweeps smaller ones, True walks,
+False sweeps.
 
 Ray state is two tensors: ``ray_f (N_F, n) f32`` with rows
 ``OX OY OZ DX DY DZ TM TR TG TB RR RG RB ACT`` (origin, direction, time,
@@ -56,9 +62,15 @@ MT_METAL = 1.0
 MT_DIELECTRIC = 2.0
 MT_LIGHT = 3.0
 
-# the kernel stages the sweep tables (and the noise tables) in one block's
+# the sweep stages the sweep tables (and the noise tables) in one block's
 # shared memory
 MAX_SHARED_BYTES = 232448
+# K1 walks the BVH on scenes of at least this many primitives (spheres and
+# quads, 8 chunks) and sweeps every row below it: on the card the sweep
+# was as fast or faster up to 40 primitives (and on cornell_box's 18
+# quads), the walk faster from 67 (PERF.md, chip_smoke.py phase 22). It
+# changes speed, never a result.
+CULL_MIN_PRIMS = 64
 # primitives per vectorized step of the plain version's sweep
 PLAIN_CHUNK = 128
 
@@ -72,13 +84,24 @@ def _sweep_rows(mega):
     return n_sph_rows, n_quad_rows
 
 
+def walks(mega, cull=None) -> bool:
+    """Whether K1 searches ``mega`` by the BVH walk (else the sweep):
+    ``cull`` when it is a bool, else by the scene's primitive count."""
+    if cull is None:
+        return mega.n_sph + mega.n_quad >= CULL_MIN_PRIMS
+    if not isinstance(cull, bool):
+        raise ValueError(f"cull must be None, True or False, got {cull!r}")
+    return cull
+
+
 def trace_block(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
                 b_off: int, *, max_depth: int, background,
                 want_state: bool = True, want_ids: bool = False,
-                depth_cap=None, dep=None):
+                depth_cap=None, dep=None, cull=None):
     """Trace one phase of ``max_depth`` bounces. Returns
     ``(rad (3, n), bounces (n,) i32, state (N_F, n) or None)``, and
-    ``ids (max_depth, n) i32`` after them with ``want_ids``.
+    ``ids (max_depth, n) i32`` after them with ``want_ids``. ``cull``
+    picks the kernel's search (:func:`walks`); the plain version sweeps.
 
     ``depth_cap`` (the regenerating pool, ``render/pool.py``) takes
     ``dep (n,) i32``, each ray's segments traced before this launch: its
@@ -94,9 +117,10 @@ def trace_block(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
         raise ValueError(f"ray_i must be (2, n) int32, got {tuple(ray_i.shape)} {ray_i.dtype}")
     if dep is not None and (dep.shape != (n,) or dep.dtype != torch.int32):
         raise ValueError(f"dep must be ({n},) int32, got {tuple(dep.shape)} {dep.dtype}")
+    walk = walks(mega, cull)
     dev = ray_f.device
     tables = (mega.sph_sweep, mega.quad_sweep, mega.table, mega.kid_map, mega.perm, mega.grad,
-              mega.atlas)
+              mega.atlas, mega.cull_nodes, mega.sph_gid, mega.quad_gid)
     rays = (ray_f, ray_i) if dep is None else (ray_f, ray_i, dep)
     if any(t.device != dev for t in (*rays, *tables)):
         raise ValueError("scene tables and ray state must be on one device")
@@ -109,13 +133,15 @@ def trace_block(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
         raise ValueError(f"K1 runs on CUDA tensors (kernel) or CPU tensors (plain version), not {dev}")
     if not all(t.is_contiguous() for t in (*rays, *tables)):
         raise ValueError("K1 needs contiguous tensors")
-    n_sph_rows, n_quad_rows = _sweep_rows(mega)
-    # staged per block: the sweep tables, and the 6 KB of noise tables
+    # the kernel's sweep skips the tables' pad rows, which never win; it
+    # stages the real rows and the 6 KB of noise tables per block (the
+    # walk at most 48 KB of nodes)
+    n_sph_rows, n_quad_rows = mega.n_sph, mega.n_quad
     smem = ((n_sph_rows * 8 + n_quad_rows * 16)
             + (mega.perm.numel() + mega.grad.numel() if mega.has_noise else 0)) * 4
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(f"sweep and noise tables need {smem} B of shared memory; K1 stages at "
-                         f"most {MAX_SHARED_BYTES} B (tiling larger scenes is not ported yet)")
+    if not walk and smem > MAX_SHARED_BYTES:
+        raise ValueError(f"sweep and noise tables need {smem} B of shared memory; K1's sweep "
+                         f"stages at most {MAX_SHARED_BYTES} B: walk this scene (cull=True)")
     if n >= 2 ** 31 // N_F:
         raise ValueError(f"K1 launch of {n} rays exceeds its 32-bit indexing")
 
@@ -144,7 +170,9 @@ def trace_block(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
             float(background[2]), int(mega.moving), int(mega.has_noise), int(mega.has_image),
             mega.perm.data_ptr(), mega.grad.data_ptr(), mega.atlas.data_ptr(),
             dep.data_ptr() if dep is not None else None,
-            depth_cap if depth_cap is not None else 0, stream)
+            depth_cap if depth_cap is not None else 0,
+            mega.cull_nodes.data_ptr(), mega.cull_nodes.shape[0], mega.sph_gid.data_ptr(),
+            mega.n_sph_chunks, mega.quad_gid.data_ptr(), *mega.cull_ball, int(walk), stream)
     launches += 1
     if err != 0:
         raise RuntimeError(f"K1 launch failed: {lib.rt_error_string(err).decode()}")

@@ -51,11 +51,11 @@ POOL_SIZE = 1 << 18  # lanes, the JAX package's default
 
 def trace_pool(mega, cfg: CameraConfig, params: CameraParams, seed: int, *,
                pool_size: int = POOL_SIZE, sample_start: int = 0, n_samples=None,
-               motion_blur: bool = True):
+               motion_blur: bool = True, cull=None):
     """Trace ``cfg.n_pixels × n_samples`` paths (samples ``sample_start``
     on) through the pool. Returns ``(radiance summed over the samples
     (n_pix, 3) f32, segments)``, ``segments`` an int64 0-d tensor, both on
-    the scene's device."""
+    the scene's device. ``cull`` is K1's search (``mb.trace_block``)."""
     P = pool_size
     n_pix = cfg.n_pixels
     spp = cfg.samples_per_pixel if n_samples is None else n_samples
@@ -93,7 +93,7 @@ def trace_pool(mega, cfg: CameraConfig, params: CameraParams, seed: int, *,
     while True:
         _, bc, state = mb.trace_block(mega, ray_f, ray_i, seed, 0, max_depth=K_BOUNCES,
                                       background=cfg.background, depth_cap=cfg.max_depth,
-                                      dep=dep)
+                                      dep=dep, cull=cull)
         segments = segments + bc.sum()
         alive = state[mb.ACT] > 0.0
         key = torch.where(alive, (1 << 25) + lane,

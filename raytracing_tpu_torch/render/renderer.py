@@ -1,5 +1,19 @@
-"""Top-level renderer, the counterpart of ``raytracing_tpu.render.renderer``
-for the megakernel schedules:
+"""Top-level renderer, the counterpart of ``raytracing_tpu.render.renderer``.
+
+``hit_method`` picks how a launch traces its rays:
+
+* ``"mega"``: the megakernels (K1, or K5 on large scenes) through one of
+  the two schedules below; it raises on a scene the kernels' tables cannot
+  express (bilinear image filtering, checkers of non-solid textures);
+* ``"brute"``: the wavefront integrator (``render/integrator.py``) with
+  the brute-force closest hit, at the JAX ``Renderer``'s defaults
+  (``mode="scan"``, no remat: the forward render records no autograd);
+  it renders every scene, phased launches only;
+* ``"auto"`` (the default): ``"mega"`` when the scene can be expressed in
+  the kernels' tables, else ``"brute"``, decided from the scene alone;
+* ``"bvh"`` is refused: the integrator's BVH is not ported yet.
+
+The megakernel schedules:
 
 * ``schedule="phased"``: launches of (pixel block × sample chunk) rays
   through the phased megakernel trace, accumulated into the image. The
@@ -20,11 +34,15 @@ import numpy as np
 import torch
 
 from ..core.color import to_u8_image
-from ..ops.megakernel import build_mega_scene, select_layout, trace_megakernel
+from ..ops.intersect import closest_hit_brute
+from ..ops.megakernel import build_mega_scene, expressible, select_layout, trace_megakernel
 from ..scene.types import Scene
 from . import camera as cam_mod
+from . import integrator
 from . import pool as pool_mod
 from .camera import CameraConfig, CameraParams
+
+HIT_METHODS = ("auto", "mega", "brute")
 
 
 @dataclass
@@ -70,16 +88,16 @@ def chunk_rays(cfg: CameraConfig, derived, pixel_start: int, sample_start: int,
 def _render_chunk(mega, cfg: CameraConfig, derived, pixel_start: int,
                   sample_start: int, seed: int, *, n_block: int, spp_chunk: int,
                   has_moving: bool, phases, phase_prefixes=None,
-                  want_counts: bool = False):
+                  want_counts: bool = False, cull=None):
     """One launch. Returns (radiance summed over the chunk's samples
     (n_block, 3), segments, ok or None); with ``want_counts`` only the
-    per-ray bounce counts."""
+    per-ray bounce counts. ``cull`` is K1's search (``trace_megakernel``)."""
     o, d, t, pixel_ids, sample_ids, valid, alive = chunk_rays(
         cfg, derived, pixel_start, sample_start, seed, n_block=n_block,
         spp_chunk=spp_chunk, has_moving=has_moving, device=mega.sph_sweep.device)
     out = trace_megakernel(mega, o, d, t, pixel_ids, sample_ids, cfg.background,
                            cfg.max_depth, seed, phase_depths=phases, active0=alive,
-                           want_counts=want_counts, phase_prefixes=phase_prefixes)
+                           want_counts=want_counts, phase_prefixes=phase_prefixes, cull=cull)
     if want_counts:
         return out[2]
     radiance = torch.where(valid[:, None], out[0], 0.0)
@@ -87,29 +105,56 @@ def _render_chunk(mega, cfg: CameraConfig, derived, pixel_start: int,
     return rad, out[1], (out[2] if phase_prefixes is not None else None)
 
 
+def _brute_chunk(scene: Scene, cfg: CameraConfig, derived, pixel_start: int,
+                 sample_start: int, seed: int, *, n_block: int, spp_chunk: int):
+    """One launch through the wavefront integrator with the brute-force
+    closest hit: (radiance summed over the chunk's samples (n_block, 3),
+    segments as a 0-d int64 tensor)."""
+    o, d, t, pixel_ids, sample_ids, valid, alive = chunk_rays(
+        cfg, derived, pixel_start, sample_start, seed, n_block=n_block,
+        spp_chunk=spp_chunk, has_moving=scene.flags.has_moving,
+        device=scene.spheres.radius.device)
+    radiance, segments = integrator.trace(
+        scene, o, d, t, pixel_ids, sample_ids, cfg.background, cfg.max_depth, seed,
+        hit_fn=closest_hit_brute, mode="scan", remat=False, active0=alive)
+    radiance = torch.where(valid[:, None], radiance, 0.0)
+    return radiance.reshape(spp_chunk, n_block, 3).sum(dim=0), torch.tensor(segments)
+
+
 class Renderer:
-    """Renders a scene on the device its tensors live on. The phased
-    schedule's trace picks its layout from the scene
-    (``ops.megakernel.select_layout``): K1's sweep, or K5's BVH walk above
+    """Renders a scene on the device its tensors live on, through the
+    megakernels or the wavefront integrator (``hit_method``, see the
+    module note). The phased megakernel trace picks its layout from the
+    scene (``ops.megakernel.select_layout``): K1, or K5's BVH walk above
     ``BVH_MIN_CHUNKS`` chunks of 8 primitives. The pool schedule runs K1
     (its depth cap is K1's alone) with ``pool.POOL_SIZE`` lanes, at most
-    the stream's length."""
+    the stream's length. Schedules, phase prefixes and ``cull`` belong to
+    the megakernel: the integrator renders in phased launches without
+    them. ``cull`` forces K1's search in every launch (None: by the scene,
+    ``ops.megakernel_block.walks``); it changes speed, never a result."""
 
-    def __init__(self, cfg: CameraConfig, *, hit_method: str = "mega",
+    def __init__(self, cfg: CameraConfig, *, hit_method: str = "auto",
                  max_rays_per_launch: int = 1 << 18, phase_depths=None,
-                 transfer: str = "f32", phase_prefixes=None,
-                 strict_prefixes: bool = True, schedule: str = "phased"):
-        if hit_method != "mega":
-            raise ValueError(f"the port renders through the megakernel only, got hit_method={hit_method!r}")
+                 transfer: str = "f32", phase_prefixes=None, strict_prefixes: bool = True,
+                 schedule: str = "phased", cull=None):
+        if hit_method == "bvh":
+            raise ValueError("hit_method='bvh' needs the integrator's BVH, which is not ported "
+                             "yet (ROADMAP Queue 1 item 3); use 'auto', 'mega' or 'brute'")
+        if hit_method not in HIT_METHODS:
+            raise ValueError(f"hit_method must be one of {HIT_METHODS}, got {hit_method!r}")
         if transfer not in ("f32", "u8"):
             raise ValueError(f"transfer must be 'f32' or 'u8', got {transfer!r}")
         if schedule not in ("phased", "pool"):
             raise ValueError(f"schedule must be 'phased' or 'pool', got {schedule!r}")
+        self.hit_method = hit_method
+        self.cull = cull
         self.cfg = cfg
         self.transfer = transfer
         self.schedule = schedule
         self.phase_depths = _default_phases(cfg, phase_depths)
         self.phase_prefixes = tuple(phase_prefixes) if phase_prefixes is not None else None
+        if hit_method == "brute":
+            self._refuse_brute()
         self.strict_prefixes = strict_prefixes
         # a launch is n_block pixels (a 1024-multiple, padding rays start
         # dead) × spp_chunk samples, at most max_rays_per_launch rays
@@ -119,6 +164,23 @@ class Renderer:
                                     max_rays_per_launch // self.n_block))
         self._mega = None
         self._mega_scene = None
+
+    def _refuse_brute(self):
+        """The integrator has no pool schedule and no phase prefixes."""
+        what = ("schedule='pool'" if self.schedule == "pool"
+                else "phase_prefixes" if self.phase_prefixes is not None
+                else "cull" if self.cull is not None else None)
+        if what is not None:
+            raise ValueError(f"{what} belongs to the megakernel (hit_method='mega'); this "
+                             f"renderer traces through the integrator (hit_method='brute')")
+
+    def resolve_hit_method(self, scene: Scene) -> str:
+        """``"mega"`` or ``"brute"``: how :meth:`render` traces ``scene``.
+        ``"auto"`` takes the megakernel exactly when the scene can be
+        expressed in its tables (``ops.megakernel.expressible``)."""
+        if self.hit_method == "auto":
+            return "mega" if expressible(scene) else "brute"
+        return self.hit_method
 
     def _get_mega(self, scene: Scene):
         if self._mega is None or scene is not self._mega_scene:
@@ -143,7 +205,11 @@ class Renderer:
         for ``Renderer(..., phase_prefixes=...)`` on the same scene, config,
         batching and seed, with ``margin_blocks`` blocks of slack. None for
         a single-phase schedule. Raises ValueError on a scene that traces
-        through the group layout (K5), which counts no per-ray bounces."""
+        through the integrator or the group layout (K5), neither of which
+        counts per-ray bounces."""
+        if self.resolve_hit_method(scene) != "mega":
+            raise ValueError("phase prefixes belong to the megakernel (hit_method='mega'); "
+                             "this scene renders through the integrator (hit_method='brute')")
         mega = self._get_mega(scene)
         cfg = self.cfg
         phases = self.phase_depths
@@ -202,7 +268,8 @@ class Renderer:
             rad, seg = pool_mod.trace_pool(
                 mega, cfg, params, seed,
                 pool_size=min(pool_mod.POOL_SIZE, -(-cfg.n_pixels * n // 1024) * 1024),
-                sample_start=start, n_samples=n, motion_blur=scene.flags.has_moving)
+                sample_start=start, n_samples=n, motion_blur=scene.flags.has_moving,
+                cull=self.cull)
             acc = rad if acc is None else acc + rad
             seg_parts.append(seg)
         mean = (acc / spp).reshape(cfg.image_height, cfg.image_width, 3)
@@ -216,11 +283,16 @@ class Renderer:
     def render(self, scene: Scene, params: Optional[CameraParams] = None,
                seed: int = 0) -> RenderResult:
         cfg = self.cfg
-        mega = self._get_mega(scene)
-        dev = mega.sph_sweep.device
+        brute = self.resolve_hit_method(scene) == "brute"
+        if brute:
+            self._refuse_brute()
+            mega, dev = None, scene.spheres.radius.device
+        else:
+            mega = self._get_mega(scene)
+            dev = mega.sph_sweep.device
         if params is None:
             params = CameraParams.from_config(cfg, dev)
-        if dev.type == "cuda":
+        if dev.type == "cuda" and not brute:
             from .. import _kernels
 
             _kernels.library()  # build outside the timed region
@@ -228,7 +300,6 @@ class Renderer:
             return self._render_pool(scene, mega, params, seed)
         launches = self._launches()
         n_blocks = -(-cfg.n_pixels // self.n_block)
-        kw = self._chunk_kwargs(scene)
 
         t0 = _time.perf_counter()
         derived = cam_mod.derive(cfg, params)
@@ -236,8 +307,16 @@ class Renderer:
         seg_parts = []
         ok = torch.ones((), dtype=torch.bool, device=dev)
         for pixel_start, sample_start in launches:
-            rad, seg, ok_c = _render_chunk(mega, cfg, derived, pixel_start, sample_start,
-                                           seed, **kw, phase_prefixes=self.phase_prefixes)
+            if brute:
+                with torch.no_grad():
+                    rad, seg = _brute_chunk(scene, cfg, derived, pixel_start, sample_start, seed,
+                                            n_block=self.n_block, spp_chunk=self.spp_chunk)
+                ok_c = None
+            else:
+                rad, seg, ok_c = _render_chunk(mega, cfg, derived, pixel_start, sample_start,
+                                               seed, **self._chunk_kwargs(scene),
+                                               phase_prefixes=self.phase_prefixes,
+                                               cull=self.cull)
             accum[pixel_start:pixel_start + self.n_block] += rad
             seg_parts.append(seg)
             if ok_c is not None:
@@ -259,6 +338,8 @@ class Renderer:
 
 
 def render(scene: Scene, cfg: CameraConfig, params: Optional[CameraParams] = None,
-           seed: int = 0, max_rays_per_launch: int = 1 << 20) -> RenderResult:
+           seed: int = 0, hit_method: str = "auto",
+           max_rays_per_launch: int = 1 << 20) -> RenderResult:
     """One-shot functional API over :class:`Renderer`."""
-    return Renderer(cfg, max_rays_per_launch=max_rays_per_launch).render(scene, params, seed)
+    return Renderer(cfg, hit_method=hit_method,
+                    max_rays_per_launch=max_rays_per_launch).render(scene, params, seed)

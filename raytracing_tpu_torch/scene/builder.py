@@ -3,7 +3,8 @@
 
 The builder API and the compiled row layout are the JAX package's, so
 both packages build identical tables from the same calls. There is no
-BVH: the block megakernel sweeps every primitive.
+integrator BVH (``compile(use_bvh=)``) yet: the megakernels build their
+own chunked BVH from the compiled tables (ops/mega_bvh.py).
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on the card: K1 (with recorded ids, marble and
-image textures, and its depth cap), K3, K2, K5 (walk and dense sweep) and
+"""The port's CUDA kernels on the card: K1 (both searches, with recorded
+ids, marble and image textures, and its depth cap, and the walk on a
+scene too large for the sweep), K3, K2, K5 (walk and dense sweep) and
 K4 (the table gather) against their plain PyTorch versions, a render on
 the card against the same render on the CPU, and the pool schedule
 against the phased one. Marked ``cuda``; each test skips when no CUDA
@@ -33,11 +34,14 @@ def dev():
     return torch.device("cuda", 0)
 
 
+@pytest.mark.parametrize("cull", [False, True], ids=["sweep", "walk"])
 @pytest.mark.parametrize("name,exact", [
     ("three_spheres", True), ("cornell_box", True), ("bouncing_spheres", False),
     ("perlin_sphere", False), ("earth", True)])
 @pytest.mark.parametrize("b_off", [0, 3])
-def test_kernel_matches_plain_version(dev, name, exact, b_off):
+def test_kernel_matches_plain_version(dev, name, exact, b_off, cull):
+    """K1 by either search equals its plain version bit for bit (the
+    reference's bars are checked too)."""
     scene, cfg = build(name, device=dev, image_width=64, samples_per_pixel=1, max_depth=6)
     mega = build_mega_scene(scene)
     B = -(-cfg.n_pixels // 1024) * 1024
@@ -49,11 +53,12 @@ def test_kernel_matches_plain_version(dev, name, exact, b_off):
     args = (mega, ray_f, ray_i, SEED, b_off)
     kw = dict(max_depth=6, background=cfg.background, want_ids=True)
     before = mb.launches
-    rad, bc, state, ids = mb.trace_block(*args, **kw)
+    rad, bc, state, ids = mb.trace_block(*args, cull=cull, **kw)
     torch.cuda.synchronize()
     assert mb.launches == before + 1
     rad_p, bc_p, state_p, ids_p = mb.trace_block_torch(*args, **kw)
     assert torch.equal(ids, ids_p)
+    assert torch.equal(rad, rad_p) and torch.equal(bc, bc_p) and torch.equal(state, state_p)
     diff = (rad - rad_p).abs()
     assert (diff.max() < 1e-5) if exact else (diff.mean() < 2e-3)
     assert segments_close(bc_p.sum(), bc.sum())
@@ -190,3 +195,37 @@ def test_pool_render_matches_phased(dev, monkeypatch):
     phased = Renderer(cfg).render(scene, seed=SEED)
     assert pool.segments == phased.segments
     np.testing.assert_allclose(pool.radiance, phased.radiance, rtol=2e-6, atol=2e-6)
+
+
+def test_walk_runs_a_scene_beyond_the_sweeps_shared_memory(dev):
+    """9,001 spheres: the sweep's tables exceed a block's shared memory, so
+    the sweep refuses the scene and the walk, chosen by default, traces it
+    equal to the plain version bit for bit."""
+    from raytracing_tpu_torch.render.camera import CameraConfig
+    from raytracing_tpu_torch.scene.builder import SceneBuilder
+
+    b = SceneBuilder()
+    b.sphere((0.0, -1000.0, 0.0), 1000.0, b.lambertian((0.5, 0.5, 0.5)))
+    rng = np.random.default_rng(9)
+    mats = [b.lambertian(tuple(rng.random(3))) for _ in range(8)] + [b.dielectric(1.5)]
+    for k in range(9000):
+        b.sphere((rng.uniform(-48, 48), 0.2, rng.uniform(-48, 48)), 0.2, mats[k % len(mats)])
+    scene = b.compile(dev)
+    cfg = CameraConfig(aspect_ratio=16.0 / 9.0, image_width=48, samples_per_pixel=1,
+                       max_depth=5, background=(0.7, 0.8, 1.0), vfov=20.0,
+                       lookfrom=(13.0, 2.0, 3.0), lookat=(0.0, 0.0, 0.0))
+    mega = build_mega_scene(scene)
+    B = -(-cfg.n_pixels // 1024) * 1024
+    pix = torch.clamp(torch.arange(B, device=dev), max=cfg.n_pixels - 1)
+    smp = torch.zeros_like(pix)
+    o, d, t = cam.generate_rays(cfg, cam.derive(cfg, cam.CameraParams.from_config(cfg, dev)),
+                                pix, smp, SEED, motion_blur=False)
+    ray_f, ray_i = pack_rays(o, d, t, pix, smp)
+    kw = dict(max_depth=5, background=cfg.background, want_ids=True)
+    assert mb.walks(mega)
+    with pytest.raises(ValueError, match="shared memory"):
+        mb.trace_block(mega, ray_f, ray_i, SEED, 0, cull=False, **kw)
+    out = mb.trace_block(mega, ray_f, ray_i, SEED, 0, **kw)
+    ref = mb.trace_block_torch(mega, ray_f, ray_i, SEED, 0, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    assert int(out[1].sum()) > B

@@ -227,13 +227,14 @@ def test_render_replay_fast_on_cpu():
     """Decisions from the plain K1 (CPU tensors): the image matches the
     integrator-decided replay within the kernel-vs-XLA coin-flip bar of
     tests/test_replay.py, and ids passed back give finite gradients."""
+    before_tg = tg.launches
     scene, cfg = pbuild("bouncing_spheres", device="cpu", image_width=16, samples_per_pixel=2,
                         max_depth=5)
     img_ref = render_replay(scene, cfg, seed=3)
     img, seg, ids = render_replay_fast(scene, cfg, seed=3, return_segments=True,
                                        return_ids=True)
     assert float((img - img_ref).abs().mean()) < 3e-3 and seg > 0
-    assert ids.shape == (5, 2048) and tg.launches == 0
+    assert ids.shape == (5, 2048) and tg.launches == before_tg
     center = scene.spheres.center.clone().requires_grad_(True)
     rgb = scene.textures.rgb.clone().requires_grad_(True)
     out = render_replay_fast(_with(scene, center, rgb), cfg, seed=3, ids=ids)
@@ -249,6 +250,7 @@ def test_render_replay_fast_raises_on_noise_textures():
     the two closest-hit computations may send a grazing ray another way).
     A scene the tables cannot express (bilinear images) takes the
     integrator's decision pass and cannot return ids."""
+    before_tg = tg.launches
     scene, cfg = pbuild("perlin_sphere", device="cpu", image_width=10, samples_per_pixel=2,
                         max_depth=3)
     params = pcam.CameraParams.from_config(cfg, "cpu")
@@ -262,7 +264,7 @@ def test_render_replay_fast_raises_on_noise_textures():
 
     img_fast, g_fast = render_and_grad(render_replay_fast)
     img_ref, g_ref = render_and_grad(render_replay)
-    assert tg.launches == 0
+    assert tg.launches == before_tg
     assert float((img_fast - img_ref).abs().mean()) < 1e-3
     assert float(g_ref.abs().sum()) > 0
     assert torch.allclose(g_fast, g_ref, rtol=0.04, atol=3e-3), (g_fast, g_ref)

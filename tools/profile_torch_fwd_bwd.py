@@ -19,6 +19,10 @@ bouncing_spheres 400x225, spp 1, depth 20, with the sphere roots taken
 through ``ops.intersect.sqrt_rn`` (a float64 sqrt, correctly rounded on
 every device) and through float32 ``torch.sqrt``, in the order A B B A.
 
+``--search sweep`` or ``walk`` makes every K1 launch of the bench and
+fast paths take that search (``cull``); the default picks it by the
+scene's primitive count.
+
 Prints the card's name, power limit and max SM clock first.
 """
 from __future__ import annotations
@@ -67,14 +71,16 @@ def print_profile(label, fn):
     rows = sorted(((e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
     device_ms = sum(x[0] for x in rows) / 1e3
+    k1 = [x for x in rows if "k1_trace_block" in x[1]]
     print(f"profiled {label}: wall {wall * 1e3:.2f} ms, device {device_ms:.2f} ms, "
-          f"busy share {device_ms / (wall * 1e3):.3f}, kernels launched {sum(x[2] for x in rows)}")
+          f"busy share {device_ms / (wall * 1e3):.3f}, kernels launched {sum(x[2] for x in rows)}, "
+          f"K1 {sum(x[0] for x in k1) / 1e3:.3f} ms in {sum(x[2] for x in k1)} launches")
     for dt, key, count in rows[:25]:
         print(f"  {dt / 1e3:9.3f} ms {count:6d}  {key[:100]}")
 
 
-def profile_bench():
-    s = bench._fwd_bwd_setup(device="cuda")
+def profile_bench(cull):
+    s = bench._fwd_bwd_setup(device="cuda", cull=cull)
     print("prefixes", s["plan"](), "decide prefixes", s["ns"]["decide_prefixes"])
     s["sweep"]()
     runs = [timed(s["sweep"]) for _ in range(5)]
@@ -86,7 +92,7 @@ def profile_bench():
     print(f"whole chunk: device span {d_ms:.3f} ms, host {h_ms:.3f} ms")
 
 
-def profile_fast():
+def profile_fast(cull):
     dev = torch.device("cuda")
     scene, cfg = build("bouncing_spheres", device=dev, image_width=400, samples_per_pixel=100,
                        max_depth=20)
@@ -114,7 +120,7 @@ def profile_fast():
         with torch.no_grad():
             _, _, ids = trace_megakernel(mega, o, d, t, pix, smp, cfg.background, cfg.max_depth,
                                          SEED, phase_depths=[2, 2, 3, 4, cfg.max_depth - 11],
-                                         active0=act, want_ids=True)
+                                         active0=act, want_ids=True, cull=cull)
         rad, seg = replay_trace_fast(scene_g, ids, o, d, t, pix, smp, cfg.background,
                                      cfg.max_depth, SEED, remat=False, active0=act)
         img = (rad * act[:, None]).reshape(spp_chunk, npix_pad, 3).mean(0)[:n_pix]
@@ -160,6 +166,7 @@ def profile_render_once():
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", choices=("bench", "fast", "render_once"), default="bench")
+    ap.add_argument("--search", choices=("auto", "sweep", "walk"), default="auto")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -168,7 +175,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip())
     _kernels.library()
-    {"bench": profile_bench, "fast": profile_fast, "render_once": profile_render_once}[args.path]()
+    cull = {"auto": None, "sweep": False, "walk": True}[args.search]
+    {"bench": lambda: profile_bench(cull), "fast": lambda: profile_fast(cull),
+     "render_once": profile_render_once}[args.path]()
     return 0
 
 

@@ -15,6 +15,9 @@ registry scene at its registry configuration (400x225, 100 spp, depth
 50, phases [2, 3, 45]). ``--schedule pool`` renders through the
 regenerating pool instead (K1 only, no phases or prefixes; the two
 per-launch timings are the phased schedule's and are skipped).
+``--search sweep`` or ``walk`` makes every K1 launch take that search
+(``Renderer(cull=)``); the default picks it by the scene's primitive
+count. The profile sums K1's device time and launches.
 """
 from __future__ import annotations
 
@@ -57,6 +60,7 @@ def main() -> int:
                                         "perlin_sphere", "simple_light", "earth"),
                     default="bouncing_spheres")
     ap.add_argument("--schedule", choices=("phased", "pool"), default="phased")
+    ap.add_argument("--search", choices=("auto", "sweep", "walk"), default="auto")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -75,7 +79,8 @@ def main() -> int:
                            samples_per_pixel=100, max_depth=20)
     else:
         scene, cfg = build(args.scene, device=dev)
-    kw = dict(max_rays_per_launch=1 << 18, transfer="u8")
+    kw = dict(max_rays_per_launch=1 << 18, transfer="u8",
+              cull={"auto": None, "sweep": False, "walk": True}[args.search])
     pref = None
     if args.schedule == "pool":
         kw["schedule"] = "pool"
@@ -87,8 +92,8 @@ def main() -> int:
     for _ in range(2):
         r.render(scene, seed=SEED)
     runs = [r.render(scene, seed=SEED) for _ in range(5)]
-    print(f"{args.scene} ({args.schedule}): segments {runs[0].segments}, render seconds",
-          [x.seconds for x in runs])
+    print(f"{args.scene} ({args.schedule}, K1 search {args.search}): segments "
+          f"{runs[0].segments}, render seconds", [x.seconds for x in runs])
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -97,8 +102,10 @@ def main() -> int:
     rows = sorted(((e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
     device_ms = sum(x[0] for x in rows) / 1e3
+    k1 = [x for x in rows if "k1_trace_block" in x[1]]
     print(f"profiled render: wall {wall * 1e3:.2f} ms, device {device_ms:.2f} ms, "
-          f"busy share {device_ms / (wall * 1e3):.3f}")
+          f"busy share {device_ms / (wall * 1e3):.3f}, K1 {sum(x[0] for x in k1) / 1e3:.3f} ms "
+          f"in {sum(x[2] for x in k1)} launches")
     for dt, key, count in rows[:20]:
         print(f"  {dt / 1e3:9.3f} ms {count:6d}  {key[:100]}")
 
@@ -110,7 +117,8 @@ def main() -> int:
     d_ms, h_ms = event_ms(lambda: rmod.chunk_rays(cfg, derived, 0, 0, SEED, **chunk))
     print(f"camera rays per launch: device span {d_ms:.3f} ms, host {h_ms:.3f} ms")
     d_ms, h_ms = event_ms(lambda: rmod._render_chunk(
-        mega, cfg, derived, 0, 0, SEED, **r._chunk_kwargs(scene), phase_prefixes=pref))
+        mega, cfg, derived, 0, 0, SEED, **r._chunk_kwargs(scene), phase_prefixes=pref,
+        cull=r.cull))
     print(f"whole launch: device span {d_ms:.3f} ms, host {h_ms:.3f} ms")
     return 0
 
