@@ -23,11 +23,18 @@ Phase 8 holds K5 (the group megakernel, BVH walk and dense sweep) against
 its plain version, bit for bit, on small scenes, and the walk against the
 sweep. Phase 9 runs one full-width depth-20 launch (B = 180,224) of
 bouncing_spheres_64 (the bench scene on a 64x64 grid, ~4,100 spheres) and
-of bouncing_spheres forced through the walk: K5 against its plain version
-and against K1 on the same rays, with times and K5's bound from the plain
-version's visit counts. Phase 10 renders bouncing_spheres_64 (400x225,
-100 spp, depth 20) through Renderer, which picks K5 on its own, and
-counts the kernels' launches.
+of bouncing_spheres forced through the walk: K5 against its plain version,
+bit for bit, and against K1 on the same rays, with times and K5's bound
+from the plain version's visit counts; then K5's probe on the same
+launch: the walk in the baseline design (before the guarded root and
+the node/leaf split) against K5's in turns, both bit-equal to the plain
+version, and the counting instantiation of each (the share of a warp's
+lanes active at a box and at a member test; K5's counts must be the
+plain version's). It also holds sqrt_rn on the card against the float64
+route, forward and backward, on 2^24 random float32 inputs and the edge
+values. Phase
+10 renders bouncing_spheres_64 (400x225, 100 spp, depth 20) through
+Renderer, which picks K5 on its own, and counts the kernels' launches.
 Phase 11 holds K4 (the table gather) against its plain version, bit for
 bit, on one bounce's K1-recorded ids of a fwd+bwd chunk (B = 360,448,
 L = 512) and on the bouncing_spheres_64 replay table (L = 4,224), and
@@ -125,10 +132,11 @@ def ptxas_summary(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(k\d_[a-z_]+?)(?:I((?:Lb[01]E)+)E|E)", m.group(1))
+            k = re.search(r"(k\d_[a-z_]+?)(I|E)", m.group(1))
             name = k.group(1) if k else m.group(1)
-            if k and k.group(2):
-                name += "<" + ",".join(re.findall(r"Lb([01])E", k.group(2))) + ">"
+            if k and k.group(2) == "I":  # the template's bools, K5's Design<...> among them
+                rest = m.group(1)[k.end():]
+                name += "<" + ",".join(re.findall(r"Lb([01])E", rest)) + ">"
         elif "stack frame" in line:
             frame = line.split(":", 1)[-1].strip()
         elif "registers" in line and name:
@@ -364,6 +372,7 @@ def main() -> int:
               "needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     from raytracing_tpu_torch import Renderer, _kernels, build
     from raytracing_tpu_torch import bench as pbench
     from raytracing_tpu_torch.diff import replay_fast as rf
@@ -371,10 +380,12 @@ def main() -> int:
     from raytracing_tpu_torch.ops import megakernel_block as mb
     from raytracing_tpu_torch.ops import megakernel_group as mg
     from raytracing_tpu_torch.ops import table_gather as tg
+    from raytracing_tpu_torch.ops.intersect import sqrt_rn
     from raytracing_tpu_torch.ops.megakernel import (build_mega_scene, select_layout,
                                                      trace_megakernel)
     from raytracing_tpu_torch.render import camera as cam
     from raytracing_tpu_torch.render import pool as pool_mod
+    from torch_parity import sqrt_grads, sqrt_inputs
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -727,7 +738,7 @@ def main() -> int:
         del k1_sweep
         seg5, seg_p, seg1 = int(out[1].sum()), int(ref[1].sum()), int(k1[1].sum())
         d_p = (out[0] - ref[0]).abs()
-        ok9 = float(d_p.mean()) < 2e-3 and segments_close(seg_p, seg5)
+        ok9 = equal_outputs(out, ref[:3])
         d_1 = (out[0] - k1[0]).abs()
         m5, m1 = out[0].mean(1), k1[0].mean(1)
         rel = float(((m5 - m1).abs() / m1.abs()).max())
@@ -735,6 +746,25 @@ def main() -> int:
         if k5_entry is not None:  # the bench case: phase 4's launch
             ok9 &= B9 == B
         visits, sph_tests, quad_tests = (int(x) for x in ref[3].sum(1))
+        # K5's probe on the same launch: the baseline design against K5's, in
+        # turns, and the counting instantiation of each (lanes a warp keeps busy)
+        probe9 = {}
+        for design in ("baseline", mg.K5_DESIGN, mg.K5_DESIGN, "baseline"):
+            def run_probe(design=design, count=False):
+                return mg.trace_group_probe(mega9, ray_f, ray_i, SEED, 0, design=design,
+                                            count=count, **kw9)
+
+            rp = probe9.setdefault(design, dict(ms=[]))
+            rp["ms"].append(cuda_ms(torch, run_probe, 5))
+            if "lanes" not in rp:
+                po, pc = run_probe(), run_probe(count=True)
+                rp["bit_equal"] = all(equal_outputs(x[:3], ref[:3]) for x in (po, pc))
+                c = pc[3]
+                rp["lanes"] = dict(box=c["box_lanes"] / (32 * c["box_issues"]),
+                                   member=c["member_lanes"] / (32 * c["member_issues"]))
+                rp["tests"] = (c["visits"], c["sphere_tests"], c["quad_tests"])
+        ok9 &= all(v["bit_equal"] for v in probe9.values())
+        ok9 &= probe9[mg.K5_DESIGN]["tests"] == (visits, sph_tests, quad_tests)
         ops = (visits * K5_OPS_PER_NODE + sph_tests * K5_OPS_PER_SPHERE_MEMBER
                + quad_tests * K5_OPS_PER_QUAD_MEMBER + seg5 * K5_OPS_SHADE)
         tables = (mega9.table, mega9.nodes, mega9.sph_leaf, mega9.sph_gid, mega9.quad_leaf,
@@ -753,15 +783,42 @@ def main() -> int:
               f"{visits} ({visits / max(seg5, 1):.1f} per segment) sphere member tests "
               f"{sph_tests} quad member tests {quad_tests}; bound {b9[0]:.4f} ms ({b9[1]}) "
               f"[{card}]")
+        print(f"phase 9 {name} K5 probe: " + "; ".join(
+            f"{d} design {' '.join(f'{x:.3f}' for x in v['ms'])} ms, bit_equal {v['bit_equal']}, "
+            f"active lanes {v['lanes']['box']:.3f} of a warp at a box test, "
+            f"{v['lanes']['member']:.3f} at a member test" for d, v in probe9.items())
+            + f" [{card}]")
         if not ok9:
             failures.append(f"phase 9 {name}")
         if k5_entry is None:
             k5_entry = dict(max_abs_err=float(d_p.max()), ms=k5_ms, plain_ms=plain9_ms,
-                            bound_ms=b9[0], bound_by=b9[1])
+                            bound_ms=b9[0], bound_by=b9[1],
+                            ms_probe_baseline=sum(probe9["baseline"]["ms"]) / 2,
+                            ms_in_turns={d: v["ms"] for d, v in probe9.items()},
+                            lane_share={d: v["lanes"] for d, v in probe9.items()})
             k1_64 = dict(ms_walk=k1_ms, ms_sweep=k1_sweep_ms)
         else:  # phase 4's launch: K1's walk bound, its operations from K5's plain walk
             k1_walk_bound = b9
         del ref
+
+    # sqrt_rn (K5's plain version's roots): the float32 route on the card
+    # against the float64 route, which is correctly rounded, bit for bit,
+    # forward and backward (float32 torch.sqrt's own backward for contrast)
+    xs = sqrt_inputs(dev)
+    ref_sq = torch.sqrt(xs.double()).float()
+    n_f32 = int((torch.sqrt(xs) != ref_sq).sum())
+    n_rn = int((sqrt_rn(xs) != ref_sq).sum())
+    g_sq = torch.randn(xs.shape, generator=torch.Generator(dev).manual_seed(SEED), device=dev)
+    ref_g = sqrt_grads(lambda x: torch.sqrt(x.double()).float(), xs, g_sq)
+    n_bwd_f32 = int((sqrt_grads(torch.sqrt, xs, g_sq) != ref_g).sum())
+    n_bwd_rn = int((sqrt_grads(sqrt_rn, xs, g_sq) != ref_g).sum())
+    print(f"phase 9 sqrt_rn: {'ok' if n_rn == n_bwd_rn == 0 else 'FAIL'} of {xs.numel()} "
+          f"float32 inputs the card's float32 sqrt differs from the float64 route on {n_f32}, "
+          f"sqrt_rn on {n_rn}; backward: float32 sqrt's on {n_bwd_f32}, sqrt_rn's on "
+          f"{n_bwd_rn}")
+    if n_rn or n_bwd_rn:
+        failures.append("phase 9 sqrt_rn")
+    del xs, ref_sq, g_sq, ref_g
 
     # ---- phase 10: the bouncing_spheres_64 render through Renderer ----
     r10 = Renderer(c64, max_rays_per_launch=1 << 18, transfer="u8",

@@ -56,6 +56,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rt_trace_group.argtypes = [P, I, I, P, I, P, P, I, P, P, P, P, I, P, P, P, U, U, I,
                                    F, F, F, I, I, I, P, P, P, P]
     lib.rt_trace_group.restype = ctypes.c_int
+    lib.rt_trace_group_probe.argtypes = [P, I, I, P, I, P, P, I, P, P, P, P, I, P, P, P, U, U,
+                                         I, F, F, F, I, P, P]
+    lib.rt_trace_group_probe.restype = ctypes.c_int
     lib.rt_replay_fwd.argtypes = [P, P, P, P, P, I, I, I, I, U, F, F, F, P, P, P]
     lib.rt_replay_fwd.restype = ctypes.c_int
     lib.rt_replay_bwd.argtypes = [P, P, P, P, P, P, I, I, I, I, U, F, F, F, P, P]

@@ -6,11 +6,11 @@ argmin, differentiable in the scene's and the rays' tensors.
 Hits use the open ``surrounds`` test; a quad's interior test is closed.
 Dot products over the three components are written out per component
 (``(B, N)`` tensors, no ``(B, N, 3)`` temporaries), in the JAX package's
-summation order. Sphere roots take their square root through float64,
-which rounds to the correctly rounded float32 root on every device: the
-CPU's vectorised float32 ``sqrt`` is off by an ulp on some inputs, and
-the sweep (``(B, N)``) and the replay (``(B,)``) would then split on
-rays that graze a sphere.
+summation order. Sphere roots take the correctly rounded float32 square
+root (:func:`sqrt_rn`: float32 on the card, through float64 on the CPU,
+whose vectorised float32 ``sqrt`` is off by an ulp on some inputs, so
+that the sweep (``(B, N)``) and the replay (``(B,)``) would split on rays
+that graze a sphere).
 """
 from __future__ import annotations
 
@@ -41,11 +41,33 @@ class HitBatch:
     prim_id: torch.Tensor     # (B,) i32 global primitive id, -1 on a miss
 
 
+class _Sqrt32(torch.autograd.Function):
+    """float32 ``torch.sqrt`` forward, with the float64 route's backward:
+    autograd through ``torch.sqrt(x.double()).float()`` takes the
+    cotangent to float64, divides it by twice the float64 root and rounds
+    to float32, so gradients do not depend on which route the forward
+    took."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.sqrt(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return (g.double() / (2 * torch.sqrt(x.double()))).float()
+
+
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
-    """float32 sqrt rounded to nearest, as CUDA's ``sqrtf``, with autograd:
-    a float64 sqrt rounded to float32 is the correctly rounded float32
-    sqrt (PyTorch's vectorized CPU float32 sqrt is off by an ulp on ~0.7%
-    of inputs)."""
+    """float32 sqrt rounded to nearest, as CUDA's ``sqrtf``, with autograd.
+    On a CUDA tensor PyTorch's float32 sqrt is correctly rounded (equal to
+    the float64 route on 2^24 random inputs and the edge values, forward
+    and backward: chip_smoke.py phase 9, tests/test_torch_cuda.py);
+    elsewhere a float64 sqrt rounded to float32 is (PyTorch's vectorized
+    CPU float32 sqrt is off by an ulp on ~0.7% of inputs)."""
+    if x.is_cuda:
+        return _Sqrt32.apply(x)
     return torch.sqrt(x.double()).float()
 
 

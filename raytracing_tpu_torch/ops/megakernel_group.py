@@ -33,7 +33,11 @@ Two implementations compute it:
 
 :func:`trace_group` is the wrapper: tensors on the CPU go to the plain
 version, tensors on a CUDA device launch the kernel, anything else
-raises. Each kernel launch adds one to :data:`launches`. Ray state and
+raises. Each kernel launch adds one to :data:`launches`.
+:func:`trace_group_probe` launches the kernel's measurement probe (the
+walk in K5's design or in the baseline design, timed or as a counting
+instantiation for the lanes a warp keeps busy); tools and
+``chip_smoke.py`` call it, never a render. Ray state and
 outputs are K1's (``megakernel_block``): ``ray_f (N_F, n) f32`` and
 ``ray_i (2, n) i32`` in; ``rad (3, n)``, ``bounces (n,) i32`` and, with
 ``want_state``, the new ``ray_f`` out.
@@ -56,6 +60,15 @@ NO_GID = 2 ** 31 - 1  # above every unified column: loses every gid tie
 PLAIN_CHUNK = 128
 
 launches = 0  # K5 kernel launches in this process (plain-version calls excluded)
+# the probe's designs (csrc/megakernel_group.cu rt_trace_group_probe): the
+# baseline (one loop, the root of max(disc, 0)) and K5's (the guarded root
+# and the node/leaf loop split, what trace_group runs)
+DESIGNS = ("baseline", "guard+split")
+K5_DESIGN = "guard+split"
+# the probe's counts: node visits, sphere and quad member tests, box-test
+# warp issues and their active lanes, member-test issues and their lanes
+PROBE_COUNTS = ("visits", "sphere_tests", "quad_tests", "box_issues", "box_lanes",
+                "member_issues", "member_lanes")
 
 
 def _check(mega, ray_f, ray_i):
@@ -101,20 +114,66 @@ def trace_group(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int, b_off
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rt_trace_group(
-            mega.table.data_ptr(), mega.n_prims, mega.n_sph_pad,
-            mega.nodes.data_ptr(), mega.nodes.shape[0],
-            mega.sph_leaf.data_ptr(), mega.sph_gid.data_ptr(), mega.n_sph_chunks,
-            mega.quad_leaf.data_ptr(), mega.quad_gid.data_ptr(),
-            ray_f.data_ptr(), ray_i.data_ptr(), n,
-            rad.data_ptr(), bounces.data_ptr(), state.data_ptr() if want_state else None,
-            ctypes.c_uint32(seed), ctypes.c_uint32(b_off), max_depth,
-            float(background[0]), float(background[1]), float(background[2]),
+            *_group_args(mega, ray_f, ray_i, rad, bounces, state, seed, b_off, max_depth,
+                         background),
             int(bool(use_bvh)), int(mega.has_noise), int(mega.has_image),
             mega.perm.data_ptr(), mega.grad.data_ptr(), mega.atlas.data_ptr(), stream)
     launches += 1
     if err != 0:
         raise RuntimeError(f"K5 launch failed: {lib.rt_error_string(err).decode()}")
     return rad, bounces, state
+
+
+def _group_args(mega, ray_f, ray_i, rad, bounces, state, seed, b_off, max_depth, background):
+    """The leading arguments of both C entry points."""
+    n = ray_f.shape[1]
+    return (mega.table.data_ptr(), mega.n_prims, mega.n_sph_pad,
+            mega.nodes.data_ptr(), mega.nodes.shape[0],
+            mega.sph_leaf.data_ptr(), mega.sph_gid.data_ptr(), mega.n_sph_chunks,
+            mega.quad_leaf.data_ptr(), mega.quad_gid.data_ptr(),
+            ray_f.data_ptr(), ray_i.data_ptr(), n,
+            rad.data_ptr(), bounces.data_ptr(), state.data_ptr() if state is not None else None,
+            ctypes.c_uint32(seed), ctypes.c_uint32(b_off), max_depth,
+            float(background[0]), float(background[1]), float(background[2]))
+
+
+def trace_group_probe(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int, b_off: int, *,
+                      max_depth: int, background, design: str = K5_DESIGN,
+                      count: bool = False):
+    """K5's measurement probe on CUDA tensors: the walk by ``design``
+    (:data:`DESIGNS`), on a scene without marble or image textures whose
+    node table shared memory holds. Returns ``(rad (3, n), bounces (n,)
+    i32, state (N_F, n), counts)``, the first three as :func:`trace_group`'s:
+    with ``count`` the counting instantiation runs and ``counts`` is a dict
+    over :data:`PROBE_COUNTS` summed over the launch, else None. Does not
+    add to :data:`launches`."""
+    tables = _check(mega, ray_f, ray_i)
+    dev = ray_f.device
+    if dev.type != "cuda":
+        raise ValueError(f"the K5 probe runs on CUDA tensors only, not {dev}")
+    if mega.has_noise or mega.has_image:
+        raise ValueError("the K5 probe takes scenes without marble or image textures")
+    if not all(t.is_contiguous() for t in (ray_f, ray_i, *tables)):
+        raise ValueError("K5 needs contiguous tensors")
+    from .. import _kernels
+
+    lib = _kernels.library().lib
+    n = ray_f.shape[1]
+    rad = torch.empty((3, n), dtype=torch.float32, device=dev)
+    bounces = torch.empty((n,), dtype=torch.int32, device=dev)
+    state = torch.empty((mb.N_F, n), dtype=torch.float32, device=dev)
+    cnt = torch.zeros(len(PROBE_COUNTS), dtype=torch.int64, device=dev) if count else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rt_trace_group_probe(
+            *_group_args(mega, ray_f, ray_i, rad, bounces, state, seed, b_off, max_depth,
+                         background),
+            DESIGNS.index(design), cnt.data_ptr() if count else None, stream)
+    if err != 0:
+        raise RuntimeError(f"K5 probe ({design}, count={count}) failed: "
+                           f"{lib.rt_error_string(err).decode()}")
+    counts = dict(zip(PROBE_COUNTS, cnt.tolist())) if count else None
+    return rad, bounces, state, counts
 
 
 # --------------------------------------------------------------------------
@@ -229,10 +288,17 @@ def _safe_inv(v):
     return torch.where(v < 0.0, -1.0, 1.0) / torch.clamp(torch.abs(v), min=SAFE_INV_EPS)
 
 
+def real_members(gid: torch.Tensor) -> torch.Tensor:
+    """Real members of each leaf chunk ``(L,)`` from its gids ``(L, 8)``:
+    a short chunk's pad slots repeat its first gid (``mega_bvh``)."""
+    return (gid[:, 1:] != gid[:, :1]).sum(1) + 1
+
+
 def _walk(mega, ox, oy, oz, dx, dy, dz, tm, active, counts=None):
     """Closest hit by the lockstep BVH walk: (t, ib), BIG and -1 on a miss
     and for dead rays. ``counts``, when given, is a ``(3, n)`` int64 tensor
-    that gains each ray's node visits and sphere and quad member tests."""
+    that gains each ray's node visits and sphere and quad member tests (the
+    real members of each leaf it tests, not its pad slots)."""
     n = ox.shape[0]
     dev = ox.device
     a = dx * dx + dy * dy + dz * dz
@@ -283,7 +349,7 @@ def _walk(mega, ox, oy, oz, dx, dy, dz, tm, active, counts=None):
                 gid = mega.sph_gid[c]
             _leaf_hit(m, gid, tb, ib, cand)
             if counts is not None:
-                counts[2 if quad else 1, m] += 8
+                counts[2 if quad else 1, m] += real_members(gid)
         idx = idx[nxt >= 0]
     return tb, ib
 
@@ -295,8 +361,9 @@ def trace_group_torch(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
     (each multiply and add rounded on its own, as the kernel is built with
     ``-fmad=false``). Runs on any device. With ``want_counts`` a fourth
     output, ``(3, n) int64``, holds each ray's node visits, sphere member
-    tests and quad member tests over the phase (for the dense sweep: no
-    visits, and every sphere and quad column once per segment)."""
+    tests and quad member tests over the phase, pads not counted (for the
+    dense sweep: no visits, and every sphere and quad column once per
+    segment)."""
     st = list(ray_f.unbind(0))
     st[mb.ACT] = st[mb.ACT] > 0.5
     pix, smp = ray_i[mb.PIX], ray_i[mb.SMP]

@@ -37,8 +37,9 @@ from raytracing_tpu_torch.ops.megakernel import build_mega_scene as pmega
 from raytracing_tpu_torch.ops.megakernel import select_layout, trace_megakernel
 from raytracing_tpu_torch.render.camera import CameraConfig
 from raytracing_tpu_torch.scene.builder import SceneBuilder
-from torch_parity import (bouncing_spheres_64, bouncing_spheres_64_config, mixed_scene,
-                          mixed_scene_config, port_scene, segments_close)
+from torch_parity import (K5_EDGE_CASES, bouncing_spheres_64, bouncing_spheres_64_config,
+                          k5_edge_case, mixed_scene, mixed_scene_config, port_scene,
+                          segments_close)
 
 torch.set_num_threads(2)
 B = 1024
@@ -206,20 +207,23 @@ static void run(const GroupParams& p, int use_bvh) {
     if (use_bvh) trace_ray_group<true, N, I>(p, nd, i); else trace_ray_group<false, N, I>(p, nd, i);
   }
 }
-// closest hit of every ray's first segment; counts (3, n) with the walk
+// closest hit of every ray's first segment; counts (3, n) with the walk;
+// design 0: the baseline design, else K5Design
 extern "C" void host_hit(const float* table, int P, int ns_pad, const float* nodes,
     int n_nodes, const float* sph_leaf, const int* sph_gid, int n_sph_chunks,
     const float* quad_leaf, const int* quad_gid, const float* ray_f, const int* ray_i,
-    int n, int use_bvh, float* out_t, int* out_ib, long long* counts) {
+    int n, int use_bvh, int design, float* out_t, int* out_ib, long long* counts) {
   GroupParams p = params(table, P, ns_pad, nodes, n_nodes, sph_leaf, sph_gid, n_sph_chunks,
                          quad_leaf, quad_gid, ray_f, ray_i, n, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
                          0, 0);
   const float4* nd = reinterpret_cast<const float4*>(nodes);
   for (int i = 0; i < n; ++i) {
     rt::Ray r = rt::load_ray(ray_f, ray_i, n, i);
-    long long c[3] = {0, 0, 0};
-    if (use_bvh) walk_hit(p, nd, r, out_t[i], out_ib[i], c);
-    else sweep_hit(p, r, out_t[i], out_ib[i]);
+    long long c[N_COUNTS] = {0, 0, 0, 0, 0, 0, 0};
+    if (use_bvh && design) walk_hit<K5Design>(p, nd, r, out_t[i], out_ib[i], c);
+    else if (use_bvh) walk_hit<BaselineDesign>(p, nd, r, out_t[i], out_ib[i], c);
+    else if (design) sweep_hit<K5Design>(p, r, out_t[i], out_ib[i]);
+    else sweep_hit<BaselineDesign>(p, r, out_t[i], out_ib[i]);
     for (int k = 0; k < 3; ++k) counts[k * n + i] = c[k];
   }
 }
@@ -254,7 +258,7 @@ def host_k5(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
     tables = [P, I, I, P, I, P, P, I, P, P, P, P, I]
-    lib.host_hit.argtypes = tables + [I, P, P, P]
+    lib.host_hit.argtypes = tables + [I, I, P, P, P]
     lib.host_hit.restype = None
     lib.host_trace.argtypes = tables + [P, P, P, U, U, I, F, F, F, I, I, I, P, P, P]
     lib.host_trace.restype = None
@@ -299,7 +303,8 @@ def test_kernel_source_on_the_host_matches_plain(host_k5, name):
         t = torch.empty(B)
         ib = torch.empty(B, dtype=torch.int32)
         counts = torch.zeros((3, B), dtype=torch.int64)
-        host_k5.host_hit(*args, int(use_bvh), t.data_ptr(), ib.data_ptr(), counts.data_ptr())
+        host_k5.host_hit(*args, int(use_bvh), 1, t.data_ptr(), ib.data_ptr(),
+                         counts.data_ptr())
         if use_bvh:
             ref_counts = torch.zeros((3, B), dtype=torch.int64)
             t_ref, ib_ref = mg._walk(mega, *geo, alive, ref_counts)
@@ -328,3 +333,39 @@ def test_kernel_source_on_the_host_matches_plain(host_k5, name):
     assert segments_close(ref[1].sum(), bc.sum())
     bad = ((state - ref[2]).abs() > 1e-3 * ref[2].abs().clamp(min=1)).any(0) | (bc != ref[1])
     assert int(bad.sum()) <= max(4, B // 200)
+
+
+@pytest.mark.parametrize("case", K5_EDGE_CASES)
+def test_kernel_source_edge_cases_match_plain(host_k5, case):
+    """The kernel's closest hit at the edges of its member test (a
+    discriminant of exactly 0, negative ones, leaves with pad slots, equal
+    roots in two leaves), compiled for the CPU: K5's design and the baseline
+    design (unguarded root, one loop) are each bit-equal to the plain walk
+    and sweep, and count the plain version's box tests and real member
+    tests (pad slots are tested, not counted). With one bounce, the plain
+    version's trace_group_torch counts the same tests."""
+    mega, ray_f, ray_i = k5_edge_case(case)
+    n = ray_f.shape[1]
+    args = _table_args(mega, ray_f, ray_i)
+    geo = ray_f[mb.OX:mb.TM + 1]
+    plain_counts = torch.zeros((3, n), dtype=torch.int64)
+    ref = {True: mg._walk(mega, *geo, torch.ones(n, dtype=torch.bool), plain_counts),
+           False: mg._sweep(mega, *geo)}
+    for use_bvh in (True, False):
+        for design in (1, 0):
+            t = torch.empty(n)
+            ib = torch.empty(n, dtype=torch.int32)
+            counts = torch.zeros((3, n), dtype=torch.int64)
+            host_k5.host_hit(*args, int(use_bvh), design, t.data_ptr(), ib.data_ptr(),
+                             counts.data_ptr())
+            assert torch.equal(t, ref[use_bvh][0]) and torch.equal(ib.long(), ref[use_bvh][1])
+            if use_bvh:
+                assert torch.equal(counts, plain_counts)
+    hits = int((ref[True][1] >= 0).sum())
+    assert hits == 0 if case == "negative_disc" else hits > 0
+    if case == "short_chunk":  # every leaf has pad slots, which are not counted
+        assert bool((mg.real_members(mega.sph_gid) < 8).all())
+        assert int(plain_counts[1].sum()) < 8 * int((plain_counts[1] > 0).sum())
+    one = mg.trace_group_torch(mega, ray_f, ray_i, SEED, 0, max_depth=1,
+                               background=(0.7, 0.8, 1.0), use_bvh=True, want_counts=True)
+    assert torch.equal(one[3], plain_counts)

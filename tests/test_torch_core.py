@@ -16,7 +16,7 @@ from raytracing_tpu.render import camera as jcam
 from raytracing_tpu_torch.core import color as pcolor
 from raytracing_tpu_torch.core import rng as prng
 from raytracing_tpu_torch.render import camera as pcam
-from torch_parity import port_params, t
+from torch_parity import port_params, sqrt_grads, sqrt_inputs, t
 
 torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parents[1]
@@ -101,3 +101,18 @@ def test_port_imports_without_jax():
     sources = [*(REPO / "raytracing_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]
     imports = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|raytracing_tpu)(\.|\s|$)", re.M)
     assert not [p for p in sources if imports.search(p.read_text())]
+
+
+def test_sqrt_rn_card_route_has_the_float64_routes_gradient():
+    """The float32 route that sqrt_rn takes on CUDA tensors (``_Sqrt32``)
+    has the float64 route's gradient bit for bit, and float32
+    ``torch.sqrt``'s own gradient does not (on the CPU, where both can
+    run; the card holds the forward in tests/test_torch_cuda.py)."""
+    from raytracing_tpu_torch.ops.intersect import _Sqrt32, sqrt_rn
+
+    xs = sqrt_inputs("cpu", n=1 << 16)
+    g = torch.randn(xs.shape, generator=torch.Generator().manual_seed(3))
+    ref = sqrt_grads(lambda x: torch.sqrt(x.double()).float(), xs, g)
+    assert torch.equal(sqrt_grads(_Sqrt32.apply, xs, g), ref)
+    assert torch.equal(sqrt_grads(sqrt_rn, xs, g), ref)
+    assert int((sqrt_grads(torch.sqrt, xs, g) != ref).sum()) > 0

@@ -21,7 +21,7 @@ from raytracing_tpu_torch.diff import replay_kernel as rk
 from raytracing_tpu_torch.ops.megakernel import build_mega_scene, pack_rays, trace_megakernel
 from raytracing_tpu_torch.render import camera as cam
 from raytracing_tpu_torch.render import pool as pool_mod
-from torch_parity import segments_close
+from torch_parity import K5_EDGE_CASES, k5_edge_case, segments_close, sqrt_grads, sqrt_inputs
 
 pytestmark = pytest.mark.cuda
 SEED = 7
@@ -136,6 +136,56 @@ def test_group_kernel_matches_plain_version(dev, name):
     for x, y in zip(*outs):
         assert torch.equal(x, y)
     assert int(outs[0][1].sum()) > 0
+
+
+@pytest.mark.parametrize("case", K5_EDGE_CASES)
+def test_group_kernel_edge_cases_match_plain_version(dev, case):
+    """K5 at the edges of its member test (a discriminant of exactly 0,
+    negative ones, leaves with pad slots, equal roots in two leaves), walk
+    and sweep: every output bit-equal to the plain version; so is K5's
+    probe in both designs, timed and counting, and the counting
+    instantiation counts the plain version's box and member tests."""
+    mega, ray_f, ray_i = k5_edge_case(case, dev)
+    for use_bvh in (True, False):
+        kw = dict(max_depth=3, background=(0.7, 0.8, 1.0), use_bvh=use_bvh)
+        before = mg.launches
+        out = mg.trace_group(mega, ray_f, ray_i, SEED, 0, **kw)
+        torch.cuda.synchronize()
+        assert mg.launches == before + 1
+        ref = mg.trace_group_torch(mega, ray_f, ray_i, SEED, 0, want_counts=True, **kw)
+        for x, y in zip(out, ref[:3]):
+            assert torch.equal(x, y)
+        if not use_bvh:
+            continue
+        for design in mg.DESIGNS:
+            for count in (False, True):
+                *probe, c = mg.trace_group_probe(mega, ray_f, ray_i, SEED, 0, design=design,
+                                                 count=count, max_depth=3,
+                                                 background=(0.7, 0.8, 1.0))
+                for x, y in zip(probe, ref[:3]):
+                    assert torch.equal(x, y)
+        assert (c["visits"], c["sphere_tests"], c["quad_tests"]) == tuple(
+            int(v) for v in ref[3].sum(1))
+        assert 0 < c["box_lanes"] <= 32 * c["box_issues"]
+
+
+def test_sqrt_rn_on_the_card_is_the_float64_route(dev):
+    """sqrt_rn on CUDA tensors, and the card's float32 sqrt, equal the
+    float64 route (correctly rounded) bit for bit on 2^24 random float32
+    inputs (every exponent, denormals included), 0, the largest float and
+    every power of two; so does sqrt_rn's gradient, on the card and
+    against the CPU's."""
+    from raytracing_tpu_torch.ops.intersect import sqrt_rn
+
+    xs = sqrt_inputs(dev)
+    ref = torch.sqrt(xs.double()).float()
+    assert int((torch.sqrt(xs) != ref).sum()) == 0
+    assert int((sqrt_rn(xs) != ref).sum()) == 0
+    assert torch.equal(sqrt_rn(xs).cpu(), sqrt_rn(xs.cpu()))
+    g = torch.randn(xs.shape, generator=torch.Generator(dev).manual_seed(SEED), device=dev)
+    ref_g = sqrt_grads(lambda x: torch.sqrt(x.double()).float(), xs, g)
+    assert torch.equal(sqrt_grads(sqrt_rn, xs, g), ref_g)
+    assert torch.equal(sqrt_grads(sqrt_rn, xs.cpu(), g.cpu()), ref_g.cpu())
 
 
 @pytest.mark.parametrize("L,F,B", [(512, 23, 360_448), (4224, 23, 4096), (128, 5, 1000)])

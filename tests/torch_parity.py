@@ -114,3 +114,85 @@ def mixed_scene_config(config_cls, **overrides):
         image_width=32, aspect_ratio=1.0, samples_per_pixel=1, max_depth=6, vfov=20.0,
         lookfrom=(26.0, 3.0, 6.0), lookat=(0.0, 2.0, 0.0), background=(0.0, 0.0, 0.0)),
         **overrides})
+
+
+def sqrt_inputs(device, n: int = 1 << 24, seed: int = 11) -> torch.Tensor:
+    """float32 inputs of a square root: ``n`` random bit patterns of the
+    non-negative finite floats (every exponent, denormals included), then
+    0, the smallest denormal and normal, the largest float, 1 - ulp and
+    every power of two."""
+    g = torch.Generator(device).manual_seed(seed)
+    bits = torch.randint(0, 0x7F800000, (n,), generator=g, device=device, dtype=torch.int32)
+    edges = torch.tensor([0, 1, 0x00800000, 0x7F7FFFFF, 0x3F7FFFFF], dtype=torch.int32,
+                         device=device)
+    pow2 = torch.ldexp(torch.ones(277, device=device),
+                       torch.arange(-149, 128, device=device, dtype=torch.float32))
+    return torch.cat([bits.view(torch.float32), edges.view(torch.float32), pow2])
+
+
+def sqrt_grads(fn, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The gradient of ``(fn(x) * g).sum()`` in ``x``, as int32 bit
+    patterns (so NaNs compare too)."""
+    x = x.detach().clone().requires_grad_()
+    fn(x).backward(g)
+    return x.grad.view(torch.int32)
+
+
+K5_EDGE_CASES = ("tangent", "negative_disc", "short_chunk", "equal_roots")
+
+
+def k5_edge_case(case: str, device="cpu"):
+    """A port scene and its K5 ray state ``(mega, ray_f, ray_i)`` at an edge
+    of K5's member test:
+
+    * ``tangent``: rays tangent to the unit sphere at the origin, each with
+      a discriminant of exactly 0 (o = (-5, ±1, 0) or (-5, 0, ±1), d along
+      x at three lengths), beside rays through it and past it;
+    * ``negative_disc``: rays that pass the same sphere, every
+      discriminant negative, and rays pointing away;
+    * ``short_chunk``: 13 spheres in a row, so the BVH's leaves are short
+      and hold pad slots, with rays from above;
+    * ``equal_roots``: 16 spheres in two leaves, mirrored across z = 0,
+      and rays in that plane that meet the two innermost at equal roots."""
+    from raytracing_tpu_torch.ops.megakernel import build_mega_scene, pack_rays
+    from raytracing_tpu_torch.scene.builder import SceneBuilder
+
+    b = SceneBuilder()
+    mat = b.metal((0.8, 0.7, 0.6), 0.0)
+    rng = np.random.default_rng(K5_EDGE_CASES.index(case))
+    if case in ("tangent", "negative_disc"):
+        b.sphere((0.0, 0.0, 0.0), 1.0, mat)
+        if case == "tangent":
+            offs = [(1.0, 0.0), (-1.0, 0.0), (0.0, 1.0), (0.0, -1.0)]
+            o = [(-5.0, y, z) for y, z in offs for _ in range(3)]
+            d = [(s, 0.0, 0.0) for _ in offs for s in (1.0, 2.0, 0.5)]
+            o += [(-5.0, 0.3, -0.2), (-5.0, 0.0, 0.0), (-5.0, 1.5, 0.0), (-5.0, 0.0, -2.0)]
+            d += [(1.0, 0.0, 0.0)] * 4
+        else:
+            r = rng.uniform(1.05, 3.0, 32)
+            phi = rng.uniform(0.0, 2 * np.pi, 32)
+            o = [(-5.0, ri * np.cos(p), ri * np.sin(p)) for ri, p in zip(r, phi)]
+            d = [(1.0, 0.0, 0.0)] * 24 + [(-1.0, 0.0, 0.0)] * 8
+            o[24:] = [(-5.0, 0.1 * k, 0.0) for k in range(8)]  # the sphere lies behind them
+    elif case == "short_chunk":
+        for k in range(13):
+            b.sphere((2.0 * k, 0.0, 0.0), 0.5, mat)
+        x = rng.uniform(-1.0, 25.0, 64)
+        z = rng.uniform(-0.6, 0.6, 64)
+        o = [(xi, 5.0, zi) for xi, zi in zip(x, z)]
+        d = [(dx, -1.0, dz) for dx, dz in rng.uniform(-0.05, 0.05, (64, 2))]
+    elif case == "equal_roots":
+        for k in range(1, 9):
+            b.sphere((0.0, 0.0, k - 0.5), 1.0, mat)
+            b.sphere((0.0, 0.0, 0.5 - k), 1.0, mat)
+        o = [(-5.0, y, 0.0) for y in np.linspace(-0.8, 0.8, 32)]
+        d = [(1.0, dy, 0.0) for dy in np.linspace(-0.02, 0.02, 32)]
+    else:
+        raise ValueError(case)
+    scene = b.compile(device)
+    o = torch.tensor(np.array(o, np.float32), device=device)
+    d = torch.tensor(np.array(d, np.float32), device=device)
+    n = o.shape[0]
+    idx = torch.arange(n, dtype=torch.int32, device=device)
+    ray_f, ray_i = pack_rays(o, d, torch.zeros(n, device=device), idx, torch.zeros_like(idx))
+    return build_mega_scene(scene), ray_f, ray_i

@@ -1,20 +1,23 @@
-"""K1's compiled sphere loop, read from its SASS.
+"""K1's (or K5's) compiled sphere tests, read from their SASS.
 
-    python3 tools/k1_sass.py [--root DIR] [--out DIR]
+    python3 tools/k1_sass.py [--kernel k1|k5] [--root DIR] [--out DIR]
 
 Builds the kernel library of the raytracing_tpu_torch package under DIR
 (default: this checkout; a parent commit unpacked elsewhere can be read in
 the same call), disassembles it with ``cuobjdump -sass`` and prints, for
-each instantiation of K1 (``k1_trace_block<MOVING, NOISE, IMAGE, CAP[,
-WALK]>``), one JSON line: its instruction count, calls, and the loop that
-is the innermost to hold a ``MUFU.RSQ`` (the square roots of the sphere
-test, four to an iteration of the sweep's unrolled loop): its length in
+each instantiation of the kernel (K1: ``k1_trace_block<MOVING, NOISE,
+IMAGE, CAP[, WALK]>``; K5: ``k5_trace_group<BVH, STAGED, NOISE, IMAGE,
+GUARD, SPLIT, COUNT>``, the last three its design switches and the
+counting probe), one JSON line: its instruction count, calls, square
+roots (``MUFU.RSQ``), the roots guarded by a branch that a miss takes past
+them, and the loop that is the innermost to hold a ``MUFU.RSQ`` (K1's
+sweep: four roots to an iteration of its unrolled loop): its length in
 instructions, square roots, instructions per sphere test, the calls
 inside it (the correctly rounded ``sqrtf`` reaches its slow path through
-a call) and the length of the called subroutine, the roots guarded by a
-branch that a miss takes past them and the instructions it skips, with
-the loop's instructions by opcode. With ``--out`` it writes each K1
-function's SASS there. Needs the CUDA toolkit (``nvcc``, ``cuobjdump``).
+a call) and the length of the called subroutine, the guarded roots and
+the instructions a miss skips, with the loop's instructions by opcode.
+With ``--out`` it writes each function's SASS there. Needs the CUDA
+toolkit (``nvcc``, ``cuobjdump``).
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import sys
 from pathlib import Path
 
 INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
-TEMPLATE = re.compile(r"k1_trace_blockI((?:Lb[01]E)+)E")
+KERNELS = {"k1": "k1_trace_block", "k5": "k5_trace_group"}
 
 
 def functions(sass: str):
@@ -74,6 +77,21 @@ def subroutine_length(instrs, entry):
     return None
 
 
+def guarded_roots(body):
+    """For each MUFU.RSQ of ``body`` guarded by a conditional branch (one
+    of the four instructions before it) forward past the root's call: the
+    instructions from that branch to its target, which a miss skips."""
+    skipped = []
+    for k, (a, t) in enumerate(body):
+        if not opcode(t).startswith("MUFU.RSQ"):
+            continue
+        for a2, t2 in body[max(0, k - 4):k]:
+            tgt = target(t2)
+            if t2.startswith("@") and opcode(t2).startswith("BRA") and tgt and tgt > a + 0x40:
+                skipped.append(sum(a2 < x < tgt for x, _ in body))
+    return skipped
+
+
 def sweep_loop(instrs):
     """The innermost loop (the shortest backward branch's span) holding a
     MUFU.RSQ: its summary, or None. A square root is guarded when one of
@@ -96,14 +114,7 @@ def sweep_loop(instrs):
     calls = [t for _, t in body if opcode(t).startswith("CALL")]
     leaves = [t for _, t in body if opcode(t).startswith("BRA") and target(t) is not None
               and not start <= target(t) <= end]
-    skipped = []
-    for k, (a, t) in enumerate(body):
-        if not opcode(t).startswith("MUFU.RSQ"):
-            continue
-        for a2, t2 in body[max(0, k - 4):k]:
-            tgt = target(t2)
-            if t2.startswith("@") and opcode(t2).startswith("BRA") and tgt and tgt > a + 0x40:
-                skipped.append(sum(a2 < x < tgt for x, _ in body))
+    skipped = guarded_roots(body)
     rsq = ops["MUFU.RSQ"]
     slow = {target(t) for t in calls}
     return dict(start=hex(start), end=hex(end), instructions=len(body), rsq=rsq,
@@ -115,6 +126,7 @@ def sweep_loop(instrs):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default="k1")
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -128,19 +140,20 @@ def main() -> int:
     out = Path(args.out) if args.out else None
     if out:
         out.mkdir(parents=True, exist_ok=True)
-    print(f"k1_sass: {kernels.__file__} ({lib.path.name})")
+    kernel = KERNELS[args.kernel]
+    print(f"k1_sass: {kernels.__file__} ({lib.path.name}) {kernel}")
     for name, instrs in sorted(functions(sass).items()):
-        m = TEMPLATE.search(name)
-        if not m:
+        if f"{kernel}I" not in name:
             continue
-        tpl = ",".join(re.findall(r"Lb([01])E", m.group(1)))
-        row = dict(kernel=f"k1_trace_block<{tpl}>", instructions=len(instrs),
+        # the template's bool arguments, in order (K5's Design<...> among them)
+        tpl = ",".join(re.findall(r"Lb([01])E", name.split(f"{kernel}I", 1)[1]))
+        row = dict(kernel=f"{kernel}<{tpl}>", instructions=len(instrs),
                    calls=sum(opcode(t).startswith("CALL") for _, t in instrs),
                    rsq=sum(opcode(t).startswith("MUFU.RSQ") for _, t in instrs),
-                   sweep_loop=sweep_loop(instrs))
+                   guarded_rsq=len(guarded_roots(instrs)), sweep_loop=sweep_loop(instrs))
         print(json.dumps(row))
         if out:
-            (out / f"k1_{tpl.replace(',', '')}.sass").write_text(
+            (out / f"{args.kernel}_{tpl.replace(',', '')}.sass").write_text(
                 "\n".join(f"/*{a:04x}*/ {t}" for a, t in instrs) + "\n")
     return 0
 

@@ -16,8 +16,9 @@ timed sweeps, then one chunk under torch.profiler.
 
 ``render_once`` times ``diff.gradients.render_once`` forward+backward on
 bouncing_spheres 400x225, spp 1, depth 20, with the sphere roots taken
-through ``ops.intersect.sqrt_rn`` (a float64 sqrt, correctly rounded on
-every device) and through float32 ``torch.sqrt``, in the order A B B A.
+through ``ops.intersect.sqrt_rn`` (float32 ``torch.sqrt`` on the card,
+correctly rounded there) and through a float64 sqrt rounded to float32
+(what ``sqrt_rn`` took on every device before), in the order A B B A.
 
 ``--search sweep`` or ``walk`` makes every K1 launch of the bench and
 fast paths take that search (``cull``); the default picks it by the
@@ -152,8 +153,11 @@ def profile_render_once():
         ((img - target) ** 2).mean().backward()
         return seg
 
-    for name in ("sqrt_rn", "float32", "float32", "sqrt_rn"):
-        intersect.sqrt_rn = sqrt_rn if name == "sqrt_rn" else torch.sqrt
+    def float64_route(x):
+        return torch.sqrt(x.double()).float()
+
+    for name in ("sqrt_rn", "float64", "float64", "sqrt_rn"):
+        intersect.sqrt_rn = sqrt_rn if name == "sqrt_rn" else float64_route
         try:
             fwd_bwd()  # warm-up
             runs = [timed(fwd_bwd) for _ in range(3)]

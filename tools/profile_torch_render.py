@@ -17,7 +17,7 @@ regenerating pool instead (K1 only, no phases or prefixes; the two
 per-launch timings are the phased schedule's and are skipped).
 ``--search sweep`` or ``walk`` makes every K1 launch take that search
 (``Renderer(cull=)``); the default picks it by the scene's primitive
-count. The profile sums K1's device time and launches.
+count. The profile sums K1's and K5's device time and launches.
 """
 from __future__ import annotations
 
@@ -102,10 +102,12 @@ def main() -> int:
     rows = sorted(((e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
     device_ms = sum(x[0] for x in rows) / 1e3
-    k1 = [x for x in rows if "k1_trace_block" in x[1]]
+    mk = {k: [x for x in rows if name in x[1]]
+          for k, name in (("K1", "k1_trace_block"), ("K5", "k5_trace_group"))}
     print(f"profiled render: wall {wall * 1e3:.2f} ms, device {device_ms:.2f} ms, "
-          f"busy share {device_ms / (wall * 1e3):.3f}, K1 {sum(x[0] for x in k1) / 1e3:.3f} ms "
-          f"in {sum(x[2] for x in k1)} launches")
+          f"busy share {device_ms / (wall * 1e3):.3f}, " + ", ".join(
+              f"{k} {sum(x[0] for x in v) / 1e3:.3f} ms in {sum(x[2] for x in v)} launches"
+              for k, v in mk.items()))
     for dt, key, count in rows[:20]:
         print(f"  {dt / 1e3:9.3f} ms {count:6d}  {key[:100]}")
 
