@@ -13,10 +13,14 @@ the segment count; it also holds a small render on the card against the
 same render on the CPU. Phase 4 times K1 and its plain version on one
 full-width launch. Phase 5 holds K3 and K2 (the decision replay) against
 their plain versions on small scenes and on one full-width depth-20
-chunk of the fwd+bwd workload (B = 360,448), and times them and the two
-table reductions. Phase 6 runs the fwd+bwd bench
+chunk of the fwd+bwd workload (B = 360,448), and times them; K3's probe
+times its design before the refill (one thread per ray) against K3's in
+turns and counts the share of a warp's lanes busy at a bounce; the chunk's
+table reduction runs through the fold kernel (one launch), against a
+float64 sum, with index_add_ per bounce and the one-hot matmul timed
+beside it. Phase 6 runs the fwd+bwd bench
 (raytracing_tpu_torch.bench: the steps of bench_fwd_bwd) and counts the
-kernels' launches in one of its sweeps.
+kernels' launches in one of its sweeps (the fold once a chunk).
 Phase 7 drives replay_trace_kernel (K3 forward, K2 backward by
 autograd) on that chunk and counts its launches.
 Phase 8 holds K5 (the group megakernel, BVH walk and dense sweep) against
@@ -37,13 +41,15 @@ values. Phase
 Renderer, which picks K5 on its own, and counts the kernels' launches.
 Phase 11 holds K4 (the table gather) against its plain version, bit for
 bit, on one bounce's K1-recorded ids of a fwd+bwd chunk (B = 360,448,
-L = 512) and on the bouncing_spheres_64 replay table (L = 4,224), and
-times it, index_select and the backward's index_add_. Phase 12 runs the
+L = 512) and on the bouncing_spheres_64 replay table (L = 4,224), and the
+fold (its backward) against a float64 sum, and times them, index_select,
+index_add_ and the one-hot matmul. Phase 12 runs the
 differentiable-rendering path at full width: K1 decisions, then
 replay_trace_fast (one K4 lookup per bounce) under autograd with an MSE
 and its backward to sphere centers, texture rgb and the camera's
 lookfrom, chunk by chunk; the first chunk against replay_trace_kernel
-(K3/K2), then one timed 25-chunk sweep with its K4 launches counted.
+(K3/K2), then one timed 25-chunk sweep with its K4 and fold launches
+counted (one fold per lookup's backward).
 Phase 13 runs render_once (the wavefront integrator) once with its
 backward at 400x225, spp 1, depth 20, against trace_megakernel's segment
 count on the same rays, and camera_grad through render_once against the
@@ -77,6 +83,10 @@ the sweep's shared memory.
 Phase 23 renders a scene the megakernels cannot express (bilinear image
 filtering) through Renderer(hit_method="auto"), which takes the
 integrator, against the same render on the CPU.
+
+Kernels shorter than their wrappers' host time (K3, K4, the fold and the
+PyTorch calls beside them) are timed with their launches queued behind a
+spin kernel (device_ms), the others over back-to-back runs (cuda_ms).
 
 Prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}. Exits
@@ -134,9 +144,9 @@ def ptxas_summary(log):
         if m:
             k = re.search(r"(k\d_[a-z_]+?)(I|E)", m.group(1))
             name = k.group(1) if k else m.group(1)
-            if k and k.group(2) == "I":  # the template's bools, K5's Design<...> among them
+            if k and k.group(2) == "I":  # the template's ints and bools, K5's Design<...> among them
                 rest = m.group(1)[k.end():]
-                name += "<" + ",".join(re.findall(r"Lb([01])E", rest)) + ">"
+                name += "<" + ",".join(re.findall(r"L[ib](\d+)E", rest)) + ">"
         elif "stack frame" in line:
             frame = line.split(":", 1)[-1].strip()
         elif "registers" in line and name:
@@ -332,15 +342,48 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+SPIN_CYCLES_PER_REP = 2_000_000  # ~1 ms of a 2 GHz card's clock for each queued run
+
+
+def device_ms(torch, fn, reps):
+    """Mean device milliseconds of ``fn()`` over ``reps`` runs, queued behind
+    a spin kernel (``torch.cuda._sleep``) so that the host's time between
+    launches is hidden: the time of kernels shorter than their wrappers'
+    host time, which :func:`cuda_ms` would measure instead. ``fn`` must not
+    synchronize with the device."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES_PER_REP * reps)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def onehot_reduce(torch, rk, g, ids, L, prefixes):
     """The JAX reference's table reduction, a one-hot matmul per bounce in
-    full f32: timed beside the port's index_add_ reduction."""
+    full f32: timed beside the port's fold."""
     acc = torch.zeros((L, rk.NG), dtype=torch.float32, device=g.device)
     rows = torch.arange(L, device=g.device)
     for b in range(g.shape[0]):
         P = prefixes[b]
         acc += (rows[:, None] == ids[b, :P].clamp(min=0)[None, :]).float() @ g[b, :, :P].T
     tbar = torch.zeros((L, rk.rf.N_FIELDS), dtype=torch.float32, device=g.device)
+    tbar[:, rk._TCOLS] = acc[:, rk._GSLOTS]
+    return tbar
+
+
+def index_add_reduce(torch, rk, g, ids, L, prefixes):
+    """The port's table reduction before the fold: index_add_ per bounce
+    (the fold's plain version), timed beside the fold."""
+    acc = torch.zeros((L, rk.NG), dtype=g.dtype, device=g.device)
+    for b in range(g.shape[0]):
+        P = prefixes[b]
+        acc.index_add_(0, ids[b, :P].clamp(min=0).long(), g[b, :, :P].T)
+    tbar = torch.zeros((L, rk.rf.N_FIELDS), dtype=g.dtype, device=g.device)
     tbar[:, rk._TCOLS] = acc[:, rk._GSLOTS]
     return tbar
 
@@ -399,10 +442,15 @@ def main() -> int:
 
     def zero_counts():
         mb.launches = rk.fwd_launches = rk.bwd_launches = mg.launches = tg.launches = 0
+        tg.fold_launches = 0
 
     def counts():
         return dict(K1=mb.launches, K3=rk.fwd_launches, K2=rk.bwd_launches, K5=mg.launches,
-                    K4=tg.launches)
+                    K4=tg.launches, fold=tg.fold_launches)
+
+    def only(**kw):
+        """The counts of a run that launched only the kernels named."""
+        return {**dict(K1=0, K3=0, K2=0, K5=0, K4=0, fold=0), **kw}
 
     # ---- phase 1: build ----
     t0 = time.perf_counter()
@@ -451,7 +499,7 @@ def main() -> int:
     img = res.u8
     # one K1 launch per phase of every chunk: 5 × 50 = 250
     render_ok = (res.ok is True
-                 and render_counts == dict(K1=5 * res.launches, K3=0, K2=0, K5=0, K4=0)
+                 and render_counts == only(K1=5 * res.launches)
                  and segments_close(BENCH_SEGMENTS, res.segments)
                  and res.segments == PORT_BENCH_SEGMENTS
                  and all(x.segments == res.segments for x in runs)
@@ -587,15 +635,36 @@ def main() -> int:
     d3 = (rad_k3 - rad_p3).abs()
     seg_k3 = int(bc_k3.sum())
     ok3 = seg_k3 == int(bc_p3.sum()) and float(d3.mean()) < 2e-3
-    k3_ms = cuda_ms(torch, lambda: rk.replay_fwd(table, ids, rfr, rir, ml, **kw_r), 5)
+    k3_ms = device_ms(torch, lambda: rk.replay_fwd(table, ids, rfr, rir, ml, **kw_r), 10)
     k3_plain_ms = cuda_ms(torch, lambda: rk.replay_fwd_torch(table, ids, rfr, rir, ml, **kw_r), 2)
     D = cfg.max_depth
     k3_bound = bound(seg_k3 * K3_OPS_PER_SEGMENT,
                      n_full * (rk.N_RAY_F * 4 + 8 + 12 + 4) + 4 * seg_k3 + 4 * table.numel())
+    # K3's probe on the same chunk: the design before the refill (one thread
+    # per ray) against K3's in turns, both bit-equal to K3, and the counting
+    # instantiation of each (the share of a warp's lanes busy at a bounce)
+    k3_probe = {}
+    for design in ("baseline", "refill", "refill", "baseline"):
+        def run_k3(design=design, count=False):
+            return rk.replay_fwd_probe(table, ids, rfr, rir, ml, design=design, count=count,
+                                       **kw_r)
+
+        pr = k3_probe.setdefault(design, dict(ms=[]))
+        pr["ms"].append(device_ms(torch, run_k3, 10))
+        if "lanes" not in pr:
+            (r1, b1, _), (r2, b2, c) = run_k3(), run_k3(count=True)
+            pr["bit_equal"] = all(torch.equal(x, y) for x, y in
+                                  ((r1, rad_k3), (r2, rad_k3), (b1, bc_k3), (b2, bc_k3)))
+            pr["bounces"] = c["bounces"]
+            pr["lanes"] = c["bounces"] / (32 * c["issues"])
+    ok3 &= all(v["bit_equal"] and v["bounces"] == seg_k3 for v in k3_probe.values())
     print(f"phase 5 full chunk B={n_full} depth {D}: K3 {'ok' if ok3 else 'FAIL'} segments "
           f"{seg_k3} plain {int(bc_p3.sum())} decision {seg_dec} max_abs_err "
           f"{float(d3.max()):.3g} mean {float(d3.mean()):.3g} kernel {k3_ms:.3f} ms plain "
-          f"{k3_plain_ms:.3f} ms bound {k3_bound[0]:.4f} ms ({k3_bound[1]}) [{card}]")
+          f"{k3_plain_ms:.3f} ms bound {k3_bound[0]:.4f} ms ({k3_bound[1]}); probe " + "; ".join(
+              f"{d} {' '.join(f'{x:.4f}' for x in v['ms'])} ms, bit_equal {v['bit_equal']}, "
+              f"bounces counted {v['bounces']}, lanes busy {v['lanes']:.3f} of a warp"
+              for d, v in k3_probe.items()) + f" [{card}]")
     if not ok3:
         failures.append("phase 5 K3 full chunk")
 
@@ -621,16 +690,40 @@ def main() -> int:
     if not ok2:
         failures.append("phase 5 K2 full chunk")
 
+    # the table reduction over the planned prefixes: the fold (the port's,
+    # one launch) against index_add_ per bounce and the reference's one-hot
+    # matmul, each against a float64 sum
     prefixes = rk.plan_prefixes(torch.bincount(len_s.long(), minlength=D + 1).cpu(), n_full, D,
                                 margin=1.0)
-    red_ms = cuda_ms(torch, lambda: rk.reduce_table_grads(g_k2, ids, L, prefixes), 3)
-    oh_ms = cuda_ms(torch, lambda: onehot_reduce(torch, rk, g_k2, ids, L, prefixes), 3)
-    red_err = float((onehot_reduce(torch, rk, g_k2, ids, L, prefixes)
-                     - rk.reduce_table_grads(g_k2, ids, L, prefixes)).abs().max())
-    print(f"phase 5 table reduction over planned prefixes: index_add_ (the port's) "
-          f"{red_ms:.3f} ms, one-hot matmul {oh_ms:.3f} ms; max |index_add_ - onehot| "
-          f"{red_err:.3g} [{card}]")
-    del g_k2
+    before = tg.fold_launches
+    red_fold = rk.reduce_table_grads(g_k2, ids, L, prefixes)
+    torch.cuda.synchronize()
+    ok5r = tg.fold_launches == before + 1
+    red64 = index_add_reduce(torch, rk, g_k2.double(), ids, L, prefixes)
+    reds = dict(fold=red_fold, index_add_=index_add_reduce(torch, rk, g_k2, ids, L, prefixes),
+                onehot=onehot_reduce(torch, rk, g_k2, ids, L, prefixes))
+    red_err = {k: float((v.double() - red64).abs().max()) for k, v in reds.items()}
+    red_rel = float((red_fold.double() - red64).norm() / red64.norm())
+    red_atol = 2e-6 * max(1, sum(prefixes) // L)  # phase 11's bar, at this fold's rays per row
+    ok5r &= bool(torch.allclose(red_fold.double(), red64, rtol=1e-5, atol=red_atol))
+    red_ms = dict(fold=device_ms(torch, lambda: tg.fold(g_k2, ids, L, prefixes), 10),
+                  index_add_=device_ms(torch, lambda: index_add_reduce(torch, rk, g_k2, ids, L,
+                                                                       prefixes), 5),
+                  onehot=device_ms(torch, lambda: onehot_reduce(torch, rk, g_k2, ids, L,
+                                                                prefixes), 3),
+                  reduce_table_grads_wall=cuda_ms(torch, lambda: rk.reduce_table_grads(
+                      g_k2, ids, L, prefixes), 5))
+    fold_rays = sum(prefixes)
+    red_bound = bound(fold_rays * rk.NG, 4 * (fold_rays * (rk.NG + 1) + L * rk.NG))
+    print(f"phase 5 table reduction over planned prefixes ({fold_rays} ray-bounces): "
+          f"{'ok' if ok5r else 'FAIL'} ms {json.dumps(red_ms)} (fold: the port's, one launch, "
+          f"device time; index_add_ per bounce and one-hot matmul: references; "
+          f"reduce_table_grads_wall: the whole call, host included); max abs error against "
+          f"float64 {json.dumps(red_err)}, fold relative L2 {red_rel:.3g} (bar rtol 1e-5, atol "
+          f"{red_atol:.3g}); bound {red_bound[0]:.4f} ms ({red_bound[1]}) [{card}]")
+    if not ok5r:
+        failures.append("phase 5 table reduction")
+    del g_k2, reds, red64
 
     # ---- phase 6: the fwd+bwd bench ----
     # bench_fwd_bwd's steps, with the kernels' launches counted over one
@@ -646,15 +739,15 @@ def main() -> int:
     fb = pbench.time_fwd_bwd(fbs, reps=3)
     fb_wall = time.perf_counter() - t0
     n_chunks = fbs["n_chunks"]
-    fb_ok = (fb_counts == dict(K1=5 * n_chunks, K3=0, K2=n_chunks, K5=0, K4=0) and bool(sweep_ok)
+    fb_ok = (fb_counts == only(K1=5 * n_chunks, K2=n_chunks, fold=n_chunks) and bool(sweep_ok)
              and int(sweep_segs) == fb["segments"]
              and fb["segments"] == res.segments and segments_close(BENCH_SEGMENTS, fb["segments"])
              and fb["grads_finite"] and float(fb["grad_rgb"].abs().sum()) > 0)
     print(f"phase 6 fwd+bwd bench: {'ok' if fb_ok else 'FAIL'} segments {fb['segments']} "
           f"(forward render {res.segments}, reference {BENCH_SEGMENTS}) best {fb['seconds']:.4f} s "
           f"{fb['rays_per_s']:.4g} rays/s loss {fb['loss']:.6g} kernel launches in one sweep "
-          f"{fb_counts} (expected K1 {5 * n_chunks}, K2 {n_chunks}) (call {fb_wall:.1f} s) "
-          f"reduction index_add_ [{card}]")
+          f"{fb_counts} (expected K1 {5 * n_chunks}, K2 and fold {n_chunks}) (call "
+          f"{fb_wall:.1f} s) [{card}]")
     if not fb_ok:
         failures.append("phase 6 fwd+bwd bench")
 
@@ -669,7 +762,7 @@ def main() -> int:
     (rad_t * rbar.T).sum().backward()
     torch.cuda.synchronize()
     rt_counts = counts()
-    rt_ok = (rt_counts == dict(K1=0, K3=1, K2=1, K5=0, K4=0) and int(seg_t) == seg_k3
+    rt_ok = (rt_counts == only(K3=1, K2=1, fold=1) and int(seg_t) == seg_k3
              and bool(torch.equal(rad_t.detach(), rad_k3.T))
              and bool(torch.isfinite(rgb.grad).all()))
     print(f"phase 7 replay_trace_kernel: {'ok' if rt_ok else 'FAIL'} segments {int(seg_t)} "
@@ -828,7 +921,7 @@ def main() -> int:
     res10 = r10.render(s64, seed=SEED)
     k5_counts = counts()
     img10 = res10.u8
-    ok10 = (k5_counts == dict(K1=0, K3=0, K2=0, K5=5 * res10.launches, K4=0) and res10.segments > 0
+    ok10 = (k5_counts == only(K5=5 * res10.launches) and res10.segments > 0
             and img10.shape == (c64.image_height, c64.image_width, 3)
             and 20 < float(img10.mean()) < 235)
     print(f"phase 10 bouncing_spheres_64 render: {'ok' if ok10 else 'FAIL'} segments "
@@ -838,13 +931,16 @@ def main() -> int:
     if not ok10:
         failures.append("phase 10 bouncing_spheres_64 render")
 
-    # ---- phase 11: K4 against its plain version ----
+    # ---- phase 11: K4 and the fold against their plain versions ----
     # one bounce's K1-recorded winners of the phase-5 chunk (misses are -1),
-    # and numpy-seeded ids over the bouncing_spheres_64 replay table
+    # and numpy-seeded ids over the bouncing_spheres_64 replay table; the
+    # lookup's backward on a seeded cotangent: the fold (the port's), and
+    # index_add_ (its plain version) and the one-hot matmul (the JAX
+    # package's) as references, each against a float64 sum
     table64 = rf.build_replay_table(s64).detach()
     ids64 = torch.from_numpy(np.random.default_rng(5).integers(
         -1, table64.shape[0], n_full).astype(np.int32)).to(dev)
-    k4_rows = []
+    k4_rows, fold_rows = [], []
     for name, tab, idv in (("bench chunk bounce 1", table, ids[1].contiguous()),
                            ("bouncing_spheres_64 table", table64, ids64)):
         L, F = tab.shape
@@ -852,24 +948,49 @@ def main() -> int:
         torch.cuda.synchronize()
         ref = tg.gather_torch(tab, idv)
         k4_eq = bool(torch.equal(out, ref))
-        k4_ms = cuda_ms(torch, lambda: tg.gather(tab, idv), 20)
-        sel_ms = cuda_ms(torch, lambda: tg.gather_torch(tab, idv), 20)
+        k4_ms = device_ms(torch, lambda: tg.gather(tab, idv), 20)
+        sel_ms = device_ms(torch, lambda: tg.gather_torch(tab, idv), 20)
         g_out = torch.randn((F, n_full), device=dev, generator=torch.Generator(dev).manual_seed(4))
+        idc = idv.clamp(0, L - 1).long()
 
-        def lookup_bwd():
-            tbar = torch.zeros((L, F), dtype=torch.float32, device=dev)
-            return tbar.index_add_(0, idv.clamp(0, L - 1).long(), g_out.t())
+        def lookup_index_add():
+            return torch.zeros((L, F), dtype=torch.float32, device=dev).index_add_(0, idc, g_out.t())
 
-        bwd_ms = cuda_ms(torch, lookup_bwd, 10)
+        def lookup_onehot():
+            return (torch.arange(L, device=dev)[:, None] == idc[None, :]).float() @ g_out.t()
+
+        before = tg.fold_launches
+        tbar = tg.fold(g_out, idv, L)
+        torch.cuda.synchronize()
+        exact = torch.zeros((L, F), dtype=torch.float64, device=dev).index_add_(
+            0, idc, g_out.t().double())
+        fold_bar = dict(rtol=1e-5, atol=2e-6 * max(1, n_full // L))
+        fold_ok = (tg.fold_launches == before + 1
+                   and bool(torch.allclose(tbar.double(), exact, **fold_bar)))
+        errs = {k: float((v.double() - exact).abs().max()) for k, v in
+                (("fold", tbar), ("index_add_", lookup_index_add()), ("onehot", lookup_onehot()))}
+        fold_ms = device_ms(torch, lambda: tg.fold(g_out, idv, L), 20)
+        add_ms = device_ms(torch, lookup_index_add, 10)
+        oh_ms = device_ms(torch, lookup_onehot, 3)
         k4_bound = bound(0, 4 * (idv.numel() + tab.numel() + out.numel()))
+        fold_bound = bound(g_out.numel(), 4 * (idv.numel() + g_out.numel() + tab.numel()))
         row = dict(name=name, L=L, F=F, B=n_full, bit_equal=k4_eq,
                    max_abs_err=float((out - ref).abs().max()), ms=k4_ms, plain_ms=sel_ms,
                    library_ms=sel_ms, bound_ms=k4_bound[0], bound_by=k4_bound[1],
-                   index_add_bwd_ms=bwd_ms, misses=int((idv < 0).sum()))
+                   misses=int((idv < 0).sum()))
+        frow = dict(name=name, L=L, F=F, B=n_full, max_abs_err=errs["fold"], ms=fold_ms,
+                    plain_ms=add_ms, library_ms=add_ms, onehot_ms=oh_ms, bound_ms=fold_bound[0],
+                    bound_by=fold_bound[1], index_add_max_abs_err=errs["index_add_"],
+                    onehot_max_abs_err=errs["onehot"], atol=fold_bar["atol"])
         k4_rows.append(row)
+        fold_rows.append(frow)
         print(f"phase 11 K4 {name}: {'ok' if k4_eq else 'FAIL'} {json.dumps(row)} [{card}]")
+        print(f"phase 11 fold {name}: {'ok' if fold_ok else 'FAIL'} {json.dumps(frow)} [{card}]")
         if not k4_eq:
             failures.append(f"phase 11 K4 {name}")
+        if not fold_ok:
+            failures.append(f"phase 11 fold {name}")
+        del exact, g_out
     del table64, ids64
 
     # ---- phase 12: replay_trace_fast at full width, gradients to scene and camera ----
@@ -958,8 +1079,8 @@ def main() -> int:
     torch.cuda.synchronize()
     sweep12_s = time.perf_counter() - t0
     sweep12_counts = counts()
-    ok12s = (sweep12_counts == dict(K1=5 * n_chunks12, K3=0, K2=0, K5=0,
-                                    K4=cfg.max_depth * n_chunks12)
+    ok12s = (sweep12_counts == only(K1=5 * n_chunks12, K4=cfg.max_depth * n_chunks12,
+                                    fold=cfg.max_depth * n_chunks12)
              and segments_close(fb["segments"], seg12)
              and all(bool(torch.isfinite(g).all()) for g in grads_of(center12, rgb12,
                                                                       lookfrom12)))
@@ -1210,8 +1331,7 @@ def main() -> int:
     du8 = np.abs(resp.u8.astype(np.int16) - res.u8.astype(np.int16))
     ok19 = (resp.segments == res.segments == PORT_BENCH_SEGMENTS and resp.launches == 1
             and pool_counts["K1"] > 0
-            and {k: v for k, v in pool_counts.items() if k != "K1"} == dict(K3=0, K2=0, K5=0,
-                                                                           K4=0)
+            and pool_counts == only(K1=pool_counts["K1"])
             and int(du8.max()) <= 1 and float((du8 > 0).mean()) < 0.01)
     print(f"phase 19 bench pool render: {'ok' if ok19 else 'FAIL'} segments {resp.segments} "
           f"(phased {res.segments}) K1 launches {pool_counts['K1']} (phased render "
@@ -1340,7 +1460,7 @@ def main() -> int:
     xs, cs = pool64["sweep"][0]
     ok22p = (xw.segments == xs.segments and bool(np.array_equal(xw.u8, xs.u8))
              and cw["K1"] > 0 and cw["K1"] == cs["K1"]
-             and {k: v for k, v in cw.items() if k != "K1"} == dict(K3=0, K2=0, K5=0, K4=0)
+             and cw == only(K1=cw["K1"])
              and 20 < float(xw.u8.mean()) < 235)
     pool64_s = {k: [round(x.seconds, 4) for x, _ in v[k == "walk":]] for k, v in pool64.items()}
     print(f"phase 22 bouncing_spheres_64 pool render: {'ok' if ok22p else 'FAIL'} segments "
@@ -1436,7 +1556,9 @@ def main() -> int:
          "replaces": "raytracing_tpu/diff/replay_kernel.py:594",
          "launches": rt_counts["K3"], "path": "replay_trace_kernel (phase 7)",
          "max_abs_err": float(d3.max()), "ms": k3_ms, "plain_ms": k3_plain_ms,
-         "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None},
+         "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None,
+         "ms_in_turns": {d: v["ms"] for d, v in k3_probe.items()},
+         "lane_share": {d: v["lanes"] for d, v in k3_probe.items()}},
         {"name": "K2 replay_bwd", "route": "cuda",
          "source": "raytracing_tpu_torch/csrc/replay_kernel.cu",
          "replaces": "raytracing_tpu/diff/replay_kernel.py:637",
@@ -1454,7 +1576,18 @@ def main() -> int:
          "replaces": "raytracing_tpu/ops/table_gather.py:42",
          "launches": sweep12_counts["K4"], "path": "replay_trace_fast sweep (phase 12)",
          **{k: k4_rows[0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                        "library_ms", "index_add_bwd_ms")}},
+                                        "library_ms")},
+         "L4224": {k: k4_rows[1][k] for k in ("ms", "plain_ms", "bound_ms")}},
+        {"name": "fold table_fold (K4's backward, the replay's table reduction)",
+         "route": "cuda", "source": "raytracing_tpu_torch/csrc/table_gather.cu",
+         "replaces": "raytracing_tpu/ops/table_gather.py:117 (_bwd, the one-hot VJP of K4)",
+         "launches": sweep12_counts["fold"], "path": "replay_trace_fast sweep (phase 12)",
+         "launches_fwd_bwd_sweep": fb_counts["fold"],
+         **{k: fold_rows[0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms", "onehot_ms")},
+         "L4224": {k: fold_rows[1][k] for k in ("max_abs_err", "ms", "plain_ms", "onehot_ms",
+                                                 "bound_ms")},
+         "reduction_ms": red_ms, "reduction_bound_ms": red_bound[0]},
     ]}))
     if failures:
         print(f"chip_smoke: FAILED {failures}", file=sys.stderr)

@@ -59,12 +59,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rt_trace_group_probe.argtypes = [P, I, I, P, I, P, P, I, P, P, P, P, I, P, P, P, U, U,
                                          I, F, F, F, I, P, P]
     lib.rt_trace_group_probe.restype = ctypes.c_int
-    lib.rt_replay_fwd.argtypes = [P, P, P, P, P, I, I, I, I, U, F, F, F, P, P, P]
+    lib.rt_replay_fwd.argtypes = [P, P, P, P, P, I, I, I, I, U, F, F, F, P, P, P, P]
     lib.rt_replay_fwd.restype = ctypes.c_int
+    lib.rt_replay_fwd_probe.argtypes = [P, P, P, P, P, I, I, I, I, U, F, F, F, P, P, P, I, P,
+                                        P]
+    lib.rt_replay_fwd_probe.restype = ctypes.c_int
     lib.rt_replay_bwd.argtypes = [P, P, P, P, P, P, I, I, I, I, U, F, F, F, P, P]
     lib.rt_replay_bwd.restype = ctypes.c_int
     lib.rt_table_gather.argtypes = [P, P, I, I, I, P, P]
     lib.rt_table_gather.restype = ctypes.c_int
+    lib.rt_table_fold.argtypes = [P, P, P, I, I, I, I, P, P]
+    lib.rt_table_fold.restype = ctypes.c_int
     lib.rt_error_string.argtypes = [ctypes.c_int]
     lib.rt_error_string.restype = ctypes.c_char_p
 

@@ -22,8 +22,14 @@
 // run, (D, NG, n) in all.
 //
 // What the design does about it:
-// * one thread replays one ray with its state in registers; nothing but
-//   the inputs, the outputs and K2's stash touches memory;
+// * one thread replays one ray at a time with its state in registers;
+//   nothing but the inputs, the outputs and K2's stash touches memory;
+// * K3's warps are persistent and their lanes refill: a ray runs 2.7
+//   bounces on average and up to D, so one thread per ray kept a warp
+//   running until its longest ray died with most lanes idle; instead a
+//   lane whose ray ends writes it and takes the next ray index from a
+//   global counter (one warp-merged atomicAdd per refill). A ray's
+//   arithmetic does not depend on the lane or refill that runs it;
 // * table rows are read through the read-only cache (__ldg) and re-read
 //   in K2's reverse sweep rather than stashed: on the card a row read is
 //   a cached load, where the TPU kernel stashed the gathered fields
@@ -506,37 +512,65 @@ RT_DEVICE Ray load_ray(const ReplayParams& p, int i) {
   return r;
 }
 
+// K3's per-ray state between bounces.
+struct FwdLane {
+  Ray ray;
+  float rr, rg, rb;  // radiance so far
+  int bc;            // bounces run
+};
+
+RT_DEVICE void fwd_start(const ReplayParams& p, int i, FwdLane& l) {
+  l.ray = load_ray(p, i);
+  l.rr = l.rg = l.rb = 0.0f;
+  l.bc = 0;
+}
+
+// Whether ray l has a bounce left to run (its bounce index is l.bc).
+RT_DEVICE bool fwd_running(const FwdLane& l) { return l.bc < l.ray.nb && l.ray.active; }
+
+// The recorded id of ray i at bounce b.
+RT_DEVICE int recorded_id(const ReplayParams& p, int i, int b) {
+  return p.ids[(size_t)b * p.n + i];
+}
+
+// K3: one replayed bounce of ray i, whose recorded id is `id`.
+template <bool MOVING>
+RT_DEVICE void fwd_step(const ReplayParams& p, int id, FwdLane& l) {
+  const int b = l.bc++;
+  State& s = l.ray.s;
+  Inter I;
+  bounce_fwd<MOVING>(p, id, s, l.ray.tm, l.ray.pix, l.ray.smp, b, I);
+  if (I.miss) {
+    l.rr = l.rr + s.tr * p.bg_r;
+    l.rg = l.rg + s.tg * p.bg_g;
+    l.rb = l.rb + s.tb * p.bg_b;
+  }
+  if (I.emit) {
+    l.rr = l.rr + s.tr * I.tex_r;
+    l.rg = l.rg + s.tg * I.tex_g;
+    l.rb = l.rb + s.tb * I.tex_b;
+  }
+  if (I.live)
+    advance(I, s);
+  else
+    l.ray.active = false;
+}
+
+RT_DEVICE void fwd_finish(const ReplayParams& p, int i, const FwdLane& l) {
+  const int n = p.n;
+  p.out_rad[i] = l.rr;
+  p.out_rad[n + i] = l.rg;
+  p.out_rad[2 * n + i] = l.rb;
+  p.out_bc[i] = l.bc;
+}
+
 // K3: replay ray i forward.
 template <bool MOVING>
 RT_DEVICE void replay_fwd_ray(const ReplayParams& p, int i) {
-  const int n = p.n;
-  Ray ray = load_ray(p, i);
-  State& s = ray.s;
-  float rr = 0.0f, rg = 0.0f, rb = 0.0f;
-  int bc = 0;
-  for (int b = 0; b < ray.nb && ray.active; ++b) {
-    ++bc;
-    Inter I;
-    bounce_fwd<MOVING>(p, p.ids[(size_t)b * n + i], s, ray.tm, ray.pix, ray.smp, b, I);
-    if (I.miss) {
-      rr = rr + s.tr * p.bg_r;
-      rg = rg + s.tg * p.bg_g;
-      rb = rb + s.tb * p.bg_b;
-    }
-    if (I.emit) {
-      rr = rr + s.tr * I.tex_r;
-      rg = rg + s.tg * I.tex_g;
-      rb = rb + s.tb * I.tex_b;
-    }
-    if (I.live)
-      advance(I, s);
-    else
-      ray.active = false;
-  }
-  p.out_rad[i] = rr;
-  p.out_rad[n + i] = rg;
-  p.out_rad[2 * n + i] = rb;
-  p.out_bc[i] = bc;
+  FwdLane l;
+  fwd_start(p, i, l);
+  while (fwd_running(l)) fwd_step<MOVING>(p, recorded_id(p, i, l.bc), l);
+  fwd_finish(p, i, l);
 }
 
 // K2: replay ray i forward with the stash, then the reverse sweep.
@@ -577,11 +611,79 @@ RT_DEVICE void replay_bwd_ray(const ReplayParams& p, int i) {
 #ifdef __CUDACC__
 
 constexpr int THREADS = 128;
+// K3's resident blocks per SM (at most as many as fit). Measured on the
+// bench chunk in camera order at depth 20: 6 (0.083 ms), 4 and as many as
+// fit (8: 0.089); waiting for 8 free lanes before a refill gained nothing.
+constexpr int K3_BLOCKS_PER_SM = 6;
+constexpr unsigned FULL = 0xffffffffu;
 
-template <bool MOVING>
-__global__ void __launch_bounds__(THREADS) k3_replay_fwd(const ReplayParams p) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i < p.n) replay_fwd_ray<MOVING>(p, i);
+// K3's measurement counters: bounces run (lanes summed over issues) and
+// bounce issues, one per warp and bounce, from its lowest active lane.
+__device__ __forceinline__ void count_bounce(unsigned long long* stats) {
+  const unsigned a = __activemask();
+  if ((threadIdx.x & 31) == __ffs(a) - 1) {
+    atomicAdd(stats, (unsigned long long)__popc(a));
+    atomicAdd(stats + 1, 1ull);
+  }
+}
+
+// K3. REFILL: persistent warps whose lanes refill: a lane whose ray dies
+// or reaches its tile's bounce count writes that ray and takes the next
+// index from `next` (one atomicAdd per warp and refill, for all its free
+// lanes), so a warp no longer waits for its longest ray with its other
+// lanes idle. Not REFILL: the design before, one thread per ray, a warp
+// running until its longest ray ends. Each ray's arithmetic is the same
+// in both, so are its outputs. COUNT: the measurement instantiation,
+// which ticks `stats` at every bounce.
+template <bool MOVING, bool REFILL, bool COUNT>
+__global__ void __launch_bounds__(THREADS)
+    k3_replay_fwd(const ReplayParams p, int* next, unsigned long long* stats) {
+  if (!REFILL) {
+    const int i = blockIdx.x * THREADS + threadIdx.x;
+    if (i >= p.n) return;
+    FwdLane l;
+    fwd_start(p, i, l);
+    while (fwd_running(l)) {
+      if (COUNT) count_bounce(stats);
+      fwd_step<MOVING>(p, recorded_id(p, i, l.bc), l);
+    }
+    fwd_finish(p, i, l);
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  int i = -1;  // this lane's ray; -1: none; >= n: no rays left
+  int id = 0;  // its next bounce's recorded id, loaded a bounce ahead
+  FwdLane l;
+  while (true) {
+    const bool free = i < 0;
+    const unsigned want = __ballot_sync(FULL, free);
+    if (want) {
+      const int first = __ffs(want) - 1;
+      int base = 0;
+      if (lane == first) base = atomicAdd(next, __popc(want));
+      base = __shfl_sync(FULL, base, first);
+      if (free) {
+        i = base + __popc(want & ((1u << lane) - 1u));
+        if (i < p.n) {
+          fwd_start(p, i, l);
+          if (fwd_running(l)) id = recorded_id(p, i, l.bc);
+        }
+      }
+    }
+    if (__all_sync(FULL, i >= p.n)) return;
+    if (i < p.n) {
+      if (fwd_running(l)) {
+        if (COUNT) count_bounce(stats);
+        const int cur = id;  // the next load overlaps this bounce's arithmetic
+        if (l.bc + 1 < l.ray.nb) id = recorded_id(p, i, l.bc + 1);
+        fwd_step<MOVING>(p, cur, l);
+      }
+      if (!fwd_running(l)) {
+        fwd_finish(p, i, l);
+        i = -1;
+      }
+    }
+  }
 }
 
 template <bool MOVING>
@@ -590,24 +692,77 @@ __global__ void __launch_bounds__(THREADS) k2_replay_bwd(const ReplayParams p) {
   if (i < p.n) replay_bwd_ray<MOVING>(p, i);
 }
 
+// K3's persistent grid: K3_BLOCKS_PER_SM blocks on every SM, or as many as fit.
+template <bool MOVING, bool COUNT>
+int k3_refill_grid() {
+  static int grid = 0;
+  if (grid == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k3_replay_fwd<MOVING, true, COUNT>,
+                                                  THREADS, 0);
+    if (K3_BLOCKS_PER_SM < per_sm) per_sm = K3_BLOCKS_PER_SM;
+    grid = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+  }
+  return grid;
+}
+
+template <bool MOVING, bool REFILL, bool COUNT>
+void launch_k3(const ReplayParams& p, int* next, unsigned long long* stats, cudaStream_t s) {
+  int grid = (p.n + THREADS - 1) / THREADS;
+  if (REFILL) {
+    const int most = k3_refill_grid<MOVING, COUNT>();
+    grid = grid < most ? grid : most;
+  }
+  k3_replay_fwd<MOVING, REFILL, COUNT><<<grid, THREADS, 0, s>>>(p, next, stats);
+}
+
 }  // namespace
 
 // C entry points (loaded with ctypes). Each launches on `stream`,
 // allocates nothing, does not synchronize, and returns a cudaError_t.
+// `next` is one int the caller zeroes on `stream` (K3's ray counter).
 extern "C" int rt_replay_fwd(const float* table, const int* ids, const float* ray_f,
                              const int* ray_i, const int* maxlen, int n, int D, int n_sph,
                              int moving, uint32_t seed, float bg_r, float bg_g, float bg_b,
-                             float* out_rad, int* out_bc, void* stream) {
+                             float* out_rad, int* out_bc, int* next, void* stream) {
   if (n <= 0) return 0;
   if (D > MAX_DEPTH) return (int)cudaErrorInvalidValue;
   const ReplayParams p{table, ids,  ray_f, ray_i, maxlen,  nullptr, n,      D,
                        n_sph, seed, bg_r,  bg_g,  bg_b,    out_rad, out_bc, nullptr};
-  const dim3 grid((n + THREADS - 1) / THREADS);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (moving)
-    k3_replay_fwd<true><<<grid, THREADS, 0, s>>>(p);
+    launch_k3<true, true, false>(p, next, nullptr, s);
   else
-    k3_replay_fwd<false><<<grid, THREADS, 0, s>>>(p);
+    launch_k3<false, true, false>(p, next, nullptr, s);
+  return (int)cudaGetLastError();
+}
+
+// K3's measurement probe: `refill` 0 runs the design before the refill
+// (one thread per ray), 1 K3's; with `stats` (two zeroed u64) the counting
+// instantiation, which adds the bounces run and the bounce issues.
+extern "C" int rt_replay_fwd_probe(const float* table, const int* ids, const float* ray_f,
+                                   const int* ray_i, const int* maxlen, int n, int D, int n_sph,
+                                   int moving, uint32_t seed, float bg_r, float bg_g, float bg_b,
+                                   float* out_rad, int* out_bc, int* next, int refill,
+                                   unsigned long long* stats, void* stream) {
+  if (n <= 0) return 0;
+  if (D > MAX_DEPTH) return (int)cudaErrorInvalidValue;
+  const ReplayParams p{table, ids,  ray_f, ray_i, maxlen,  nullptr, n,      D,
+                       n_sph, seed, bg_r,  bg_g,  bg_b,    out_rad, out_bc, nullptr};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int k = (moving ? 4 : 0) + (refill ? 2 : 0) + (stats ? 1 : 0);
+  switch (k) {
+    case 0: launch_k3<false, false, false>(p, next, stats, s); break;
+    case 1: launch_k3<false, false, true>(p, next, stats, s); break;
+    case 2: launch_k3<false, true, false>(p, next, stats, s); break;
+    case 3: launch_k3<false, true, true>(p, next, stats, s); break;
+    case 4: launch_k3<true, false, false>(p, next, stats, s); break;
+    case 5: launch_k3<true, false, true>(p, next, stats, s); break;
+    case 6: launch_k3<true, true, false>(p, next, stats, s); break;
+    default: launch_k3<true, true, true>(p, next, stats, s); break;
+  }
   return (int)cudaGetLastError();
 }
 

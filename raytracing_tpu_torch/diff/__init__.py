@@ -4,7 +4,7 @@ scene and camera parameters, the counterpart of ``raytracing_tpu.diff``.
 Three replay tiers, newest first:
 
 * ``replay_kernel``: K3 forward and K2 backward (CUDA) over rays sorted by
-  recorded length, with the ``index_add_`` table reduction; the fwd+bwd
+  recorded length, with the table fold (a kernel on the card); the fwd+bwd
   bench's path (``replay_grads_sorted``) and ``replay_trace_kernel``;
 * ``replay_fast``: the packed table (``build_replay_table``, which the
   kernel tier reuses) and ``replay_trace_fast``, pure PyTorch with one K4

@@ -11,7 +11,7 @@ recorded winner ids.
 
 :func:`replay_trace_fast` is the pure-PyTorch replay on the same table:
 one :func:`table_lookup <raytracing_tpu_torch.ops.table_gather.table_lookup>`
-per bounce (K4 on the card, whose backward is an ``index_add_``) and the
+per bounce (K4 on the card, whose backward is the fold kernel) and the
 bounce math on scalarized ``(B,)`` state, with autograd to the scene and
 to the rays (so to the camera). It mirrors ``render/integrator.py``
 ``_bounce_once`` op for op (the same helper formulas written per

@@ -13,7 +13,10 @@ for hits, so it is differentiable in the table. Two kernels carry it:
   JAX package) giving the per-(bounce, ray) cotangents of the NG = 19
   differentiable table fields, ``(D, NG, n)``. It replaces ``bwd_kernel``.
 
-Both are CUDA C++ (``csrc/replay_kernel.cu``, one thread per ray). Beside
+Both are CUDA C++ (``csrc/replay_kernel.cu``): K2 one thread per ray, K3
+persistent warps whose lanes take a new ray as theirs ends
+(:func:`replay_fwd_probe` also runs K3's earlier one-thread-per-ray design
+and counts the lanes a warp keeps busy). Beside
 them are plain PyTorch versions: :func:`replay_fwd_torch`, the bounce
 chain vectorised over rays, and :func:`replay_bwd_torch`, which gets the
 same cotangents by autograd through it (each bounce's gathered rows are a
@@ -43,6 +46,7 @@ import torch
 from ..core import rng as rng_mod
 from ..core.vecmath import NEAR_ZERO_EPS
 from ..ops.intersect import PARALLEL_EPS, T_MIN
+from ..ops.table_gather import fold
 from ..scene.types import MAT_DIELECTRIC, MAT_DIFFUSE_LIGHT, MAT_METAL
 from . import replay_fast as rf
 
@@ -170,15 +174,56 @@ def replay_fwd(table, ids, ray_f, ray_i, maxlen, *, seed: int, n_sph: int,
         return rad, bc
     global fwd_launches
     with torch.cuda.device(dev):
+        nxt = torch.zeros((1,), dtype=torch.int32, device=dev)  # the lanes' ray counter
         err = lib.rt_replay_fwd(
             table.data_ptr(), ids.data_ptr(), ray_f.data_ptr(), ray_i.data_ptr(),
             maxlen.data_ptr(), n, D, n_sph, int(has_moving), ctypes.c_uint32(seed),
-            *(float(x) for x in background), rad.data_ptr(), bc.data_ptr(),
+            *(float(x) for x in background), rad.data_ptr(), bc.data_ptr(), nxt.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     fwd_launches += 1
     if err != 0:
         raise RuntimeError(f"K3 launch failed: {lib.rt_error_string(err).decode()}")
     return rad, bc
+
+
+K3_DESIGNS = ("baseline", "refill")  # K3 before and since its lanes refill
+
+
+def replay_fwd_probe(table, ids, ray_f, ray_i, maxlen, *, seed: int, n_sph: int,
+                     has_moving: bool, background, design: str = "refill",
+                     count: bool = False):
+    """K3's measurement probe (CUDA tensors only; not counted in
+    :data:`fwd_launches`): K3 in ``design`` ``"refill"`` (K3 itself) or
+    ``"baseline"`` (one thread per ray, a warp running until its longest
+    ray ends, the design before), with the same outputs as
+    :func:`replay_fwd`. ``count`` runs the counting instantiation and
+    returns ``(rad, bounces, dict(bounces=, issues=))``: the bounces run
+    (lanes summed over issues) and the bounce issues (one per warp and
+    bounce), so ``bounces / (32 * issues)`` is the share of a warp's lanes
+    busy at a bounce; else ``(rad, bounces, None)``."""
+    n, D, dev = _check(table, ids, ray_f, ray_i, maxlen)
+    if dev.type != "cuda" or design not in K3_DESIGNS:
+        raise ValueError(f"K3's probe runs on CUDA tensors in a design of {K3_DESIGNS}")
+    from .. import _kernels
+
+    lib = _kernels.library().lib
+    rad = torch.empty((3, n), dtype=torch.float32, device=dev)
+    bc = torch.empty((n,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        nxt = torch.zeros((1,), dtype=torch.int32, device=dev)
+        stats = torch.zeros((2,), dtype=torch.int64, device=dev) if count else None
+        err = lib.rt_replay_fwd_probe(
+            table.data_ptr(), ids.data_ptr(), ray_f.data_ptr(), ray_i.data_ptr(),
+            maxlen.data_ptr(), n, D, n_sph, int(has_moving), ctypes.c_uint32(seed),
+            *(float(x) for x in background), rad.data_ptr(), bc.data_ptr(), nxt.data_ptr(),
+            int(design == "refill"), None if stats is None else stats.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K3 probe launch failed: {lib.rt_error_string(err).decode()}")
+    if stats is None:
+        return rad, bc, None
+    bounces, issues = (int(x) for x in stats.cpu())
+    return rad, bc, dict(bounces=bounces, issues=issues)
 
 
 def replay_bwd(table, ids, ray_f, ray_i, rad_bar, maxlen, *, seed: int, n_sph: int,
@@ -421,16 +466,13 @@ def reduce_table_grads(g, ids, L: int, prefixes=None):
     table's cotangent ``tbar (L, N_FIELDS)``: row ``ids[b, i]`` gets
     ``g[b, :, i]`` (misses, id -1, add to row 0 with zero cotangents).
     ``prefixes``: per bounce, only the first ``prefixes[b]`` rays count.
-    ``index_add_`` was measured faster on the card than the reference's
-    one-hot matmul (PERF.md; ``chip_smoke.py`` times both). On CUDA it
-    adds with atomics in a run-dependent order, so two runs agree to f32
-    reassociation, not bit for bit."""
-    D, _, n = g.shape
-    acc = torch.zeros((L, NG), dtype=torch.float32, device=g.device)
-    for b in range(D):
-        P = n if prefixes is None else min(n, int(prefixes[b]))
-        if P > 0:
-            acc.index_add_(0, ids[b, :P].clamp(min=0).long(), g[b, :, :P].T)
+    The sum is :func:`table_gather.fold <raytracing_tpu_torch.ops.table_gather.fold>`,
+    one launch for all D bounces on the card (``index_add_`` per bounce,
+    its plain version, on the CPU); the reference's one-hot matmul was
+    measured slower on the card than either (PERF.md; ``chip_smoke.py``
+    times all three). On CUDA it adds with atomics in a run-dependent
+    order, so two runs agree to f32 reassociation, not bit for bit."""
+    acc = fold(g, ids.to(torch.int32), L, prefixes)
     tbar = torch.zeros((L, rf.N_FIELDS), dtype=torch.float32, device=g.device)
     tbar[:, _TCOLS] = acc[:, _GSLOTS]
     return tbar

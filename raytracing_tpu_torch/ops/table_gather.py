@@ -10,17 +10,28 @@ beside it, :func:`gather_torch`, is ``index_select`` and a transpose.
 Tensors on the CPU run the plain version; tensors on a CUDA device launch
 the kernel, or raise. Each launch adds one to :data:`launches`.
 
-The backward is the gather's scatter-add, ``index_add_`` of the ``(F, B)``
-cotangent into an ``(L, F)`` zero table. (The JAX package writes it as a
-one-hot matmul because scatter is serial on a TPU.) On CUDA
-``index_add_`` adds with atomics in a run-dependent order, so two
-backward passes agree to float32 reassociation, not bit for bit.
+The backward is the gather's scatter-add, :func:`fold`: the ``(F, B)``
+cotangent summed into an ``(L, F)`` zero table at the clipped ids. (The
+JAX package writes it as a one-hot matmul because scatter is serial on a
+TPU.) On CUDA tensors it is a hand-written kernel too (``rt_table_fold``
+in ``csrc/table_gather.cu``), whose plain version, :func:`fold_torch`, is
+``index_add_``; its batched form folds a whole ``(D, F, n)`` stack of
+per-bounce cotangents over per-bounce ray prefixes in one launch, the
+replay's table reduction (``diff/replay_kernel.reduce_table_grads``).
+Both add in a run-dependent order on the card (atomics), so two backward
+passes agree to float32 reassociation, not bit for bit. Each fold launch
+adds one to :data:`fold_launches`.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-launches = 0  # K4 kernel launches in this process (plain-version calls excluded)
+launches = 0       # K4 kernel launches in this process (plain-version calls excluded)
+fold_launches = 0  # fold kernel launches in this process (plain-version calls excluded)
+FOLD_MAX_D = 32    # bounces one fold launch takes (csrc/table_gather.cu FOLD_MAX_D)
+FOLD_MAX_F = 32    # fields a folded row may have
 
 
 def gather_torch(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -66,8 +77,72 @@ def gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _prefix_list(prefixes, D, n):
+    return [n] * D if prefixes is None else [min(n, max(0, int(p))) for p in prefixes]
+
+
+def fold_torch(g: torch.Tensor, ids: torch.Tensor, L: int, prefixes=None) -> torch.Tensor:
+    """Plain fold: ``index_add_`` of each bounce's ``g[b, :, :P_b]`` into an
+    ``(L, F)`` zero table at rows ``clip(ids[b, :P_b], 0, L - 1)``."""
+    D, F, n = g.shape
+    acc = torch.zeros((L, F), dtype=g.dtype, device=g.device)
+    for b, P in enumerate(_prefix_list(prefixes, D, n)):
+        if P > 0:
+            acc.index_add_(0, ids[b, :P].clamp(0, L - 1).long(), g[b, :, :P].T)
+    return acc
+
+
+def fold(g: torch.Tensor, ids: torch.Tensor, L: int, prefixes=None) -> torch.Tensor:
+    """The table fold: ``tbar (L, F)`` f32 with ``tbar[clip(ids[b, i], 0,
+    L-1), f] += g[b, f, i]`` for every bounce ``b`` and ray ``i <
+    prefixes[b]`` (every ray when ``prefixes`` is None). ``g (D, F, n)``
+    f32 and ``ids (D, n)`` i32, or ``(F, n)`` and ``(n,)`` for one bounce.
+    On CUDA the result is a view of an ``(L, F)`` table padded to a
+    multiple of 4 columns."""
+    if g.dim() == 2:
+        g, ids = g[None], ids[None]
+    if g.dim() != 3 or g.dtype != torch.float32:
+        raise ValueError(f"g must be (D, F, n) float32, got {tuple(g.shape)} {g.dtype}")
+    D, F, n = g.shape
+    if ids.shape != (D, n) or ids.dtype != torch.int32:
+        raise ValueError(f"ids must be ({D}, {n}) int32, got {tuple(ids.shape)} {ids.dtype}")
+    if L < 1 or (prefixes is not None and len(prefixes) != D):
+        raise ValueError(f"fold needs L >= 1 and one prefix per bounce, got L={L}, "
+                         f"{None if prefixes is None else len(prefixes)} prefixes for {D}")
+    dev = g.device
+    if ids.device != dev:
+        raise ValueError("g and ids must be on one device")
+    if dev.type == "cpu":
+        return fold_torch(g, ids, L, prefixes)
+    if dev.type != "cuda":
+        raise ValueError(f"the fold runs on CUDA tensors (kernel) or CPU tensors (plain "
+                         f"version), not {dev}")
+    if D > FOLD_MAX_D or F > FOLD_MAX_F:
+        raise ValueError(f"the fold takes at most {FOLD_MAX_D} bounces of {FOLD_MAX_F} fields, "
+                         f"got {D} x {F}")
+    if L * F >= 2 ** 31 or D * n >= 2 ** 31:
+        raise ValueError(f"fold of {D} x {n} rays into {L} rows exceeds its 32-bit indexing")
+    g, ids = g.contiguous(), ids.contiguous()
+    fp = -(-F // 4) * 4
+    out = torch.zeros((L, fp), dtype=torch.float32, device=dev)
+    P = _prefix_list(prefixes, D, n)
+    if n == 0 or F == 0 or not any(P):
+        return out[:, :F]
+    from .. import _kernels
+
+    lib = _kernels.library().lib
+    global fold_launches
+    with torch.cuda.device(dev):
+        err = lib.rt_table_fold(g.data_ptr(), ids.data_ptr(), (ctypes.c_int * D)(*P), L, F, n,
+                                D, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    fold_launches += 1
+    if err != 0:
+        raise RuntimeError(f"fold launch failed: {lib.rt_error_string(err).decode()}")
+    return out[:, :F]
+
+
 class _TableLookup(torch.autograd.Function):
-    """K4 forward, ``index_add_`` backward."""
+    """K4 forward, fold backward."""
 
     @staticmethod
     def forward(ctx, table, ids):
@@ -78,9 +153,7 @@ class _TableLookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
-        tbar = torch.zeros((ctx.L, g.shape[0]), dtype=g.dtype, device=g.device)
-        tbar.index_add_(0, ids.clamp(0, ctx.L - 1).long(), g.t())
-        return tbar, None
+        return fold(g.contiguous(), ids, ctx.L), None
 
 
 def table_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

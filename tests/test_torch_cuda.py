@@ -1,9 +1,10 @@
 """The port's CUDA kernels on the card: K1 (both searches, with recorded
 ids, marble and image textures, and its depth cap, and the walk on a
-scene too large for the sweep), K3, K2, K5 (walk and dense sweep) and
-K4 (the table gather) against their plain PyTorch versions, a render on
-the card against the same render on the CPU, and the pool schedule
-against the phased one. Marked ``cuda``; each test skips when no CUDA
+scene too large for the sweep), K3 (its lanes refill, so no ray's result
+may depend on its lane), K2, K5 (walk and dense sweep), K4 (the table
+gather) and the table fold against their plain PyTorch versions (the fold
+against a float64 sum), a render on the card against the same render on
+the CPU, and the pool schedule against the phased one. Marked ``cuda``; each test skips when no CUDA
 device is present. On a GPU machine:
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
@@ -188,12 +189,15 @@ def test_sqrt_rn_on_the_card_is_the_float64_route(dev):
     assert torch.equal(sqrt_grads(sqrt_rn, xs.cpu(), g.cpu()), ref_g.cpu())
 
 
-@pytest.mark.parametrize("L,F,B", [(512, 23, 360_448), (4224, 23, 4096), (128, 5, 1000)])
+@pytest.mark.parametrize("L,F,B", [(512, 23, 360_448), (4224, 23, 4096), (128, 5, 1000),
+                                   (512, 23, 4099), (4224, 23, 360_448)])
 def test_table_gather_matches_plain_version(dev, L, F, B):
     """K4: bit-equal to ``index_select`` on clipped ids (out-of-range and
-    -1 ids included); its backward, ``index_add_``, equal to the CPU's
-    to float32 reassociation: each row sums ~B/L unit-normal cotangents in
-    atomic order (measured 6.1e-5 at B/L = 704)."""
+    -1 ids included), at B not a multiple of 4 and at L = 4,224 too; its
+    backward (the fold kernel on the card, ``index_add_`` on the CPU)
+    equal to the CPU's to float32 reassociation: each row sums ~B/L
+    unit-normal cotangents in atomic order (measured 6.1e-5 at
+    B/L = 704)."""
     rng = np.random.default_rng(L)
     table = torch.from_numpy(rng.normal(size=(L, F)).astype(np.float32)).to(dev)
     ids = torch.from_numpy(rng.integers(-2, L + 3, B).astype(np.int32)).to(dev)
@@ -208,6 +212,82 @@ def test_table_gather_matches_plain_version(dev, L, F, B):
     tc = table.cpu().requires_grad_(True)
     (tg.table_lookup(tc, ids.cpu()) * w).sum().backward()
     torch.testing.assert_close(tb.grad.cpu(), tc.grad, rtol=1e-5, atol=2e-6 * max(1, B // L))
+
+
+@pytest.mark.parametrize("L", [512, 4224])
+@pytest.mark.parametrize("miss", [0.3, 0.9])
+def test_fold_matches_float64_sum(dev, L, miss):
+    """The fold kernel, one bounce (the lookup's backward) and batched over
+    bounces with prefixes (the replay's reduction), against a float64 sum
+    at rtol 1e-5, atol 2e-6·max(1, k) for k the most rays one row takes
+    (B/L for uniform ids, as in test_table_gather_matches_plain_version);
+    ids with a share ``miss`` of -1 (row 0 then takes most adds),
+    out-of-range ids, and exact zeros."""
+    F, B = 23, 360_448
+    rng = np.random.default_rng(L + int(10 * miss))
+    ids = rng.integers(0, L + 3, (3, B)).astype(np.int32)
+    ids[rng.random((3, B)) < miss] = -1
+    g = rng.normal(size=(3, F, B)).astype(np.float32)
+    g[:, :, rng.random(B) < 0.2] = 0.0
+    g, ids = torch.from_numpy(g).to(dev), torch.from_numpy(ids).to(dev)
+    for prefixes in (None, (B, 100_001, 0)):
+        for gg, ii in ((g[0], ids[0]), (g, ids)):
+            rows = torch.bincount(ii.reshape(-1).clamp(0, L - 1).long(), minlength=L)
+            bar = dict(rtol=1e-5, atol=2e-6 * max(1, int(rows.max())))
+            before = tg.fold_launches
+            out = tg.fold(gg, ii, L, None if gg.dim() == 2 else prefixes)
+            torch.cuda.synchronize()
+            assert tg.fold_launches == before + 1 and out.shape == (L, F)
+            exact = tg.fold_torch(gg.double()[None] if gg.dim() == 2 else gg.double(),
+                                  ii[None] if ii.dim() == 1 else ii, L,
+                                  None if gg.dim() == 2 else prefixes)
+            torch.testing.assert_close(out.double(), exact, **bar)
+
+
+def test_k3_rays_do_not_depend_on_their_lane(dev):
+    """K3, whose lanes refill, on a chunk and on the same chunk with its
+    rays permuted: every ray's radiance and bounce count bit-equal, and
+    bit-equal to the plain version; K3's probe in both designs gives the
+    same outputs and counts the plain version's segments; K2's cotangents
+    permute with the rays too."""
+    scene, cfg = build("bouncing_spheres", device=dev, image_width=64, samples_per_pixel=2,
+                       max_depth=8)
+    B = -(-cfg.n_pixels // 1024) * 1024 * 2
+    pix = torch.clamp(torch.arange(B, device=dev) % (B // 2), max=cfg.n_pixels - 1)
+    smp = torch.arange(B, device=dev) // (B // 2)
+    act = (torch.arange(B, device=dev) % (B // 2)) < cfg.n_pixels
+    o, d, t = cam.generate_rays(cfg, cam.derive(cfg, cam.CameraParams.from_config(cfg, dev)),
+                                pix, smp, SEED, motion_blur=scene.flags.has_moving)
+    _, _, ids = trace_megakernel(build_mega_scene(scene), o, d, t, pix, smp, cfg.background, 8,
+                                 SEED, phase_depths=[2, 6], active0=act, want_ids=True)
+    table = rf.build_replay_table(scene).detach()
+    ray_f = rk.pack_replay_rays(o, d, t, act)
+    ray_i = torch.stack([pix, smp]).to(torch.int32)
+    maxlen = torch.full((B // 1024,), 8, dtype=torch.int32, device=dev)
+    rad_bar = torch.randn((3, B), generator=torch.Generator(dev).manual_seed(3), device=dev)
+    kw = dict(seed=SEED, n_sph=scene.n_spheres, has_moving=scene.flags.has_moving,
+              background=cfg.background)
+    before = rk.fwd_launches
+    rad, bc = rk.replay_fwd(table, ids, ray_f, ray_i, maxlen, **kw)
+    torch.cuda.synchronize()
+    assert rk.fwd_launches == before + 1
+    rad_p, bc_p = rk.replay_fwd_torch(table, ids, ray_f, ray_i, maxlen, **kw)
+    assert torch.equal(rad, rad_p) and torch.equal(bc, bc_p)
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(B)).to(dev)
+    args_p = (table, ids[:, perm].contiguous(), ray_f[:, perm].contiguous(),
+              ray_i[:, perm].contiguous(), maxlen)
+    rad_q, bc_q = rk.replay_fwd(*args_p, **kw)
+    assert torch.equal(rad_q, rad[:, perm]) and torch.equal(bc_q, bc[perm])
+    for design in rk.K3_DESIGNS:
+        r1, b1, _ = rk.replay_fwd_probe(table, ids, ray_f, ray_i, maxlen, design=design, **kw)
+        r2, b2, c = rk.replay_fwd_probe(table, ids, ray_f, ray_i, maxlen, design=design,
+                                        count=True, **kw)
+        assert all(torch.equal(x, y) for x, y in ((r1, rad), (r2, rad), (b1, bc), (b2, bc)))
+        assert c["bounces"] == int(bc.sum()) and 0 < c["bounces"] <= 32 * c["issues"]
+    assert rk.fwd_launches == before + 2
+    g = rk.replay_bwd(table, ids, ray_f, ray_i, rad_bar, maxlen, **kw)
+    g_q = rk.replay_bwd(*args_p[:4], rad_bar[:, perm].contiguous(), maxlen, **kw)
+    assert torch.equal(g_q, g[:, :, perm])
 
 
 def test_depth_cap_matches_plain_version(dev):

@@ -12,7 +12,7 @@ kernel, device busy share), and CUDA-event timings of one whole chunk.
 ``fast`` runs the same 25 chunks through ``replay_trace_fast`` (K1
 decisions, one K4 lookup per bounce, autograd to sphere centers, texture
 rgbs and the camera's lookfrom, MSE against a fixed random target): three
-timed sweeps, then one chunk under torch.profiler.
+timed sweeps, then one chunk and one sweep under torch.profiler.
 
 ``render_once`` times ``diff.gradients.render_once`` forward+backward on
 bouncing_spheres 400x225, spp 1, depth 20, with the sphere roots taken
@@ -24,7 +24,9 @@ correctly rounded there) and through a float64 sqrt rounded to float32
 fast paths take that search (``cull``); the default picks it by the
 scene's primitive count.
 
-Prints the card's name, power limit and max SM clock first.
+Each profile prints the device time and share of K1-K4, the table fold
+and ``index_add_``. Prints the card's name, power limit and max SM clock
+first.
 """
 from __future__ import annotations
 
@@ -53,6 +55,11 @@ from raytracing_tpu_torch.render import camera as cam  # noqa: E402
 from profile_torch_render import event_ms  # noqa: E402
 
 SEED = 7
+# kernel groups whose device time and share each profile prints (the
+# substrings of their kernels' names in torch.profiler)
+GROUPS = {"K1": ("k1_trace_block",), "K2": ("k2_replay_bwd",), "K3": ("k3_replay_fwd",),
+          "K4": ("k4_table_gather",), "fold": ("k4_table_fold",),
+          "index_add_": ("indexFuncLargeIndex", "indexFuncSmallIndex", "index_add")}
 
 
 def timed(fn):
@@ -72,10 +79,13 @@ def print_profile(label, fn):
     rows = sorted(((e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
     device_ms = sum(x[0] for x in rows) / 1e3
-    k1 = [x for x in rows if "k1_trace_block" in x[1]]
     print(f"profiled {label}: wall {wall * 1e3:.2f} ms, device {device_ms:.2f} ms, "
-          f"busy share {device_ms / (wall * 1e3):.3f}, kernels launched {sum(x[2] for x in rows)}, "
-          f"K1 {sum(x[0] for x in k1) / 1e3:.3f} ms in {sum(x[2] for x in k1)} launches")
+          f"busy share {device_ms / (wall * 1e3):.3f}, kernels launched {sum(x[2] for x in rows)}")
+    for group, keys in GROUPS.items():
+        sel = [x for x in rows if any(k in x[1] for k in keys)]
+        ms = sum(x[0] for x in sel) / 1e3
+        print(f"  {group}: {ms:.3f} ms in {sum(x[2] for x in sel)} launches, "
+              f"{ms / max(device_ms, 1e-9):.3f} of device time")
     for dt, key, count in rows[:25]:
         print(f"  {dt / 1e3:9.3f} ms {count:6d}  {key[:100]}")
 
@@ -136,6 +146,7 @@ def profile_fast(cull):
     print("replay_trace_fast sweep seconds", [round(t, 4) for t, _ in runs], "segments",
           runs[0][1], "segments/s", [round(s / t) for t, s in runs])
     print_profile("replay_trace_fast chunk", lambda: chunk(1))
+    print_profile("replay_trace_fast sweep", sweep)
 
 
 def profile_render_once():
