@@ -83,6 +83,20 @@ the sweep's shared memory.
 Phase 23 renders a scene the megakernels cannot express (bilinear image
 filtering) through Renderer(hit_method="auto"), which takes the
 integrator, against the same render on the CPU.
+Phase 24 runs the CLI (``cli.main(["render", ...])``) at the bench
+configuration with --auto-prefix: its PPM byte-equal to write_ppm of a
+Renderer render with the same settings, its log's segments exactly the
+port's bench count, K1 the only kernel launched, as often as phase 3's
+plan and render together. Phase 25 renders the bench workload with a
+checkpoint written after every sample chunk and without, in turns, then
+resumes the middle checkpoint in a new Renderer: radiance and segments
+bit-equal to the whole render. Phase 26 runs the integrator's BVH
+(ops/traverse.py, plain PyTorch, no kernel) at full width: closest_hit_bvh
+against closest_hit_brute on one camera launch (validity equal, ties
+counted, t bit-equal where the primitive is the same), and
+bouncing_spheres at 400x225, 4 spp, depth 8 through hit_method "bvh" and
+"brute", with walls, walk iterations and host syncs. Phase 27 times
+entry()'s forward (render_once) on the card.
 
 Kernels shorter than their wrappers' host time (K3, K4, the fold and the
 PyTorch calls beside them) are timed with their launches queued behind a
@@ -98,6 +112,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -487,8 +502,11 @@ def main() -> int:
     kw = dict(hit_method="mega", max_rays_per_launch=1 << 18, transfer="u8",
               phase_depths=[2, 2, 3, 4, cfg.max_depth - 11])
     t0 = time.perf_counter()
+    zero_counts()
     pref = Renderer(cfg, **kw).plan_phase_prefixes(scene, seed=SEED)
-    print(f"phase 3 plan: prefixes {pref} in {time.perf_counter() - t0:.2f} s")
+    plan_counts = counts()
+    print(f"phase 3 plan: prefixes {pref} in {time.perf_counter() - t0:.2f} s "
+          f"kernel launches {plan_counts}")
     r = Renderer(cfg, **kw, phase_prefixes=pref)
     r.render(scene, seed=SEED)  # warm-up: allocator and CUDA libraries
     zero_counts()
@@ -1537,6 +1555,142 @@ def main() -> int:
     if not ok23:
         failures.append("phase 23 hit_method auto")
 
+    # ---- phase 24: the CLI render at the bench configuration ----
+    import io
+    import tempfile
+
+    from raytracing_tpu_torch import cli
+    from raytracing_tpu_torch.utils import checkpoint as ckpt
+    from raytracing_tpu_torch.utils.image_io import write_ppm
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    bench_kw = dict(image_width=400, samples_per_pixel=100, max_depth=20)
+    scene24, cfg24 = build("bouncing_spheres", device=dev, **bench_kw)
+    cli_args = ["render", "--scene", "bouncing_spheres", "--width", "400", "--spp", "100",
+                "--depth", "20", "--seed", str(SEED), "--auto-prefix",
+                "--out", str(tmp / "cli.ppm"), "--log", str(tmp / "cli.jsonl")]
+    shown = io.StringIO()
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(shown):
+        rc24 = cli.main(cli_args)
+    cli_wall = time.perf_counter() - t0
+    cli_counts = counts()
+    with open(tmp / "cli.jsonl") as f:
+        done24 = [json.loads(line) for line in f][-1]
+    r24 = Renderer(cfg24, phase_depths=kw["phase_depths"], phase_prefixes=pref)
+    res24 = r24.render(scene24, seed=SEED)
+    write_ppm(str(tmp / "renderer.ppm"), res24.radiance)
+    ppm_equal = (tmp / "cli.ppm").read_bytes() == (tmp / "renderer.ppm").read_bytes()
+    ok24 = (rc24 == 0 and ppm_equal and done24["event"] == "render_done"
+            and done24["segments"] == PORT_BENCH_SEGMENTS == res24.segments
+            and done24["hit_method"] == "mega"
+            and cli_counts == only(K1=plan_counts["K1"] + render_counts["K1"])
+            and "Done." in shown.getvalue())
+    print(f"phase 24 cli render bouncing_spheres 400x225 spp 100 depth 20 --auto-prefix: "
+          f"{'ok' if ok24 else 'FAIL'} rc {rc24} PPM byte-equal to Renderer + write_ppm "
+          f"{ppm_equal} segments {done24['segments']} kernel launches {cli_counts} (phase 3 "
+          f"plan {plan_counts['K1']} + render {render_counts['K1']}) wall {cli_wall:.4f} s "
+          f"render {done24['seconds']:.4f} s [{card}]")
+    if not ok24:
+        failures.append("phase 24 cli render")
+
+    # ---- phase 25: the bench render with a checkpoint every sample chunk, resumed ----
+    r25 = Renderer(cfg24, phase_depths=kw["phase_depths"], phase_prefixes=pref)
+    n_mid = -(-cfg24.samples_per_pixel // r25.spp_chunk) // 2
+
+    def save_each(st):
+        ckpt.save_render_state(str(tmp / "last.npz"), st)
+        if st["schunk"] == n_mid:
+            ckpt.save_render_state(str(tmp / "mid.npz"), st)
+
+    walls25 = {"none": [], "every chunk": []}
+    for turn in ("none", "every chunk", "none", "every chunk"):
+        zero_counts()
+        x = r25.render(scene24, seed=SEED, checkpoint_cb=save_each if turn != "none" else None)
+        walls25[turn].append((x, counts()))
+    whole, ck_run = walls25["none"][0][0], walls25["every chunk"][0][0]
+    mid = ckpt.load_render_state(str(tmp / "mid.npz"))
+    zero_counts()
+    resumed = Renderer(cfg24, phase_depths=kw["phase_depths"],
+                       phase_prefixes=pref).render(scene24, seed=SEED, resume_state=mid)
+    resumed_counts = counts()
+    ok25 = (bool(np.array_equal(resumed.radiance, whole.radiance))
+            and bool(np.array_equal(ck_run.radiance, whole.radiance))
+            and bool(np.array_equal(whole.radiance, res24.radiance))
+            and resumed.segments == ck_run.segments == whole.segments == PORT_BENCH_SEGMENTS
+            and mid["schunk"] == n_mid and resumed.launches == whole.launches - n_mid
+            and resumed_counts == only(K1=5 * resumed.launches)
+            and all(c == render_counts for _, c in walls25["none"] + walls25["every chunk"]))
+    print(f"phase 25 checkpoint every sample chunk and resume at chunk {n_mid}: "
+          f"{'ok' if ok25 else 'FAIL'} radiance bit-equal {bool(np.array_equal(resumed.radiance, whole.radiance))} "
+          f"segments {resumed.segments} launches {resumed.launches} kernel launches "
+          f"{resumed_counts} walls no checkpoint {[round(x.seconds, 4) for x, _ in walls25['none']]} "
+          f"checkpoint every chunk {[round(x.seconds, 4) for x, _ in walls25['every chunk']]} "
+          f"resumed {resumed.seconds:.4f} s [{card}]")
+    if not ok25:
+        failures.append("phase 25 checkpoint and resume")
+
+    # ---- phase 26: the integrator's BVH at full width ----
+    from raytracing_tpu_torch.ops import traverse
+    from raytracing_tpu_torch.ops.intersect import closest_hit_brute
+
+    s26, c26 = build("bouncing_spheres", device=dev, image_width=400, samples_per_pixel=4,
+                     max_depth=8)
+    r26 = Renderer(c26, hit_method="bvh")
+    (o26, d26, t26, _, _, _), _ = first_launch(s26, c26, r26.n_block, r26.spp_chunk, dev)
+    zero_counts()
+    traverse.reset_stats()
+    hv, bvh_ms = timed(torch, lambda: traverse.closest_hit_bvh(s26, o26, d26, t26))
+    walk26 = dict(traverse.stats)
+    hb, brute_ms = timed(torch, lambda: closest_hit_brute(s26, o26, d26, t26))
+    same = hv.prim_id == hb.prim_id
+    ties = int((~same).sum())
+    hit_ok = (bool(torch.equal(hv.valid, hb.valid)) and bool(torch.equal(hv.t[same], hb.t[same]))
+              and ties <= o26.shape[0] // 1000)
+    renders26 = {}
+    for method in ("bvh", "brute", "bvh", "brute"):
+        traverse.reset_stats()
+        x = Renderer(c26, hit_method=method).render(s26, seed=SEED)
+        renders26.setdefault(method, []).append((x, dict(traverse.stats)))
+    rb, sb = renders26["bvh"][0]
+    rr, _ = renders26["brute"][0]
+    e26 = float(np.abs(rb.radiance - rr.radiance).mean())
+    counts26 = counts()
+    ok26 = (hit_ok and e26 < 2e-3 and segments_close(rr.segments, rb.segments)
+            and all(v == 0 for v in counts26.values()) and sb["calls"] == 8 * rb.launches
+            and bool(np.isfinite(rb.radiance).all()))
+    print(f"phase 26 closest_hit_bvh one camera launch B={o26.shape[0]}: validity equal "
+          f"{bool(torch.equal(hv.valid, hb.valid))} ties (another primitive) {ties} t bit-equal "
+          f"where the same {bool(torch.equal(hv.t[same], hb.t[same]))} walk {walk26['iterations']} "
+          f"iterations {walk26['syncs']} syncs {bvh_ms:.3f} ms brute {brute_ms:.3f} ms [{card}]")
+    print(f"phase 26 bouncing_spheres 400x225 spp 4 depth 8 hit_method bvh against brute: "
+          f"{'ok' if ok26 else 'FAIL'} mean_abs_err {e26:.3g} segments {rb.segments} brute "
+          f"{rr.segments} launches {rb.launches} walk iterations per bounce "
+          f"{sb['iterations'] / max(sb['calls'], 1):.1f} host syncs bvh {sb['syncs']} "
+          f"(+{rb.launches} segment reads; brute {rr.launches}) walls bvh "
+          f"{[round(x.seconds, 4) for x, _ in renders26['bvh']]} brute "
+          f"{[round(x.seconds, 4) for x, _ in renders26['brute']]} kernel launches {counts26} "
+          f"[{card}]")
+    if not ok26:
+        failures.append("phase 26 integrator BVH")
+
+    # ---- phase 27: entry() on the card ----
+    from raytracing_tpu_torch.entry import entry
+
+    forward, (scene27, params27) = entry()
+    img27 = forward(scene27, params27)  # warm-up
+    img27, fwd27_ms = timed(torch, lambda: forward(scene27, params27))
+    ok27 = (img27.is_cuda and tuple(img27.shape) == (54, 96, 3)
+            and bool(torch.isfinite(img27).all()) and 0.05 < float(img27.mean()) < 1.0)
+    print(f"phase 27 entry() forward bouncing_spheres 96x54 spp 2 depth 6: "
+          f"{'ok' if ok27 else 'FAIL'} mean {float(img27.mean()):.4f} {fwd27_ms:.3f} ms "
+          f"[{card}]")
+    if not ok27:
+        failures.append("phase 27 entry")
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    print(f"card: {card}")  # again near the end, inside a tail of the output
     print(json.dumps({"kernels": [
         {"name": "K1 megakernel_block (BVH walk; the guarded sweep below CULL_MIN_PRIMS)",
          "route": "cuda", "source": "raytracing_tpu_torch/csrc/megakernel_block.cu",
@@ -1545,6 +1699,7 @@ def main() -> int:
          "launches_fwd_bwd_sweep": fb_counts["K1"],
          "launches_pool_render": pool_counts["K1"], "launches_registry_renders": reg_counts,
          "launches_pool_render_bouncing_spheres_64": cw["K1"],
+         "launches_cli_render": cli_counts["K1"], "launches_resumed_render": resumed_counts["K1"],
          "max_abs_err": stats["max_abs_err"], "ms": ms, "ms_sweep": ms_sweep,
          "plain_ms": plain_ms, "bound_ms": k1_walk_bound[0], "bound_by": k1_walk_bound[1],
          "bound_sweep_ms": k1_sweep_bound[0], "bound_sweep_by": k1_sweep_bound[1],

@@ -2,9 +2,11 @@
 all nine scenes. The constants are the JAX package's, ``bouncing_spheres``
 draws from the same ``np.random.default_rng(seed)`` stream, the Perlin
 tables from the same seed and ``earth`` loads the same image, so both
-packages build identical tables. Every scene renders through the
-megakernels (K1, K5) and the wavefront integrator alike: ``perlin_sphere``
-and ``simple_light`` shade marble noise, ``earth`` an image.
+packages build identical tables; the integrator's BVH is built where the
+JAX package builds it by default (``use_bvh``: ``bouncing_spheres`` only).
+Every scene renders through the megakernels (K1, K5) and the wavefront
+integrator alike: ``perlin_sphere`` and ``simple_light`` shade marble
+noise, ``earth`` an image.
 """
 from __future__ import annotations
 
@@ -47,7 +49,8 @@ def _cfg(cfg: CameraConfig, overrides: dict) -> CameraConfig:
 
 
 @register("bouncing_spheres")
-def bouncing_spheres(device=DEFAULT_DEVICE, seed: int = 42, **cam_overrides):
+def bouncing_spheres(device=DEFAULT_DEVICE, seed: int = 42, use_bvh: bool = True,
+                     **cam_overrides):
     """Checker ground + 22×22 seeded grid of small spheres (80% moving
     lambertian / 15% metal / 5% glass) + 3 big spheres."""
     b = SceneBuilder()
@@ -82,11 +85,11 @@ def bouncing_spheres(device=DEFAULT_DEVICE, seed: int = 42, **cam_overrides):
         lookat=(0.0, 0.0, 0.0), vup=(0.0, 1.0, 0.0), defocus_angle=0.6,
         focus_dist=10.0,
     )
-    return b.compile(device), _cfg(cfg, cam_overrides)
+    return b.compile(device, use_bvh=use_bvh), _cfg(cfg, cam_overrides)
 
 
 @register("checkered_spheres")
-def checkered_spheres(device=DEFAULT_DEVICE, **cam_overrides):
+def checkered_spheres(device=DEFAULT_DEVICE, use_bvh: bool = False, **cam_overrides):
     """Two r=10 checkered spheres."""
     b = SceneBuilder()
     mat = b.lambertian(b.checker(0.32, (0.2, 0.3, 0.1), (0.9, 0.9, 0.9)))
@@ -97,11 +100,11 @@ def checkered_spheres(device=DEFAULT_DEVICE, **cam_overrides):
         max_depth=20, background=SKY, vfov=20.0, lookfrom=(13.0, 2.0, 3.0),
         lookat=(0.0, 0.0, 0.0), defocus_angle=0.0,
     )
-    return b.compile(device), _cfg(cfg, cam_overrides)
+    return b.compile(device, use_bvh=use_bvh), _cfg(cfg, cam_overrides)
 
 
 @register("quads")
-def quads(device=DEFAULT_DEVICE, **cam_overrides):
+def quads(device=DEFAULT_DEVICE, use_bvh: bool = False, **cam_overrides):
     """Five colored quads."""
     b = SceneBuilder()
     b.quad((-3, -2, 5), (0, 0, -4), (0, 4, 0), b.lambertian((1.0, 0.2, 0.2)))
@@ -114,11 +117,12 @@ def quads(device=DEFAULT_DEVICE, **cam_overrides):
         max_depth=50, background=SKY, vfov=80.0, lookfrom=(0.0, 0.0, 9.0),
         lookat=(0.0, 0.0, 0.0), defocus_angle=0.0,
     )
-    return b.compile(device), _cfg(cfg, cam_overrides)
+    return b.compile(device, use_bvh=use_bvh), _cfg(cfg, cam_overrides)
 
 
 @register("earth")
-def earth(device=DEFAULT_DEVICE, image: str = "earthmap.jpg", **cam_overrides):
+def earth(device=DEFAULT_DEVICE, use_bvh: bool = False, image: str = "earthmap.jpg",
+          **cam_overrides):
     """An image-textured globe. The image is the first found of ``image``
     (the reference's asset, for exact parity with it), the repository's
     ``images/earthmap.ppm`` (a procedurally generated stand-in) and the
@@ -136,11 +140,11 @@ def earth(device=DEFAULT_DEVICE, image: str = "earthmap.jpg", **cam_overrides):
         max_depth=50, background=SKY, vfov=20.0, lookfrom=(0.0, 0.0, 12.0),
         lookat=(0.0, 0.0, 0.0), defocus_angle=0.0,
     )
-    return b.compile(device), _cfg(cfg, cam_overrides)
+    return b.compile(device, use_bvh=use_bvh), _cfg(cfg, cam_overrides)
 
 
 @register("perlin_sphere")
-def perlin_sphere(device=DEFAULT_DEVICE, **cam_overrides):
+def perlin_sphere(device=DEFAULT_DEVICE, use_bvh: bool = False, **cam_overrides):
     """Marble-noise ground and sphere."""
     b = SceneBuilder()
     pertext = b.noise(4.0)
@@ -151,11 +155,11 @@ def perlin_sphere(device=DEFAULT_DEVICE, **cam_overrides):
         max_depth=50, background=SKY, vfov=20.0, lookfrom=(13.0, 2.0, 3.0),
         lookat=(0.0, 0.0, 0.0), defocus_angle=0.0,
     )
-    return b.compile(device), _cfg(cfg, cam_overrides)
+    return b.compile(device, use_bvh=use_bvh), _cfg(cfg, cam_overrides)
 
 
 @register("simple_light")
-def simple_light(device=DEFAULT_DEVICE, **cam_overrides):
+def simple_light(device=DEFAULT_DEVICE, use_bvh: bool = False, **cam_overrides):
     """Marble spheres lit by an emissive sphere and quad, black background."""
     b = SceneBuilder()
     pertext = b.noise(4.0)
@@ -169,11 +173,11 @@ def simple_light(device=DEFAULT_DEVICE, **cam_overrides):
         max_depth=50, background=(0.0, 0.0, 0.0), vfov=20.0,
         lookfrom=(26.0, 3.0, 6.0), lookat=(0.0, 2.0, 0.0), defocus_angle=0.0,
     )
-    return b.compile(device), _cfg(cfg, cam_overrides)
+    return b.compile(device, use_bvh=use_bvh), _cfg(cfg, cam_overrides)
 
 
 @register("cornell_box")
-def cornell_box(device=DEFAULT_DEVICE, **cam_overrides):
+def cornell_box(device=DEFAULT_DEVICE, use_bvh: bool = False, **cam_overrides):
     """Cornell box with two unrotated blocks."""
     b = SceneBuilder()
     red = b.lambertian((0.65, 0.05, 0.05))
@@ -194,11 +198,11 @@ def cornell_box(device=DEFAULT_DEVICE, **cam_overrides):
         lookfrom=(278.0, 278.0, -800.0), lookat=(278.0, 278.0, 0.0),
         defocus_angle=0.0,
     )
-    return b.compile(device), _cfg(cfg, cam_overrides)
+    return b.compile(device, use_bvh=use_bvh), _cfg(cfg, cam_overrides)
 
 
 @register("single_sphere")
-def single_sphere(device=DEFAULT_DEVICE, **cam_overrides):
+def single_sphere(device=DEFAULT_DEVICE, use_bvh: bool = False, **cam_overrides):
     """Single lambertian sphere on a ground sphere, 200×100 @ 16 spp,
     depth 8."""
     b = SceneBuilder()
@@ -209,11 +213,11 @@ def single_sphere(device=DEFAULT_DEVICE, **cam_overrides):
         background=SKY, vfov=90.0, lookfrom=(0.0, 0.0, 0.0),
         lookat=(0.0, 0.0, -1.0), defocus_angle=0.0, focus_dist=1.0,
     )
-    return b.compile(device), _cfg(cfg, cam_overrides)
+    return b.compile(device, use_bvh=use_bvh), _cfg(cfg, cam_overrides)
 
 
 @register("three_spheres")
-def three_spheres(device=DEFAULT_DEVICE, **cam_overrides):
+def three_spheres(device=DEFAULT_DEVICE, use_bvh: bool = False, **cam_overrides):
     """Lambertian / metal / dielectric trio, 400×225 @ 64 spp, depth 16."""
     b = SceneBuilder()
     b.sphere((0.0, -100.5, -1.0), 100.0, b.lambertian((0.8, 0.8, 0.0)))
@@ -225,4 +229,4 @@ def three_spheres(device=DEFAULT_DEVICE, **cam_overrides):
         max_depth=16, background=SKY, vfov=90.0, lookfrom=(0.0, 0.0, 0.0),
         lookat=(0.0, 0.0, -1.0), defocus_angle=0.0, focus_dist=1.0,
     )
-    return b.compile(device), _cfg(cfg, cam_overrides)
+    return b.compile(device, use_bvh=use_bvh), _cfg(cfg, cam_overrides)

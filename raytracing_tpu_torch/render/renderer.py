@@ -9,9 +9,11 @@
   the brute-force closest hit, at the JAX ``Renderer``'s defaults
   (``mode="scan"``, no remat: the forward render records no autograd);
   it renders every scene, phased launches only;
+* ``"bvh"``: the same integrator with the closest hit of the scene's BVH
+  (``ops/traverse.py``); it raises on a scene compiled without one;
 * ``"auto"`` (the default): ``"mega"`` when the scene can be expressed in
-  the kernels' tables, else ``"brute"``, decided from the scene alone;
-* ``"bvh"`` is refused: the integrator's BVH is not ported yet.
+  the kernels' tables, else ``"bvh"`` when the scene has a BVH and more
+  than 64 primitives, else ``"brute"``, decided from the scene alone.
 
 The megakernel schedules:
 
@@ -19,22 +21,28 @@ The megakernel schedules:
   through the phased megakernel trace, accumulated into the image. The
   JAX package fuses every launch into one jitted loop; here the launches
   are a Python loop that never waits on the device until the image is
-  copied to the host at the end.
+  copied to the host at the end, unless ``checkpoint_cb`` asks for the
+  state after every sample chunk (``render(resume_state=)`` picks a
+  render up from such a state, bit for bit). The integrator's methods
+  render in these launches too.
 * ``schedule="pool"``: the regenerating pool (``render/pool.py``), one
   persistent wavefront for the whole render, split into sample windows
-  only where the (pixel, sample) stream passes ``MAX_POOL_STREAM``.
+  only where the (pixel, sample) stream passes ``MAX_POOL_STREAM``. It has
+  no sample chunks to checkpoint, and refuses ``resume_state`` and
+  ``checkpoint_cb``.
 """
 from __future__ import annotations
 
 import time as _time
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from ..core.color import to_u8_image
 from ..ops.intersect import closest_hit_brute
+from ..ops.traverse import closest_hit_bvh
 from ..ops.megakernel import build_mega_scene, expressible, select_layout, trace_megakernel
 from ..scene.types import Scene
 from . import camera as cam_mod
@@ -42,7 +50,9 @@ from . import integrator
 from . import pool as pool_mod
 from .camera import CameraConfig, CameraParams
 
-HIT_METHODS = ("auto", "mega", "brute")
+HIT_METHODS = ("auto", "mega", "brute", "bvh")
+INTEGRATOR_HIT_FNS = {"brute": closest_hit_brute, "bvh": closest_hit_bvh}
+BVH_MIN_PRIMS = 64  # "auto" takes the BVH above this many primitives
 
 
 @dataclass
@@ -105,10 +115,11 @@ def _render_chunk(mega, cfg: CameraConfig, derived, pixel_start: int,
     return rad, out[1], (out[2] if phase_prefixes is not None else None)
 
 
-def _brute_chunk(scene: Scene, cfg: CameraConfig, derived, pixel_start: int,
-                 sample_start: int, seed: int, *, n_block: int, spp_chunk: int):
-    """One launch through the wavefront integrator with the brute-force
-    closest hit: (radiance summed over the chunk's samples (n_block, 3),
+def _integrator_chunk(scene: Scene, cfg: CameraConfig, derived, pixel_start: int,
+                      sample_start: int, seed: int, *, n_block: int, spp_chunk: int,
+                      hit_fn: Callable):
+    """One launch through the wavefront integrator with the closest hit
+    ``hit_fn``: (radiance summed over the chunk's samples (n_block, 3),
     segments as a 0-d int64 tensor)."""
     o, d, t, pixel_ids, sample_ids, valid, alive = chunk_rays(
         cfg, derived, pixel_start, sample_start, seed, n_block=n_block,
@@ -116,7 +127,7 @@ def _brute_chunk(scene: Scene, cfg: CameraConfig, derived, pixel_start: int,
         device=scene.spheres.radius.device)
     radiance, segments = integrator.trace(
         scene, o, d, t, pixel_ids, sample_ids, cfg.background, cfg.max_depth, seed,
-        hit_fn=closest_hit_brute, mode="scan", remat=False, active0=alive)
+        hit_fn=hit_fn, mode="scan", remat=False, active0=alive)
     radiance = torch.where(valid[:, None], radiance, 0.0)
     return radiance.reshape(spp_chunk, n_block, 3).sum(dim=0), torch.tensor(segments)
 
@@ -137,9 +148,6 @@ class Renderer:
                  max_rays_per_launch: int = 1 << 18, phase_depths=None,
                  transfer: str = "f32", phase_prefixes=None, strict_prefixes: bool = True,
                  schedule: str = "phased", cull=None):
-        if hit_method == "bvh":
-            raise ValueError("hit_method='bvh' needs the integrator's BVH, which is not ported "
-                             "yet (ROADMAP Queue 1 item 3); use 'auto', 'mega' or 'brute'")
         if hit_method not in HIT_METHODS:
             raise ValueError(f"hit_method must be one of {HIT_METHODS}, got {hit_method!r}")
         if transfer not in ("f32", "u8"):
@@ -153,8 +161,8 @@ class Renderer:
         self.schedule = schedule
         self.phase_depths = _default_phases(cfg, phase_depths)
         self.phase_prefixes = tuple(phase_prefixes) if phase_prefixes is not None else None
-        if hit_method == "brute":
-            self._refuse_brute()
+        if hit_method in INTEGRATOR_HIT_FNS:
+            self._refuse_integrator(hit_method)
         self.strict_prefixes = strict_prefixes
         # a launch is n_block pixels (a 1024-multiple, padding rays start
         # dead) × spp_chunk samples, at most max_rays_per_launch rays
@@ -165,21 +173,28 @@ class Renderer:
         self._mega = None
         self._mega_scene = None
 
-    def _refuse_brute(self):
+    def _refuse_integrator(self, method: str):
         """The integrator has no pool schedule and no phase prefixes."""
         what = ("schedule='pool'" if self.schedule == "pool"
                 else "phase_prefixes" if self.phase_prefixes is not None
                 else "cull" if self.cull is not None else None)
         if what is not None:
             raise ValueError(f"{what} belongs to the megakernel (hit_method='mega'); this "
-                             f"renderer traces through the integrator (hit_method='brute')")
+                             f"renderer traces through the integrator (hit_method='{method}')")
 
     def resolve_hit_method(self, scene: Scene) -> str:
-        """``"mega"`` or ``"brute"``: how :meth:`render` traces ``scene``.
-        ``"auto"`` takes the megakernel exactly when the scene can be
-        expressed in its tables (``ops.megakernel.expressible``)."""
+        """``"mega"``, ``"bvh"`` or ``"brute"``: how :meth:`render` traces
+        ``scene``. ``"auto"`` takes the megakernel exactly when the scene
+        can be expressed in its tables (``ops.megakernel.expressible``),
+        else the BVH when the scene has one over more than
+        :data:`BVH_MIN_PRIMS` primitives, as the JAX ``Renderer`` does off
+        the CPU."""
         if self.hit_method == "auto":
-            return "mega" if expressible(scene) else "brute"
+            if expressible(scene):
+                return "mega"
+            if scene.bvh is not None and scene.n_primitives > BVH_MIN_PRIMS:
+                return "bvh"
+            return "brute"
         return self.hit_method
 
     def _get_mega(self, scene: Scene):
@@ -207,9 +222,10 @@ class Renderer:
         a single-phase schedule. Raises ValueError on a scene that traces
         through the integrator or the group layout (K5), neither of which
         counts per-ray bounces."""
-        if self.resolve_hit_method(scene) != "mega":
+        method = self.resolve_hit_method(scene)
+        if method != "mega":
             raise ValueError("phase prefixes belong to the megakernel (hit_method='mega'); "
-                             "this scene renders through the integrator (hit_method='brute')")
+                             f"this scene renders through the integrator (hit_method='{method}')")
         mega = self._get_mega(scene)
         cfg = self.cfg
         phases = self.phase_depths
@@ -280,66 +296,119 @@ class Renderer:
             return RenderResult(None, segments, seconds, len(windows), u8=img_h)
         return RenderResult(img_h, segments, seconds, len(windows))
 
-    def render(self, scene: Scene, params: Optional[CameraParams] = None,
-               seed: int = 0) -> RenderResult:
+    def render(self, scene: Scene, params: Optional[CameraParams] = None, seed: int = 0,
+               progress: bool = False, resume_state: Optional[dict] = None,
+               checkpoint_cb: Optional[Callable[[dict], None]] = None) -> RenderResult:
+        """Render ``scene``. ``progress`` prints the sample chunks left after
+        each one. ``checkpoint_cb`` receives, after every sample chunk, the
+        render state ``{"accum": (n_blocks · n_block, 3) f32 host copy of
+        the per-pixel radiance sums, "segments": int, "schunk": the next
+        sample chunk}``; ``resume_state`` (such a state, e.g. from
+        ``utils.checkpoint.load_render_state``) starts the launches at its
+        sample chunk, and the render then equals the whole one bit for bit.
+        The state belongs to this renderer's launch shape: an ``accum`` of
+        another shape raises. The pool schedule has no sample chunks: it
+        refuses both and prints no progress."""
         cfg = self.cfg
-        brute = self.resolve_hit_method(scene) == "brute"
-        if brute:
-            self._refuse_brute()
+        method = self.resolve_hit_method(scene)
+        if method in INTEGRATOR_HIT_FNS:
+            self._refuse_integrator(method)
+            if method == "bvh" and scene.bvh is None:
+                raise ValueError("scene was compiled without a BVH (hit_method='bvh' needs "
+                                 "SceneBuilder.compile(use_bvh=True))")
             mega, dev = None, scene.spheres.radius.device
         else:
             mega = self._get_mega(scene)
             dev = mega.sph_sweep.device
         if params is None:
             params = CameraParams.from_config(cfg, dev)
-        if dev.type == "cuda" and not brute:
+        if dev.type == "cuda" and mega is not None:
             from .. import _kernels
 
             _kernels.library()  # build outside the timed region
         if self.schedule == "pool":
+            if resume_state is not None or checkpoint_cb is not None:
+                raise ValueError("schedule='pool' has no sample chunks to checkpoint or resume "
+                                 "from; render with schedule='phased'")
             return self._render_pool(scene, mega, params, seed)
-        launches = self._launches()
         n_blocks = -(-cfg.n_pixels // self.n_block)
+        n_schunks = -(-cfg.samples_per_pixel // self.spp_chunk)
 
         t0 = _time.perf_counter()
         derived = cam_mod.derive(cfg, params)
-        accum = torch.zeros((n_blocks * self.n_block, 3), dtype=torch.float32, device=dev)
+        seg_base, start = 0, 0
+        if resume_state is None:
+            accum = torch.zeros((n_blocks * self.n_block, 3), dtype=torch.float32, device=dev)
+        else:
+            acc_h = np.asarray(resume_state["accum"], np.float32)
+            if acc_h.shape != (n_blocks * self.n_block, 3):
+                raise ValueError(
+                    f"resume_state['accum'] has shape {acc_h.shape}, but this renderer's "
+                    f"launches accumulate into ({n_blocks * self.n_block}, 3) "
+                    f"({n_blocks} blocks of {self.n_block} pixels): resume with the "
+                    f"max_rays_per_launch the state was saved with")
+            start = int(resume_state["schunk"])
+            if not 0 <= start <= n_schunks:
+                raise ValueError(f"resume_state['schunk'] = {start} is outside this render's "
+                                 f"{n_schunks} sample chunks")
+            accum = torch.from_numpy(acc_h.copy()).to(dev)  # added to in place below
+            seg_base = int(resume_state["segments"])
         seg_parts = []
         ok = torch.ones((), dtype=torch.bool, device=dev)
-        for pixel_start, sample_start in launches:
-            if brute:
-                with torch.no_grad():
-                    rad, seg = _brute_chunk(scene, cfg, derived, pixel_start, sample_start, seed,
-                                            n_block=self.n_block, spp_chunk=self.spp_chunk)
-                ok_c = None
-            else:
-                rad, seg, ok_c = _render_chunk(mega, cfg, derived, pixel_start, sample_start,
-                                               seed, **self._chunk_kwargs(scene),
-                                               phase_prefixes=self.phase_prefixes,
-                                               cull=self.cull)
-            accum[pixel_start:pixel_start + self.n_block] += rad
-            seg_parts.append(seg)
-            if ok_c is not None:
-                ok = ok & ok_c
+        hit_fn = INTEGRATOR_HIT_FNS.get(method)
+        for s in range(start, n_schunks):
+            sample_start = s * self.spp_chunk
+            for pixel_start in range(0, n_blocks * self.n_block, self.n_block):
+                if hit_fn is not None:
+                    with torch.no_grad():
+                        rad, seg = _integrator_chunk(
+                            scene, cfg, derived, pixel_start, sample_start, seed,
+                            n_block=self.n_block, spp_chunk=self.spp_chunk, hit_fn=hit_fn)
+                    ok_c = None
+                else:
+                    rad, seg, ok_c = _render_chunk(
+                        mega, cfg, derived, pixel_start, sample_start, seed,
+                        **self._chunk_kwargs(scene), phase_prefixes=self.phase_prefixes,
+                        cull=self.cull)
+                accum[pixel_start:pixel_start + self.n_block] += rad
+                seg_parts.append(seg)
+                if ok_c is not None:
+                    ok = ok & ok_c
+            if progress:
+                print(f"\rsample chunks remaining: {n_schunks - s - 1} ", end="", flush=True)
+            if checkpoint_cb is not None:
+                checkpoint_cb({"accum": accum.to("cpu", copy=True).numpy(),
+                               "segments": seg_base + _segment_sum(seg_parts),
+                               "schunk": s + 1})
         mean = (accum[:cfg.n_pixels] / cfg.samples_per_pixel).reshape(
             cfg.image_height, cfg.image_width, 3)
         img = to_u8_image(mean) if self.transfer == "u8" else mean
-        segs = torch.stack(seg_parts)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         img_h = img.cpu().numpy()
         seconds = _time.perf_counter() - t0
-        segments = int(segs.cpu().numpy().astype(np.int64).sum())
+        segments = seg_base + _segment_sum(seg_parts)
+        if progress:
+            print("\rDone.                        ", flush=True)
         ok_h = bool(ok) if self.phase_prefixes is not None else None
         if self.transfer == "u8":
-            return self._checked(RenderResult(None, segments, seconds, len(launches),
+            return self._checked(RenderResult(None, segments, seconds, len(seg_parts),
                                               u8=img_h, ok=ok_h))
-        return self._checked(RenderResult(img_h, segments, seconds, len(launches), ok=ok_h))
+        return self._checked(RenderResult(img_h, segments, seconds, len(seg_parts), ok=ok_h))
+
+
+def _segment_sum(seg_parts) -> int:
+    """The launches' segment counts (0-d device tensors), summed in int64
+    on the host."""
+    if not seg_parts:
+        return 0
+    return int(torch.stack(seg_parts).cpu().numpy().astype(np.int64).sum())
 
 
 def render(scene: Scene, cfg: CameraConfig, params: Optional[CameraParams] = None,
-           seed: int = 0, hit_method: str = "auto",
-           max_rays_per_launch: int = 1 << 20) -> RenderResult:
+           seed: int = 0, hit_method: str = "auto", max_rays_per_launch: int = 1 << 20,
+           progress: bool = False) -> RenderResult:
     """One-shot functional API over :class:`Renderer`."""
     return Renderer(cfg, hit_method=hit_method,
-                    max_rays_per_launch=max_rays_per_launch).render(scene, params, seed)
+                    max_rays_per_launch=max_rays_per_launch).render(scene, params, seed,
+                                                                    progress=progress)

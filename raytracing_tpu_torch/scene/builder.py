@@ -2,9 +2,10 @@
 :class:`Scene`: the counterpart of ``raytracing_tpu.scene.builder``.
 
 The builder API and the compiled row layout are the JAX package's, so
-both packages build identical tables from the same calls. There is no
-integrator BVH (``compile(use_bvh=)``) yet: the megakernels build their
-own chunked BVH from the compiled tables (ops/mega_bvh.py).
+both packages build identical tables from the same calls, the integrator's
+BVH (``compile(use_bvh=True)``, ops/bvh.py) included. The megakernels do
+not read that BVH: they build their own chunked BVH from the compiled
+tables (ops/mega_bvh.py).
 """
 from __future__ import annotations
 
@@ -15,8 +16,10 @@ import numpy as np
 import torch
 
 from ..core.device import DEFAULT_DEVICE, resolve
+from ..ops.bvh import build_bvh
 from . import assets, perlin
 from .types import (
+    BVH,
     MAT_DIELECTRIC,
     MAT_DIFFUSE_LIGHT,
     MAT_LAMBERTIAN,
@@ -169,12 +172,15 @@ class SceneBuilder:
         return len(self.quad_mat)
 
     def compile(self, device=DEFAULT_DEVICE, perlin_seed: int = 0,
-                image_bilinear: bool = False) -> Scene:
+                image_bilinear: bool = False, use_bvh: bool = True) -> Scene:
         """Lower the builder state to a :class:`Scene` on ``device`` (default:
         the card; raises without CUDA unless ``device="cpu"``).
         Primitive tables are padded to a multiple of 8 rows with inert
         entries (zero-radius spheres, degenerate quads); the Perlin tables
-        are drawn from ``perlin_seed``."""
+        are drawn from ``perlin_seed``. With ``use_bvh`` the integrator's
+        BVH is built on the host over the *real* primitives, indexing the
+        padded global id space (spheres first, then quads at offset
+        n_sphere_rows)."""
         device = resolve(device)
         n_sph = _pad_to(max(self.n_spheres, 1), 8)
         n_quad = _pad_to(max(self.n_quads, 1), 8)
@@ -235,9 +241,24 @@ class SceneBuilder:
             has_moving=any(np.any(v != 0) for v in self.sph_velocity),
             image_bilinear=image_bilinear,
         )
+        bvh = None
+        if use_bvh and (self.n_spheres + self.n_quads) > 0:
+            flat = build_bvh(
+                sphere_center=np.asarray(self.sph_center, np.float32).reshape(-1, 3),
+                sphere_velocity=np.asarray(self.sph_velocity, np.float32).reshape(-1, 3),
+                sphere_radius=np.asarray(self.sph_radius, np.float32),
+                quad_q=np.asarray(self.quad_q, np.float32).reshape(-1, 3),
+                quad_u=np.asarray(self.quad_u, np.float32).reshape(-1, 3),
+                quad_v=np.asarray(self.quad_v, np.float32).reshape(-1, 3),
+                quad_id_offset=n_sph,
+            )
+            bvh = BVH(bbox_min=torch.from_numpy(flat.bbox_min).to(device),
+                      bbox_max=torch.from_numpy(flat.bbox_max).to(device),
+                      prim=torch.from_numpy(flat.prim).to(device),
+                      miss=torch.from_numpy(flat.miss).to(device))
         return Scene(spheres=spheres, quads=quads, materials=materials,
                      textures=textures, atlas=atlas,
-                     perlin=perlin.make_tables(perlin_seed, device), flags=flags)
+                     perlin=perlin.make_tables(perlin_seed, device), bvh=bvh, flags=flags)
 
 
 class _TranslateScope:

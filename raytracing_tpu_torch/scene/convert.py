@@ -5,8 +5,8 @@ paths of ``raytracing_tpu``'s ``Scene`` (``"spheres.center"``,
 ``"textures.child"``, ``"atlas.sizes"``, ...) and returns a port
 :class:`Scene`; ``camera_params_from_arrays`` does the same for
 ``CameraParams``. With them a scene built by either package computes on
-the same parameters in the other. Keys for fields the port has no use for
-(``bvh.*``) are ignored.
+the same parameters in the other. The integrator's BVH (``bvh.*``) comes
+across when its keys are present; without them the scene has none.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ import torch
 from ..core.device import DEFAULT_DEVICE, resolve
 from ..render.camera import CameraParams
 from .types import (
+    BVH,
     TEX_CHECKER,
     TEX_IMAGE,
     TEX_NOISE,
@@ -52,7 +53,11 @@ def scene_from_arrays(d: dict, device=DEFAULT_DEVICE, image_bilinear: bool = Fal
         has_moving=bool(np.any(np.asarray(d["spheres.velocity"]) != 0)),
         image_bilinear=image_bilinear,
     )
-    return Scene(**parts, flags=flags)
+    bvh = None
+    if "bvh.prim" in d:
+        bvh = BVH(**{f.name: torch.from_numpy(np.array(d[f"bvh.{f.name}"])).to(device)
+                     for f in fields(BVH)})
+    return Scene(**parts, bvh=bvh, flags=flags)
 
 
 def camera_params_from_arrays(d: dict, device=DEFAULT_DEVICE) -> CameraParams:

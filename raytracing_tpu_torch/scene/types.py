@@ -10,7 +10,7 @@ by field (scene/convert.py).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -86,6 +86,20 @@ class PerlinTables:
     perm_z: torch.Tensor   # (256,) i32
 
 
+@dataclass
+class BVH:
+    """Flattened binary BVH in depth-first preorder with skip links, the
+    integrator's acceleration structure (ops/bvh.py builds it on the host,
+    ops/traverse.py walks it). For node ``i``: if ``prim[i] >= 0`` it is a
+    leaf over that primitive (global primitive index: spheres first, then
+    quads). Otherwise its first child is ``i + 1`` and ``miss[i]`` is the
+    next node to visit when the subtree is skipped (-1 ends the walk)."""
+    bbox_min: torch.Tensor  # (K, 3) f32
+    bbox_max: torch.Tensor  # (K, 3) f32
+    prim: torch.Tensor      # (K,) i32, leaf primitive id or -1
+    miss: torch.Tensor      # (K,) i32, skip link or -1
+
+
 class SceneFlags(NamedTuple):
     """Facts about a compiled scene that let the renderer skip work."""
     has_checker: bool = True
@@ -97,14 +111,16 @@ class SceneFlags(NamedTuple):
 
 @dataclass
 class Scene:
-    """A compiled scene: geometry, materials, textures, noise tables and
-    flags."""
+    """A compiled scene: geometry, materials, textures, noise tables, the
+    integrator's BVH (None when compiled without one; the megakernels build
+    their own chunked BVH and never read it) and flags."""
     spheres: Spheres
     quads: Quads
     materials: Materials
     textures: Textures
     atlas: ImageAtlas
     perlin: PerlinTables
+    bvh: Optional[BVH] = None
     flags: SceneFlags = SceneFlags()
 
     @property

@@ -3,7 +3,9 @@ wavefront integrator with the brute-force closest hit) against the JAX
 package's ``Renderer(hit_method="brute")`` launch, compiled with
 ``jit_run``, on two scenes the megakernels' tables cannot express (a
 bilinear-filtered image, a checker of checkers); ``"auto"`` choosing the
-megakernel exactly on the scenes it can express; and the refusals.
+megakernel exactly on the scenes it can express; and the refusals
+(``tests/test_torch_traverse.py`` holds ``"bvh"`` and its ``"auto"``
+choice).
 
 Bars (ROADMAP parity bar for the integrator): radiance mean |Δ| < 1e-3,
 segments within max(4, s/200). XLA on the CPU contracts multiply-adds
@@ -130,14 +132,16 @@ def test_auto_picks_the_megakernel_where_it_can():
 
 def test_mega_and_bvh_refuse():
     """``"mega"`` raises on a scene it cannot express, advising
-    ``"brute"``; ``"bvh"`` raises until the integrator's BVH is ported."""
+    ``"brute"``; ``"bvh"`` raises on a scene compiled without a BVH."""
     for name in SCENES:
         scene, cfg = _port(name)
         with pytest.raises(ValueError, match="hit_method='brute'"):
             Renderer(cfg, hit_method="mega").render(scene, seed=SEED)
+        b = PBuilder()
+        no_bvh = b.compile(device="cpu", use_bvh=False, **SCENES[name](b))
+        with pytest.raises(ValueError, match="compiled without a BVH"):
+            Renderer(cfg, hit_method="bvh").render(no_bvh, seed=SEED)
     cfg = CameraConfig(**CAMERA)
-    with pytest.raises(ValueError, match="Queue 1 item 3"):
-        Renderer(cfg, hit_method="bvh")
     with pytest.raises(ValueError, match="hit_method must be"):
         Renderer(cfg, hit_method="wavefront")
 

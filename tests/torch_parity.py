@@ -18,9 +18,10 @@ FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive
 
 
 def scene_arrays(scene) -> dict:
-    """A JAX ``Scene`` → ``{"spheres.center": np.ndarray, ...}``."""
+    """A JAX ``Scene`` → ``{"spheres.center": np.ndarray, ...}``, with the
+    integrator's BVH (``bvh.*``) when the scene has one."""
     out = {}
-    for group in SCENE_GROUPS:
+    for group in SCENE_GROUPS + (("bvh",) if scene.bvh is not None else ()):
         part = getattr(scene, group)
         for f in dataclasses.fields(part):
             out[f"{group}.{f.name}"] = np.asarray(getattr(part, f.name))
