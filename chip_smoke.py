@@ -97,6 +97,32 @@ counted, t bit-equal where the primitive is the same), and
 bouncing_spheres at 400x225, 4 spp, depth 8 through hit_method "bvh" and
 "brute", with walls, walk iterations and host syncs. Phase 27 times
 entry()'s forward (render_once) on the card.
+Phase 28 runs the BASELINE acceptance configurations 1-5 at full size
+through raytracing_tpu_torch.acceptance (one render each, the default
+Renderer) and holds each against ACCEPTANCE_r05.json's workload count
+(segments within max(4, s/200); config 3 exactly the port's bench count)
+and image statistics (mean u8 within 1.0, held for every config but
+earth's, whose texture is the repository's procedural stand-in;
+non-black fraction within 0.01); then K3, K2 and the fold at depth 50
+against their plain versions (K3 and K2 bit for bit, the fold within
+phase 11's bar of its float64 sum) on a 400x225 chunk and on
+cornell_box, and K2 and the fold at config 5's chunk size (3,244,032
+rays: K2's output passes 2^31 elements; K2 held bit for bit on the tiles
+of the rays past 32 bounces, a middle tile and the last); then config 5's
+fwd+bwd (1200x675, 500 spp, depth 50): the planning sweep and one
+planned sweep, whose
+decision pass must count exactly the forward render's segments, with
+finite gradients, a non-zero rgb gradient and its peak device memory.
+Phase 29 renders the four C++ comparison configurations through the
+default Renderer against the statistics CPP_COMPARE.json stores, under
+its tolerances. Phase 30 runs the sharded renders (raytracing_tpu_torch.
+parallel): two ranks on this card over gloo (dp2 and sp2 megakernel at
+the bench configuration, phases [2, 3, 15]: dp2 bit-equal to phase 25's
+single-process image (phase 3's schedule traces the same radiance bit
+for bit) and its u8 image to phase 3's, sp2 within 1e-5, both with the
+bench's segments; dp1 x tp2 brute force at 100 px, 4 spp, depth 8
+within 1e-5 of the single-process brute render), K1 counted on every
+rank, and one rank over NCCL (dp1 megakernel, bit-equal).
 
 Kernels shorter than their wrappers' host time (K3, K4, the fold and the
 PyTorch calls beside them) are timed with their launches queued behind a
@@ -1690,16 +1716,267 @@ def main() -> int:
         failures.append("phase 27 entry")
     shutil.rmtree(tmp, ignore_errors=True)
 
+    # ---- phase 28: BASELINE acceptance configs 1-5 at full size ----
+    from raytracing_tpu_torch import acceptance
+
+    with open(Path(__file__).resolve().parent / "ACCEPTANCE_r05.json") as f:
+        accept_ref = {c["config"]: c for c in json.load(f)["configs"]}
+    accept_rows, accept_counts = {}, {}
+    for n in (1, 2, 3, 4, 5):
+        c = {k: v for k, v in acceptance.CONFIGS[n].items() if k != "differentiable"}
+        zero_counts()
+        t0 = time.perf_counter()
+        row = acceptance.run_config(n, c, seed=SEED, reps=1, device=dev)
+        row["wall_s"] = round(time.perf_counter() - t0, 3)
+        accept_counts[n] = counts()
+        ref = accept_ref[n]
+        mean_dev = max(abs(a - b) for a, b in zip(row["mean_u8"], ref["mean_u8"]))
+        # config 4's texture is the repository's procedural stand-in for the
+        # earth image the reference rendered: its mean is recorded, not held
+        ok = (segments_close(ref["segments"], row["segments"])
+              and abs(row["nonblack_frac"] - ref["nonblack_frac"]) <= 0.01
+              and (n == 4 or mean_dev <= 1.0) and row["hit_method"] == "mega"
+              and accept_counts[n] == only(K1=accept_counts[n]["K1"]) and accept_counts[n]["K1"] > 0
+              and (n != 3 or row["segments"] == PORT_BENCH_SEGMENTS))
+        accept_rows[n] = row
+        print(f"phase 28 config {n} {c['scene']} {c['width']} px {c['spp']} spp depth "
+              f"{c['depth']}: {'ok' if ok else 'FAIL'} segments {row['segments']} (reference "
+              f"{ref['segments']}) mean_u8 {row['mean_u8']} (reference {ref['mean_u8']}, "
+              f"{'recorded, not held' if n == 4 else 'held within 1.0'}) nonblack "
+              f"{row['nonblack_frac']} (reference {ref['nonblack_frac']}) render "
+              f"{row['seconds']:.4f} s {row['rays_per_s']:.4g} rays/s wall {row['wall_s']} s "
+              f"kernel launches {accept_counts[n]} [{card}]")
+        if not ok:
+            failures.append(f"phase 28 config {n}")
+    # K3, K2 and the fold replaying 50 bounces against their plain versions,
+    # bit for bit (the fold to its float64 sum): a 400x225 chunk of config
+    # 5's scene at its depth, and cornell_box, whose closed room keeps rays
+    # bouncing past 32; then K2 and the fold at config 5's chunk size
+    def fold_close(tb, g, ids, L, segs):
+        """The fold's (L, 19) sum against fold_torch's in float64, bounce
+        by bounce, at phase 11's bar for ``segs`` ray-bounces."""
+        exact = torch.zeros((L, rk.NG), dtype=torch.float64, device=dev)
+        for b in range(g.shape[0]):
+            exact += tg.fold_torch(g[b:b + 1].double(), ids[b:b + 1], L)
+        tb = tb[:, rk._TCOLS].double()
+        err = float((tb - exact[:, rk._GSLOTS]).abs().max())
+        ok = bool(torch.allclose(tb, exact[:, rk._GSLOTS], rtol=1e-5,
+                                 atol=2e-6 * max(1, segs // L)))
+        return ok, err
+
+    for name5, w5, spp5 in (("bouncing_spheres", 400, 4), ("cornell_box", 64, 2)):
+        s5s, c5s = build(name5, device=dev, image_width=w5, samples_per_pixel=spp5,
+                         max_depth=50)
+        table, ids, rfr, rir, ml, rbar, kw_r, _, len5 = replay_inputs(s5s, c5s, spp5,
+                                                                      [2, 2, 3, 4, 39])
+        rad_k3, bc_k3 = rk.replay_fwd(table, ids, rfr, rir, ml, **kw_r)
+        g_k2 = rk.replay_bwd(table, ids, rfr, rir, rbar, ml, **kw_r)
+        L = table.shape[0]
+        before = tg.fold_launches
+        tb_k = rk.reduce_table_grads(g_k2, ids, L)
+        torch.cuda.synchronize()
+        rad_p3, bc_p3 = rk.replay_fwd_torch(table, ids, rfr, rir, ml, **kw_r)
+        g_p2 = rk.replay_bwd_torch(table, ids, rfr, rir, rbar, ml, **kw_r)
+        deep_m = len5 > 32
+        deep = int(deep_m.sum())
+        eq3_deep = bool(torch.equal(rad_k3[:, deep_m], rad_p3[:, deep_m]))
+        eq3, eq2 = bool(torch.equal(rad_k3, rad_p3)), bool(torch.equal(g_k2, g_p2))
+        fold_ok, fold_err = fold_close(tb_k, g_p2, ids, L, int(bc_p3.sum()))
+        ok_deep = (eq3 and bool(torch.equal(bc_k3, bc_p3)) and eq2 and fold_ok
+                   and tg.fold_launches == before + 1 and deep > 0)
+        print(f"phase 28 K3, K2 and the fold at depth 50, {name5} (B={rfr.shape[1]}, {deep} "
+              f"rays past 32 bounces, longest {int(len5.max())}): {'ok' if ok_deep else 'FAIL'} "
+              f"K3 bit-equal {eq3} (past 32 bounces {eq3_deep}) segments {int(bc_k3.sum())} "
+              f"plain {int(bc_p3.sum())}; K2 bit-equal {eq2}; fold (on the card) max_abs_err "
+              f"{fold_err:.3g} against float64")
+        if not ok_deep:
+            failures.append(f"phase 28 K3, K2 and the fold at depth 50, {name5}")
+        del table, ids, rfr, rir, ml, rbar, g_k2, g_p2, tb_k
+    # K2 at config 5's chunk (B = 3,244,032 rays, D = 50): its (50, 19, B)
+    # output passes 2^31 elements, so it is held on the tiles of the rays
+    # past 32 bounces (sorted first), a middle tile and the last tile, which
+    # the plain version replays alone; the fold then sums the whole chunk
+    c5 = acceptance.CONFIGS[5]
+    s5c, c5c = build(c5["scene"], device=dev, image_width=c5["width"], samples_per_pixel=4,
+                     max_depth=c5["depth"])
+    table, ids, rfr, rir, ml, rbar, kw_r, seg5c, len5 = replay_inputs(s5c, c5c, 4,
+                                                                      [2, 2, 3, 4, 39])
+    n5c, L = rfr.shape[1], table.shape[0]
+    g_k2 = rk.replay_bwd(table, ids, rfr, rir, rbar, ml, **kw_r)
+    before = tg.fold_launches
+    tb_k = rk.reduce_table_grads(g_k2, ids, L)
+    torch.cuda.synchronize()
+    n_tiles = -(-n5c // rk.TILE)
+    deep_tiles = -(-int((len5 > 32).sum()) // rk.TILE)
+    held = ((0, deep_tiles), (n_tiles // 2, n_tiles // 2 + 1), (n_tiles - 1, n_tiles))
+    tiles = sum(t1_ - t0_ for t0_, t1_ in held)
+    eq5c = True
+    for t0_, t1_ in held:
+        sl = slice(t0_ * rk.TILE, min(t1_ * rk.TILE, n5c))
+        g_p = rk.replay_bwd_torch(table, ids[:, sl].contiguous(), rfr[:, sl].contiguous(),
+                                  rir[:, sl].contiguous(), rbar[:, sl].contiguous(),
+                                  ml[t0_:t1_].contiguous(), **kw_r)
+        eq5c &= bool(torch.equal(g_k2[:, :, sl], g_p))
+    top = ((g_k2.shape[0] - 1) * rk.NG + rk.NG - 1) * n5c + n5c - 1  # last element checked
+    fold5_ok, fold5_err = fold_close(tb_k, g_k2, ids, L, seg5c)
+    ok5c = (eq5c and fold5_ok and tg.fold_launches == before + 1 and g_k2.numel() >= 2 ** 31
+            and deep_tiles > 0)
+    print(f"phase 28 K2 and the fold at config 5's chunk (B={n5c}, D={g_k2.shape[0]}, output "
+          f"{g_k2.numel()} elements, {tiles} tiles held up to element {top}): "
+          f"{'ok' if ok5c else 'FAIL'} K2 bit-equal on the held tiles {eq5c}; fold (on the "
+          f"card) max_abs_err {fold5_err:.3g} against float64 ({seg5c} ray-bounces)")
+    if not ok5c:
+        failures.append("phase 28 K2 and the fold at config 5's chunk")
+    del table, ids, rfr, rir, ml, rbar, g_k2, tb_k
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    fb5 = pbench._fwd_bwd_setup(width=c5["width"], spp=c5["spp"], max_depth=c5["depth"],
+                                seed=SEED, spp_chunk=4, device=dev)
+    zero_counts()
+    fb5["plan"]()
+    torch.cuda.synchronize()
+    plan5_s, plan5_counts = time.perf_counter() - t0, counts()
+    zero_counts()
+    t1 = time.perf_counter()
+    _, gc5, gr5, seg5, ok5 = fb5["sweep"]()
+    torch.cuda.synchronize()
+    sweep5_s, sweep5_counts = time.perf_counter() - t1, counts()
+    peak5 = torch.cuda.max_memory_allocated(dev)
+    n5 = fb5["n_chunks"]
+    ok28g = (bool(ok5) and int(seg5) == accept_rows[5]["segments"]
+             and bool(torch.isfinite(gc5).all() and torch.isfinite(gr5).all())
+             and float(gr5.abs().sum()) > 0
+             and sweep5_counts == only(K1=5 * n5, K2=n5, fold=n5))
+    print(f"phase 28 config 5 fwd+bwd ({n5} chunks of {fb5['B']} rays, spp_chunk 4): "
+          f"{'ok' if ok28g else 'FAIL'} decision-pass segments {int(seg5)} (forward render "
+          f"{accept_rows[5]['segments']}) plan {plan5_s:.3f} s sweep {sweep5_s:.3f} s "
+          f"{int(seg5) / sweep5_s:.4g} rays/s peak device memory {peak5 / 2**30:.2f} GiB "
+          f"rgb grad norm {float(gr5.norm()):.4g} kernel launches plan {plan5_counts} sweep "
+          f"{sweep5_counts} [{card}]")
+    if not ok28g:
+        failures.append("phase 28 config 5 fwd+bwd")
+    del fb5, gc5, gr5
+
+    # ---- phase 29: the stored C++ configurations through the default Renderer ----
+    from raytracing_tpu_torch import cpp_compare
+
+    cpp_counts, cpp_all = {}, []
+    for scene_c, w, spp_c, d_c, mtol, nbtol in cpp_compare.CONFIGS:
+        zero_counts()
+        r29 = cpp_compare.run_config(scene_c, w, spp_c, d_c, mtol, nbtol, seed=SEED, device=dev)
+        cpp_all.append(counts())
+        cpp_counts[scene_c] = cpp_all[-1]["K1"]
+        print(f"phase 29 {scene_c} {w} px {spp_c} spp depth {d_c}: "
+              f"{'ok' if r29['pass'] else 'FAIL'} mean_u8 {r29['port']['mean']} (C++ "
+              f"{r29['cpp']['mean']}, |d| {r29['mean_abs_diff_u8']} <= {mtol}) nonblack "
+              f"{r29['port']['nonblack']} (C++ {r29['cpp']['nonblack']}, |d| "
+              f"{r29['nonblack_abs_diff']} <= {nbtol}) shape {r29['port']['shape']} K1 launches "
+              f"{cpp_counts[scene_c]}")
+        if not r29["pass"]:
+            failures.append(f"phase 29 {scene_c}")
+
+    # ---- phase 30: the sharded renders: 2 ranks on this card over gloo, 1 over NCCL ----
+    import tempfile as _tf
+
+    import torch.distributed as dist
+
+    from raytracing_tpu_torch.core.color import to_u8_image
+    from raytracing_tpu_torch.entry import card_modes
+    from raytracing_tpu_torch.parallel.mesh import make_mesh, spawn
+    from raytracing_tpu_torch.parallel.shard import render_sharded
+
+    bench_c = dict(scene="bouncing_spheres", width=400, spp=100, depth=20, seed=SEED)
+    tp_c = dict(scene="bouncing_spheres", width=100, spp=4, depth=8, seed=SEED)
+    spec = {"dp2_mega": dict(mesh=((2,), ("dp",)), hit="mega", **bench_c),
+            "sp2_mega": dict(mesh=((1, 2), ("dp", "sp")), hit="mega", **bench_c),
+            "dp1tp2_brute": dict(mesh=((1, 2), ("dp", "tp")), hit="brute", **tp_c)}
+    t0 = time.perf_counter()
+    ranks30 = spawn(card_modes, 2, backend="gloo", device="cuda", args=(spec,))
+    spawn_s = time.perf_counter() - t0
+    ref30 = whole.radiance  # phase 25: the bench render, bit-equal to phase 3's
+    s30, c30 = build("bouncing_spheres", device=dev, image_width=100, samples_per_pixel=4,
+                     max_depth=8)
+    ref_tp = Renderer(c30, hit_method="brute").render(s30, seed=SEED)
+    ok30 = True
+    rows30 = {}
+    for name in spec:
+        r0 = ranks30[0][name]
+        same_ranks = all(np.array_equal(r[name]["img"], r0["img"]) and
+                         r[name]["segments"] == r0["segments"] for r in ranks30)
+        if name == "dp1tp2_brute":
+            err = float(np.abs(r0["img"] - ref_tp.radiance).max())
+            ok = err <= 1e-5 and r0["segments"] == ref_tp.segments
+        else:
+            err = float(np.abs(r0["img"] - ref30).max())
+            ok = (r0["segments"] == PORT_BENCH_SEGMENTS
+                  and (err == 0.0 if name == "dp2_mega" else err <= 1e-5))
+        if name == "dp2_mega":
+            u8 = to_u8_image(torch.from_numpy(r0["img"]).to(dev)).cpu().numpy()
+            ok = ok and bool(np.array_equal(u8, img))
+        k1 = [r[name]["K1"] for r in ranks30]
+        ok = ok and same_ranks and (name == "dp1tp2_brute" or all(x > 0 for x in k1))
+        ok30 &= ok
+        rows30[name] = dict(K1_per_rank=k1, seconds_per_rank=[round(r[name]["seconds"], 4)
+                                                               for r in ranks30])
+        against = ("the single-process brute render" if name == "dp1tp2_brute" else
+                   "phase 3's single-process render")
+        print(f"phase 30 {name} (2 ranks on {dev} over gloo): {'ok' if ok else 'FAIL'} max_abs_err "
+              f"{err:.3g} against {against}, segments {r0['segments']} ranks equal {same_ranks} "
+              f"K1 launches per rank {k1} walls per rank {rows30[name]['seconds_per_rank']} s "
+              f"[{card}]")
+    # 1 rank over NCCL in this process
+    nccl_dir = _tf.mkdtemp(prefix="chip_smoke_nccl_")
+    dist.init_process_group("nccl", store=dist.FileStore(str(Path(nccl_dir) / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh1 = make_mesh((1,), ("dp",), device=dev)
+        s1, c1 = build("bouncing_spheres", device=dev, image_width=400, samples_per_pixel=100,
+                       max_depth=20)
+        render_sharded(s1, c1, mesh1, seed=SEED, hit_method="mega")  # warm-up
+        zero_counts()
+        t0 = time.perf_counter()
+        img1, seg1 = render_sharded(s1, c1, mesh1, seed=SEED, hit_method="mega")
+        nccl_s = time.perf_counter() - t0
+        nccl_counts = counts()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(nccl_dir, ignore_errors=True)
+    ok_nccl = (bool(np.array_equal(img1, ref30)) and seg1 == PORT_BENCH_SEGMENTS
+               and nccl_counts == only(K1=nccl_counts["K1"]) and nccl_counts["K1"] > 0)
+    ok30 &= ok_nccl
+    rows30["dp1_mega_nccl"] = dict(K1_per_rank=[nccl_counts["K1"]],
+                                   seconds_per_rank=[round(nccl_s, 4)])
+    print(f"phase 30 dp1_mega (1 rank over NCCL): {'ok' if ok_nccl else 'FAIL'} bit-equal "
+          f"{bool(np.array_equal(img1, ref30))} segments {seg1} K1 launches "
+          f"{nccl_counts['K1']} wall {nccl_s:.4f} s; spawn of the 2 ranks {spawn_s:.1f} s "
+          f"[{card}]")
+    if not ok30:
+        failures.append("phase 30 sharded renders")
+    # every kernel's launches in phases 28-30 (the sharded renders' ranks: K1 and K5)
+    new_paths = {k: sum(c[k] for c in [*accept_counts.values(), plan5_counts, sweep5_counts,
+                                       *cpp_all, nccl_counts]) for k in counts()}
+    for r in ranks30:
+        for v in r.values():
+            new_paths["K1"] += v["K1"]
+            new_paths["K5"] += v["K5"]
+
     print(f"card: {card}")  # again near the end, inside a tail of the output
     print(json.dumps({"kernels": [
         {"name": "K1 megakernel_block (BVH walk; the guarded sweep below CULL_MIN_PRIMS)",
          "route": "cuda", "source": "raytracing_tpu_torch/csrc/megakernel_block.cu",
          "replaces": "raytracing_tpu/ops/megakernel_block.py:155",
+         "launches_phases_28_30": new_paths["K1"],
          "launches": render_counts["K1"], "path": "forward render (phase 3)",
          "launches_fwd_bwd_sweep": fb_counts["K1"],
          "launches_pool_render": pool_counts["K1"], "launches_registry_renders": reg_counts,
          "launches_pool_render_bouncing_spheres_64": cw["K1"],
          "launches_cli_render": cli_counts["K1"], "launches_resumed_render": resumed_counts["K1"],
+         "launches_acceptance": {n: c["K1"] for n, c in accept_counts.items()},
+         "launches_acceptance_config5_plan": plan5_counts["K1"],
+         "launches_acceptance_config5_sweep": sweep5_counts["K1"],
+         "launches_cpp_compare": cpp_counts,
+         "launches_sharded_per_rank": {k: v["K1_per_rank"] for k, v in rows30.items()},
          "max_abs_err": stats["max_abs_err"], "ms": ms, "ms_sweep": ms_sweep,
          "plain_ms": plain_ms, "bound_ms": k1_walk_bound[0], "bound_by": k1_walk_bound[1],
          "bound_sweep_ms": k1_sweep_bound[0], "bound_sweep_by": k1_sweep_bound[1],
@@ -1709,6 +1986,7 @@ def main() -> int:
         {"name": "K3 replay_fwd", "route": "cuda",
          "source": "raytracing_tpu_torch/csrc/replay_kernel.cu",
          "replaces": "raytracing_tpu/diff/replay_kernel.py:594",
+         "launches_phases_28_30": new_paths["K3"],
          "launches": rt_counts["K3"], "path": "replay_trace_kernel (phase 7)",
          "max_abs_err": float(d3.max()), "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None,
@@ -1717,18 +1995,22 @@ def main() -> int:
         {"name": "K2 replay_bwd", "route": "cuda",
          "source": "raytracing_tpu_torch/csrc/replay_kernel.cu",
          "replaces": "raytracing_tpu/diff/replay_kernel.py:637",
+         "launches_phases_28_30": new_paths["K2"],
          "launches": fb_counts["K2"], "path": "one fwd+bwd bench sweep (phase 6)",
+         "launches_acceptance_config5_sweep": sweep5_counts["K2"],
          "max_abs_err": k2_err, "tbar_rel_l2": rel2, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None},
         {"name": "K5 megakernel_group", "route": "cuda",
          "source": "raytracing_tpu_torch/csrc/megakernel_group.cu",
          "replaces": "raytracing_tpu/ops/megakernel.py:285",
+         "launches_phases_28_30": new_paths["K5"],
          "launches": k5_counts["K5"], "path": "bouncing_spheres_64 render (phase 10)",
          **k5_entry, "library_ms": None,
          **{f"{k}_full_width": v["k5"] for k, v in tex_rows.items()}},
         {"name": "K4 table_gather", "route": "cuda",
          "source": "raytracing_tpu_torch/csrc/table_gather.cu",
          "replaces": "raytracing_tpu/ops/table_gather.py:42",
+         "launches_phases_28_30": new_paths["K4"],
          "launches": sweep12_counts["K4"], "path": "replay_trace_fast sweep (phase 12)",
          **{k: k4_rows[0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                         "library_ms")},
@@ -1736,8 +2018,10 @@ def main() -> int:
         {"name": "fold table_fold (K4's backward, the replay's table reduction)",
          "route": "cuda", "source": "raytracing_tpu_torch/csrc/table_gather.cu",
          "replaces": "raytracing_tpu/ops/table_gather.py:117 (_bwd, the one-hot VJP of K4)",
+         "launches_phases_28_30": new_paths["fold"],
          "launches": sweep12_counts["fold"], "path": "replay_trace_fast sweep (phase 12)",
          "launches_fwd_bwd_sweep": fb_counts["fold"],
+         "launches_acceptance_config5_sweep": sweep5_counts["fold"],
          **{k: fold_rows[0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                           "library_ms", "onehot_ms")},
          "L4224": {k: fold_rows[1][k] for k in ("max_abs_err", "ms", "plain_ms", "onehot_ms",

@@ -2,7 +2,7 @@
 forward render and of the forward+backward gradient sweep, on the bench
 workload (bouncing_spheres, 400×225, 100 spp, depth 20, seed 7).
 
-    python -m raytracing_tpu_torch.bench
+    python -m raytracing_tpu_torch.bench [--devices N]
 
 prints one JSON line in the JAX package's bench schema (``bench.py`` at
 the repository root) with ``"backend": "cuda"``:
@@ -16,7 +16,8 @@ the repository root) with ``"backend": "cuda"``:
 "Rays" are ray-scene queries actually traced (path segments), counted
 exactly by the kernels. It needs a CUDA device and raises without one (or
 on any failure); the functions take ``device="cpu"`` to run the plain
-versions at small sizes.
+versions at small sizes. ``--devices N`` prints the dp weak-scaling line
+instead (:func:`bench_scaling`).
 """
 from __future__ import annotations
 
@@ -229,7 +230,37 @@ def time_fwd_bwd(s, reps=3):
                 grad_center=gc, grad_rgb=gr)
 
 
-def main():
+def bench_scaling(n_devices=8, width=200, spp=16, max_depth=8, seed=7, device=DEFAULT_DEVICE):
+    """The dp weak-scaling line (``bench.py:518-603``): segments per second
+    of the sharded render (``hit_method="bvh"``) on a dp mesh of
+    ``n_devices`` ranks against one (``scaling.rate``). ``efficiency`` =
+    rate_N / (N · rate_1) where every rank has a card of its own, else null:
+    ranks that share a card (gloo) cannot scale, and their rates are
+    written down as such."""
+    from . import scaling
+
+    r1 = scaling.rate(1, width, spp, max_depth, seed, device=device)
+    rn = scaling.rate(n_devices, width, spp, max_depth, seed, device=device)
+    shared = rn["ranks_share_a_device"]
+    return dict(devices=n_devices, rays_per_s_1dev=round(r1["rays_per_s"]),
+                rays_per_s_ndev=round(rn["rays_per_s"]),
+                efficiency=None if shared else round(rn["rays_per_s"] /
+                                                     (n_devices * r1["rays_per_s"]), 4),
+                backend=rn["backend"], ranks_share_a_device=shared,
+                device=torch.cuda.get_device_name(0) if resolve(device).type == "cuda" else "cpu")
+
+
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="raytracing_tpu_torch.bench")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="the dp weak-scaling line on N ranks (bench_scaling)")
+    args = ap.parse_args(argv)
+    if args.devices is not None:
+        print(json.dumps(dict(metric="scaling_efficiency_dp", unit="ratio",
+                              **bench_scaling(args.devices))))
+        return
     dev = resolve(DEFAULT_DEVICE)
     fwd = bench_forward(device=dev)
     bwd = bench_fwd_bwd(device=dev)

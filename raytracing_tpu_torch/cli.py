@@ -10,9 +10,19 @@ The flags are the JAX CLI's, plus ``--device`` (default ``cuda``, the card;
 features the port leaves out exit non-zero with a message:
 ``--clusters`` and ``--sort-regions`` other than 1 (TPU tuning knobs),
 ``--ray-order pixel`` and ``--spp-chunk`` (the launch shape is
-sample-major only) and ``--devices`` (no multi-device renderer yet).
-``--mode`` is accepted and has no effect: the integrator always runs every
-bounce (``"scan"``), which gives the image ``"while"`` gives.
+sample-major only). ``--mode`` is accepted and has no effect: the
+integrator always runs every bounce (``"scan"``), which gives the image
+``"while"`` gives.
+
+``--devices N`` renders through ``parallel.shard.render_sharded`` on a dp
+mesh of N ranks (``raytracing_tpu/cli.py:77-82``), started by
+``parallel.mesh.spawn``: NCCL with a card a rank when N is at most the
+card count, else gloo (two ranks on one card; ``--device cpu``: gloo);
+the JSONL log names the backend. The hit method is the ``Renderer``'s
+(``--hit auto`` resolved on the scene), so the image is the single-device
+command's. It takes none of ``--checkpoint``, ``--schedule pool``,
+``--phases`` and ``--auto-prefix``, which belong to the single-device
+``Renderer``.
 """
 from __future__ import annotations
 
@@ -37,7 +47,7 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--trace-dir", default=None, help="torch.profiler trace output dir")
     p.add_argument("--log", default=None, help="JSONL log path")
     p.add_argument("--devices", type=int, default=0,
-                   help="shard over N devices (refused: no multi-device renderer yet)")
+                   help="render on a dp mesh of N ranks (parallel/shard.py)")
     p.add_argument("--phases", default=None,
                    help="megakernel phase schedule, e.g. 2,3,15 (default: auto)")
     p.add_argument("--ray-order", default="sample", choices=["sample", "pixel"],
@@ -69,7 +79,12 @@ def _refusal(args) -> str | None:
     if args.spp_chunk is not None:
         return "--spp-chunk: the port sizes its launches itself (sample-major only)"
     if args.devices:
-        return "--devices: the port has no multi-device renderer yet"
+        for flag, on in (("--checkpoint", args.checkpoint is not None),
+                         ("--schedule pool", args.schedule == "pool"),
+                         ("--phases", args.phases is not None),
+                         ("--auto-prefix", args.auto_prefix)):
+            if on:
+                return f"{flag} belongs to the single-device Renderer, not to --devices"
     return None
 
 
@@ -93,6 +108,12 @@ def cmd_render(args) -> int:
     scene, cfg = build(args.scene, device=args.device, **overrides)
     log.log("scene_compiled", scene=args.scene, **scene_stats(scene))
 
+    if args.devices:
+        with trace_to(args.trace_dir):
+            _render_devices(args, scene, cfg, overrides, log)
+        log.close()
+        print(f"wrote {args.out}")
+        return 0
     with trace_to(args.trace_dir):
         phases = [int(x) for x in args.phases.split(",")] if args.phases else None
         if args.auto_prefix and cfg.max_depth >= 12 and phases is None:
@@ -120,6 +141,26 @@ def cmd_render(args) -> int:
     return 0
 
 
+def _render_devices(args, scene, cfg, overrides: dict, log) -> None:
+    """``--devices N``: the render on a dp mesh of N spawned ranks."""
+    import time
+
+    from .entry import render_rank
+    from .parallel.mesh import default_backend, spawn
+    from .render.renderer import Renderer
+    from .utils.image_io import write_image
+
+    n = args.devices
+    backend = default_backend(args.device, n)
+    method = Renderer(cfg, hit_method=args.hit).resolve_hit_method(scene)
+    t0 = time.perf_counter()
+    radiance, segments = spawn(render_rank, n, backend=backend, device=args.device,
+                               args=(args.scene, overrides, args.seed, method))[0]
+    write_image(args.out, radiance)
+    log.log("render_done", out=args.out, segments=segments, devices=n, backend=backend,
+            hit_method=method, seconds=time.perf_counter() - t0)
+
+
 def cmd_scenes(_args) -> int:
     from .models.scenes import SCENES
 
@@ -131,7 +172,7 @@ def cmd_scenes(_args) -> int:
 def cmd_bench(_args) -> int:
     from . import bench
 
-    bench.main()
+    bench.main([])
     return 0
 
 

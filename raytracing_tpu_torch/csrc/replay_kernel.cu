@@ -34,8 +34,10 @@
 //   in K2's reverse sweep rather than stashed: on the card a row read is
 //   a cached load, where the TPU kernel stashed the gathered fields
 //   because its lane gather was most of a bounce;
-// * K2's stash (9 floats per bounce, MAX_DEPTH bounces) is a per-thread
-//   local array; local memory is interleaved per thread, so it coalesces;
+// * K2's stash (9 floats per bounce) is a per-thread local array of
+//   MAX_DEPTH = 64 bounces (BASELINE config 5 replays 50; the TPU kernel
+//   sizes its VMEM stash by D); local memory is interleaved per thread,
+//   so it coalesces, and a shallower replay touches only its first D;
 // * gating: bounces b >= maxlen[tile] of a 1024-ray tile are not run, as
 //   the Pallas kernels' pl.when(b < ml); within them a ray stops at its
 //   death (a dead ray's bounce is the identity, its cotangents zero);
@@ -64,7 +66,7 @@ using rt::pcg4d;
 using rt::TWO_PI;
 using rt::u01;
 
-constexpr int MAX_DEPTH = 32;  // K2's stash size; the wrapper refuses deeper replays
+constexpr int MAX_DEPTH = 64;  // K2's stash size; the wrapper refuses deeper replays
 constexpr int TILE = 1024;     // rays per gating tile
 constexpr float T_MIN = 1e-3f;
 constexpr float PARALLEL_EPS = 1e-8f;

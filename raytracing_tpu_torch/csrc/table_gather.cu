@@ -67,7 +67,7 @@ constexpr int GATHER_THREADS = 256;
 constexpr int FOLD_THREADS = 256;
 constexpr int FOLD_SMEM = 96 * 1024;    // largest table the fold keeps in shared memory
 constexpr int FOLD_BLOCKS_PER_SM = 8;   // at L = 512: 0.0325 ms; 4: 0.036, 2 (512 threads): 0.036-0.040
-constexpr int FOLD_MAX_D = 32;          // bounces of one fold launch
+constexpr int FOLD_MAX_D = 64;          // bounces of one fold launch (BASELINE config 5: 50)
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ int clip_id(int id, int L) {

@@ -18,7 +18,6 @@ tracers without edge sampling:
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Callable, Optional
 
 import torch
@@ -28,7 +27,7 @@ from ..render import camera as cam_mod
 from ..render.camera import CameraConfig, CameraParams
 from ..render.integrator import trace
 from ..render.renderer import chunk_rays
-from ..scene.types import Scene
+from ..scene.types import Scene, float_leaves, with_leaves
 
 
 def render_once(scene: Scene, cfg: CameraConfig, params: Optional[CameraParams] = None,
@@ -62,40 +61,15 @@ def mse_loss(scene: Scene, target: torch.Tensor, cfg: CameraConfig,
     return torch.mean((render_once(scene, cfg, params, seed, **kwargs) - target) ** 2)
 
 
-def _float_leaves(obj, path=()):
-    """``(path, tensor)`` of every floating-point tensor in a dataclass tree."""
-    for f in dataclasses.fields(obj):
-        v = getattr(obj, f.name)
-        if torch.is_tensor(v):
-            if v.is_floating_point():
-                yield path + (f.name,), v
-        elif dataclasses.is_dataclass(v):
-            yield from _float_leaves(v, path + (f.name,))
-
-
-def _with_leaves(obj, leaves: dict, path=()):
-    """A copy of the dataclass tree ``obj`` with the tensors at ``leaves``'
-    paths replaced."""
-    changes = {}
-    for f in dataclasses.fields(obj):
-        v = getattr(obj, f.name)
-        p = path + (f.name,)
-        if p in leaves:
-            changes[f.name] = leaves[p]
-        elif dataclasses.is_dataclass(v):
-            changes[f.name] = _with_leaves(v, leaves, p)
-    return dataclasses.replace(obj, **changes)
-
-
 def _grad_tree(obj, loss_of):
     """The cotangent of ``loss_of(obj)`` as an ``obj``-shaped tree: every
     floating-point tensor replaced by its gradient (integer tensors are
     kept as they are)."""
-    leaves = {p: v.detach().requires_grad_(True) for p, v in _float_leaves(obj)}
-    grads = torch.autograd.grad(loss_of(_with_leaves(obj, leaves)), list(leaves.values()),
+    leaves = {p: v.detach().requires_grad_(True) for p, v in float_leaves(obj)}
+    grads = torch.autograd.grad(loss_of(with_leaves(obj, leaves)), list(leaves.values()),
                                 allow_unused=True)
-    return _with_leaves(obj, {p: torch.zeros_like(v) if g is None else g
-                              for (p, v), g in zip(leaves.items(), grads)})
+    return with_leaves(obj, {p: torch.zeros_like(v) if g is None else g
+                             for (p, v), g in zip(leaves.items(), grads)})
 
 
 def scene_grad(scene: Scene, target: torch.Tensor, cfg: CameraConfig, seed: int = 0,

@@ -51,7 +51,7 @@ from ..scene.types import MAT_DIELECTRIC, MAT_DIFFUSE_LIGHT, MAT_METAL
 from . import replay_fast as rf
 
 TILE = 1024      # rays per gating tile, in the kernels' ray order
-MAX_DEPTH = 32   # the kernels' compile-time bound on the bounces of a replay
+MAX_DEPTH = 64   # the kernels' compile-time bound on the bounces of a replay (K2's stash)
 
 # ray_f rows of the replay kernels' ray state
 RX, RY, RZ, RDX, RDY, RDZ, RTM, RACT = range(8)
@@ -150,7 +150,8 @@ def _check(table, ids, ray_f, ray_i, maxlen, extra=()):
             raise ValueError(f"the replay kernels trace at most {MAX_DEPTH} bounces, got {D}")
         if not all(t.is_contiguous() for t in tensors):
             raise ValueError("the replay kernels need contiguous tensors")
-        if n * max(D * NG, N_RAY_F) >= 2 ** 31:
+        # the kernels index the ray rows in 32 bits, (D, n) and (D, NG, n) in 64
+        if n * max(D, N_RAY_F) >= 2 ** 31:
             raise ValueError(f"replay launch of {n} rays × {D} bounces exceeds 32-bit indexing")
     return n, D, dev
 

@@ -30,7 +30,7 @@ import torch
 
 launches = 0       # K4 kernel launches in this process (plain-version calls excluded)
 fold_launches = 0  # fold kernel launches in this process (plain-version calls excluded)
-FOLD_MAX_D = 32    # bounces one fold launch takes (csrc/table_gather.cu FOLD_MAX_D)
+FOLD_MAX_D = 64    # bounces one fold launch takes (csrc/table_gather.cu FOLD_MAX_D)
 FOLD_MAX_F = 32    # fields a folded row may have
 
 

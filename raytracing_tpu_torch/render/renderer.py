@@ -53,6 +53,7 @@ from .camera import CameraConfig, CameraParams
 HIT_METHODS = ("auto", "mega", "brute", "bvh")
 INTEGRATOR_HIT_FNS = {"brute": closest_hit_brute, "bvh": closest_hit_bvh}
 BVH_MIN_PRIMS = 64  # "auto" takes the BVH above this many primitives
+MAX_RAYS_PER_LAUNCH = 1 << 18  # the Renderer's default launch size
 
 
 @dataclass
@@ -75,6 +76,17 @@ def _default_phases(cfg: CameraConfig, phase_depths):
     if phase_depths is None and cfg.max_depth > 6:
         return [2, 3, cfg.max_depth - 5]
     return phase_depths
+
+
+def launch_shape(cfg: CameraConfig, max_rays_per_launch: int = MAX_RAYS_PER_LAUNCH):
+    """``(n_block, spp_chunk)`` of a launch: n_block pixels (a
+    1024-multiple; padding rays start dead) × spp_chunk samples, at most
+    ``max_rays_per_launch`` rays unless one 1024-padded block of pixels
+    alone exceeds it. A pixel's samples are summed chunk by chunk, so
+    renders of the same ``spp_chunk`` sum them in the same order
+    (``parallel/shard.py`` relies on it)."""
+    n_block = -(-min(cfg.n_pixels, max_rays_per_launch) // 1024) * 1024
+    return n_block, max(1, min(cfg.samples_per_pixel, max_rays_per_launch // n_block))
 
 
 def chunk_rays(cfg: CameraConfig, derived, pixel_start: int, sample_start: int,
@@ -145,7 +157,7 @@ class Renderer:
     ``ops.megakernel_block.walks``); it changes speed, never a result."""
 
     def __init__(self, cfg: CameraConfig, *, hit_method: str = "auto",
-                 max_rays_per_launch: int = 1 << 18, phase_depths=None,
+                 max_rays_per_launch: int = MAX_RAYS_PER_LAUNCH, phase_depths=None,
                  transfer: str = "f32", phase_prefixes=None, strict_prefixes: bool = True,
                  schedule: str = "phased", cull=None):
         if hit_method not in HIT_METHODS:
@@ -164,12 +176,7 @@ class Renderer:
         if hit_method in INTEGRATOR_HIT_FNS:
             self._refuse_integrator(hit_method)
         self.strict_prefixes = strict_prefixes
-        # a launch is n_block pixels (a 1024-multiple, padding rays start
-        # dead) × spp_chunk samples, at most max_rays_per_launch rays
-        # unless one 1024-padded block of pixels alone exceeds it
-        self.n_block = -(-min(cfg.n_pixels, max_rays_per_launch) // 1024) * 1024
-        self.spp_chunk = max(1, min(cfg.samples_per_pixel,
-                                    max_rays_per_launch // self.n_block))
+        self.n_block, self.spp_chunk = launch_shape(cfg, max_rays_per_launch)
         self._mega = None
         self._mega_scene = None
 

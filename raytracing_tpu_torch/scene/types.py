@@ -9,6 +9,7 @@ by field (scene/convert.py).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -134,3 +135,29 @@ class Scene:
     @property
     def n_primitives(self) -> int:
         return self.n_spheres + self.n_quads
+
+
+def float_leaves(obj, path=()):
+    """``(path, tensor)`` of every floating-point tensor in a dataclass tree
+    (a :class:`Scene`, ``CameraParams``), depth first in field order."""
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if torch.is_tensor(v):
+            if v.is_floating_point():
+                yield path + (f.name,), v
+        elif dataclasses.is_dataclass(v):
+            yield from float_leaves(v, path + (f.name,))
+
+
+def with_leaves(obj, leaves: dict, path=()):
+    """A copy of the dataclass tree ``obj`` with the tensors at ``leaves``'
+    paths replaced."""
+    changes = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        p = path + (f.name,)
+        if p in leaves:
+            changes[f.name] = leaves[p]
+        elif dataclasses.is_dataclass(v):
+            changes[f.name] = with_leaves(v, leaves, p)
+    return dataclasses.replace(obj, **changes)

@@ -1,7 +1,8 @@
 """The port's CLI (``python -m raytracing_tpu_torch.cli``) and ``entry()``
 against the JAX package's: a ``render`` on the CPU whose PPM matches the
 JAX CLI's at the same flags (brute force; mean |Δ| ≤ 1 level), its log
-and checkpoint, ``scenes``, the refused flags, and ``entry()``."""
+and checkpoint, ``scenes``, the refused flags, ``--devices`` against the
+single-device command, and ``entry()``."""
 import json
 import os
 
@@ -71,7 +72,7 @@ def test_scenes_lists_the_jax_names(capsys):
     (["--sort-regions", "4"], "regional"),
     (["--ray-order", "pixel"], "sample-major"),
     (["--spp-chunk", "2"], "sample-major"),
-    (["--devices", "2"], "multi-device"),
+    (["--devices", "2", "--schedule", "pool"], "single-device Renderer"),
 ])
 def test_refused_flags(tmp_path, capsys, flags, why):
     """Flags for what the port leaves out exit non-zero, saying why, and
@@ -83,6 +84,23 @@ def test_refused_flags(tmp_path, capsys, flags, why):
     assert e.value.code != 0
     assert why in capsys.readouterr().err
     assert not os.path.exists(out)
+
+
+def test_devices_matches_single_device(tmp_path):
+    """``--devices 2`` on the CPU (two gloo ranks, a dp mesh) writes the
+    PPM the single-device command writes, byte for byte, and logs the
+    backend and the same segments."""
+    args = ["render", "--scene", "three_spheres", "--width", "32", "--spp", "2", "--depth",
+            "4", "--seed", "3", "--device", "cpu"]
+    one, two = str(tmp_path / "one.ppm"), str(tmp_path / "two.ppm")
+    log1, log2 = str(tmp_path / "one.jsonl"), str(tmp_path / "two.jsonl")
+    assert cli.main([*args, "--out", one, "--log", log1]) == 0
+    assert cli.main([*args, "--devices", "2", "--out", two, "--log", log2]) == 0
+    assert open(one, "rb").read() == open(two, "rb").read()
+    with open(log1) as f1, open(log2) as f2:
+        done1, done2 = (json.loads(f.readlines()[-1]) for f in (f1, f2))
+    assert done2["segments"] == done1["segments"] > 0
+    assert (done2["devices"], done2["backend"], done2["hit_method"]) == (2, "gloo", "mega")
 
 
 def test_entry_cpu():

@@ -111,6 +111,46 @@ def test_replay_kernels_match_plain_versions(dev, name):
                                rtol=3e-5, atol=3e-6)
 
 
+def test_replay_kernels_deeper_than_32_bounces(dev):
+    """K2's stash of 64 bounces past the 32 it held: cornell_box at depth 40,
+    whose closed room keeps rays bouncing past 32, K3 and K2 against their
+    plain versions at the bars above, and the fold of K2's 40 bounces in
+    one launch against the plain reduction."""
+    scene, cfg = build("cornell_box", device=dev, image_width=64, samples_per_pixel=1,
+                       max_depth=40)
+    B = -(-cfg.n_pixels // 1024) * 1024
+    pix = torch.clamp(torch.arange(B, device=dev), max=cfg.n_pixels - 1)
+    smp = torch.zeros_like(pix)
+    act = torch.arange(B, device=dev) < cfg.n_pixels
+    o, d, t = cam.generate_rays(cfg, cam.derive(cfg, cam.CameraParams.from_config(cfg, dev)),
+                                pix, smp, SEED, motion_blur=scene.flags.has_moving)
+    _, _, ids, cnt = trace_megakernel(build_mega_scene(scene), o, d, t, pix, smp,
+                                      cfg.background, 40, SEED, phase_depths=[8, 32],
+                                      active0=act, want_ids=True, want_counts=True)
+    assert int((cnt > 32).sum()) > 0
+    table = rf.build_replay_table(scene).detach()
+    ray_f = rk.pack_replay_rays(o, d, t, act)
+    ray_i = torch.stack([pix, smp]).to(torch.int32)
+    maxlen = rk.tile_maxlen(cnt, 40)
+    rad_bar = torch.randn((3, B), generator=torch.Generator(dev).manual_seed(3), device=dev)
+    kw = dict(seed=SEED, n_sph=scene.n_spheres, has_moving=scene.flags.has_moving,
+              background=cfg.background)
+    rad, bc = rk.replay_fwd(table, ids, ray_f, ray_i, maxlen, **kw)
+    g = rk.replay_bwd(table, ids, ray_f, ray_i, rad_bar, maxlen, **kw)
+    torch.cuda.synchronize()
+    rad_p, bc_p = rk.replay_fwd_torch(table, ids, ray_f, ray_i, maxlen, **kw)
+    g_p = rk.replay_bwd_torch(table, ids, ray_f, ray_i, rad_bar, maxlen, **kw)
+    assert torch.equal(rad, rad_p) and torch.equal(bc, bc_p)
+    L = table.shape[0]
+    tb_p = rk.reduce_table_grads(g_p.cpu(), ids.cpu(), L)
+    torch.testing.assert_close(rk.reduce_table_grads(g.cpu(), ids.cpu(), L), tb_p,
+                               rtol=3e-5, atol=3e-6)
+    before = tg.fold_launches
+    torch.testing.assert_close(rk.reduce_table_grads(g, ids, L).cpu(), tb_p, rtol=3e-5,
+                               atol=3e-6)
+    assert tg.fold_launches == before + 1
+
+
 @pytest.mark.parametrize("name", ["cornell_box", "bouncing_spheres", "simple_light", "earth"])
 def test_group_kernel_matches_plain_version(dev, name):
     """K5 through the BVH walk and through the dense sweep: every output
