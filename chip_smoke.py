@@ -123,6 +123,28 @@ for bit) and its u8 image to phase 3's, sp2 within 1e-5, both with the
 bench's segments; dp1 x tp2 brute force at 100 px, 4 spp, depth 8
 within 1e-5 of the single-process brute render), K1 counted on every
 rank, and one rank over NCCL (dp1 megakernel, bit-equal).
+Phase 31 runs replays past 64 bounces: K3 and K2 bit for bit against
+their plain versions at depth 96 on the deep scene (tests/torch_parity.py
+deep_scene: the camera inside a fuzz-0 metal sphere) and on cornell_box,
+the rays past 64 bounces held apart, with the fold of the 96 bounces in
+two launches (windows of 64 bounces), over every ray and over the planned
+prefixes, within phase 11's bar of its float64 sum, taken per row (2e-6
+per ray-bounce that row takes); on the deep scene the first window alone
+must fail that bar. K2 on the bench chunk traced at depths 20, 50 and
+100, bit-equal to its plain version and timed, with the fold over the
+planned prefixes (one launch per window) at the same bar, which the
+first window alone must fail at depth 100;
+replay_trace_kernel forward and backward at depth 100; and the fwd+bwd
+bench sweep at depth 100 (phases [2, 2, 3, 4, 89]) beside the same sweep
+at depth 20, in which the kernels' launches are counted (the fold twice a
+chunk at depth 100): its segments equal to a forward render's at depth
+100, finite gradients, its wall and peak device memory; and its first
+chunk again through the sweep's own path, K2 bit-equal to its plain
+version on the inputs the sweep gave it, the fold over the sweep's
+planned prefixes within phase 11's bar per row and phase 5's relative-L2
+bar of the float64 sum, with the chunk's scene gradients from the fold,
+from the plain version's float32 index_add_ and from the first window
+alone, each against those from the float64 sum.
 
 Kernels shorter than their wrappers' host time (K3, K4, the fold and the
 PyTorch calls beside them) are timed with their launches queued behind a
@@ -1961,6 +1983,264 @@ def main() -> int:
             new_paths["K1"] += v["K1"]
             new_paths["K5"] += v["K5"]
 
+    # ---- phase 31: replays past 64 bounces: K3, K2 and the fold ----
+    from raytracing_tpu_torch.render.camera import CameraConfig
+    from raytracing_tpu_torch.scene.builder import SceneBuilder
+    from torch_parity import deep_scene, deep_scene_config
+
+    def fold_rows_close(tb, g, ids, L, prefixes=None):
+        """The replay's table reduction ``tb`` (reduce_table_grads' (L,
+        N_FIELDS)) of ``g (D, NG, n)`` over the per-bounce ray ``prefixes``
+        against fold_torch's float64 sum of the same, bounce by bounce, at
+        phase 11's bar with each row's own count: rtol 1e-5 and atol 2e-6
+        per ray-bounce that row takes. Returns (ok, max_abs_err, relative L2
+        error)."""
+        D, n = ids.shape
+        exact = torch.zeros((L, rk.NG), dtype=torch.float64, device=dev)
+        takes = torch.zeros(L, dtype=torch.int64, device=dev)
+        for b, p in enumerate(tg._prefix_list(prefixes, D, n)):
+            exact += tg.fold_torch(g[b:b + 1].double(), ids[b:b + 1], L, [p])
+            hit = ids[b, :p]
+            takes += torch.bincount(hit[hit >= 0].long(), minlength=L)
+        exact, tb = exact[:, rk._GSLOTS], tb[:, rk._TCOLS].double()
+        err = (tb - exact).abs()
+        atol = 2e-6 * takes.clamp(min=1).double()[:, None]
+        return (bool((err <= atol + 1e-5 * exact.abs()).all()), float(err.max()),
+                float((tb - exact).norm() / exact.norm()))
+
+    def first_window(g, ids, L, prefixes=None):
+        """The fold of the first window of bounces alone (a dropped
+        window): what the check above must tell from the whole fold."""
+        w = tg.FOLD_MAX_D
+        return rk.reduce_table_grads(g[:w], ids[:w], L,
+                                     tg._prefix_list(prefixes, *ids.shape)[:w])
+
+    # K3 and K2 bit for bit against their plain versions at depth 96 on the
+    # deep scene (the camera inside a fuzz-0 metal sphere) and cornell_box,
+    # the rays past 64 bounces held apart too, and the fold of the 96
+    # bounces on the card in two windows (two launches), over every ray and
+    # over the planned prefixes, within phase 11's bar of its float64 sum;
+    # on the deep scene the first window alone must fail that bar
+    ok31 = True
+    for name31 in ("deep", "cornell_box"):
+        if name31 == "deep":
+            s31 = deep_scene(SceneBuilder()).compile(dev)
+            c31 = deep_scene_config(CameraConfig, image_width=64, samples_per_pixel=2,
+                                    max_depth=96)
+        else:
+            s31, c31 = build(name31, device=dev, image_width=64, samples_per_pixel=2,
+                             max_depth=96)
+        table, ids, rfr, rir, ml, rbar, kw_r, _, len31 = replay_inputs(s31, c31, 2,
+                                                                       [2, 2, 3, 4, 85])
+        rad_k3, bc_k3 = rk.replay_fwd(table, ids, rfr, rir, ml, **kw_r)
+        g_k2 = rk.replay_bwd(table, ids, rfr, rir, rbar, ml, **kw_r)
+        L, n31 = table.shape[0], rfr.shape[1]
+        pref31 = rk.plan_prefixes(torch.bincount(len31.long(), minlength=97).cpu(), n31, 96,
+                                  margin=1.0)
+        before = tg.fold_launches
+        tb_k = rk.reduce_table_grads(g_k2, ids, L)
+        tb_kp = rk.reduce_table_grads(g_k2, ids, L, pref31)
+        torch.cuda.synchronize()
+        fold_n = tg.fold_launches - before
+        tb_w1 = first_window(g_k2, ids, L, pref31)
+        rad_p3, bc_p3 = rk.replay_fwd_torch(table, ids, rfr, rir, ml, **kw_r)
+        g_p2 = rk.replay_bwd_torch(table, ids, rfr, rir, rbar, ml, **kw_r)
+        deep_m = len31 > 64
+        n_deep = int(deep_m.sum())
+        eq3 = bool(torch.equal(rad_k3, rad_p3) and torch.equal(bc_k3, bc_p3))
+        eq2 = bool(torch.equal(g_k2, g_p2))
+        eq3_deep = bool(torch.equal(rad_k3[:, deep_m], rad_p3[:, deep_m])
+                        and torch.equal(bc_k3[deep_m], bc_p3[deep_m]))
+        eq2_deep = bool(torch.equal(g_k2[:, :, deep_m], g_p2[:, :, deep_m]))
+        fold_ok, fold_err, _ = fold_rows_close(tb_k, g_p2, ids, L)
+        foldp_ok, foldp_err, _ = fold_rows_close(tb_kp, g_p2, ids, L, pref31)
+        w1_ok, w1_err, w1_rel = fold_rows_close(tb_w1, g_p2, ids, L, pref31)
+        ok = (eq3 and eq2 and fold_ok and foldp_ok and fold_n == 4
+              and len(tg.fold_windows(96, pref31)) == 2
+              and (name31 != "deep" or (n_deep > 0 and not w1_ok)))
+        ok31 &= ok
+        print(f"phase 31 K3, K2 and the fold at depth 96, {name31} (B={n31}, {n_deep} "
+              f"rays past 64 bounces, longest {int(len31.max())}): {'ok' if ok else 'FAIL'} K3 "
+              f"bit-equal {eq3} (past 64 bounces {eq3_deep}) segments {int(bc_k3.sum())} plain "
+              f"{int(bc_p3.sum())}; K2 bit-equal {eq2} (past 64 bounces {eq2_deep}); fold (on "
+              f"the card, {fold_n} launches in two calls) against float64 at phase 11's bar "
+              f"per row: every ray {fold_ok} max_abs_err {fold_err:.3g}, planned prefixes "
+              f"{foldp_ok} max_abs_err {foldp_err:.3g}; the first window alone {w1_ok} "
+              f"max_abs_err {w1_err:.3g} relative L2 {w1_rel:.3g} (must fail on the deep scene)")
+        del table, ids, rfr, rir, ml, rbar, g_k2, g_p2, tb_k, tb_kp, tb_w1
+    # K2 and the fold on the bench chunk (400x225, spp_chunk 4, B = 360,448)
+    # traced at depths 20, 50 and 100: K2 bit-equal to its plain version and
+    # timed; the fold over the planned prefixes, one launch per window of
+    # 64 bounces, within phase 11's bar per row of the float64 sum (the
+    # first window alone must fail it); then replay_trace_kernel (K3
+    # forward, K2 backward) at 100
+    k2_depth = {}
+    for D31 in (20, 50, 100):
+        s31, c31 = build("bouncing_spheres", device=dev, image_width=400,
+                         samples_per_pixel=100, max_depth=D31)
+        table, ids, rfr, rir, ml, rbar, kw_r, seg31, len31 = replay_inputs(
+            s31, c31, 4, [2, 2, 3, 4, D31 - 11])
+        n31, L = rfr.shape[1], table.shape[0]
+        g_k2 = rk.replay_bwd(table, ids, rfr, rir, rbar, ml, **kw_r)
+        torch.cuda.synchronize()
+        g_p2 = rk.replay_bwd_torch(table, ids, rfr, rir, rbar, ml, **kw_r)
+        eq2 = bool(torch.equal(g_k2, g_p2))
+        ms2 = device_ms(torch, lambda: rk.replay_bwd(table, ids, rfr, rir, rbar, ml, **kw_r), 5)
+        b2 = bound(seg31 * K2_OPS_PER_SEGMENT, n31 * (rk.N_RAY_F * 4 + 8 + 12 + 4) + 4 * seg31
+                   + 4 * table.numel() + 4 * g_k2.numel())
+        pref31 = rk.plan_prefixes(torch.bincount(len31.long(), minlength=D31 + 1).cpu(), n31,
+                                  D31, margin=1.0)
+        before = tg.fold_launches
+        tb31 = rk.reduce_table_grads(g_k2, ids, L, pref31)
+        torch.cuda.synchronize()
+        fold_n = tg.fold_launches - before
+        fold_ms = device_ms(torch, lambda: tg.fold(g_k2, ids, L, pref31), 10)
+        # the fold over the planned prefixes against the float64 sum of K2's
+        # plain version's cotangents, at phase 11's bar per row
+        f_ok, f_err, f_rel = fold_rows_close(tb31, g_p2, ids, L, pref31)
+        row = dict(bit_equal=eq2, ms=ms2, bound_ms=b2[0], bound_by=b2[1],
+                   output_bytes=4 * g_k2.numel(), segments=seg31, longest=int(len31.max()),
+                   past_64=int((len31 > 64).sum()), fold_windows=len(tg.fold_windows(D31, pref31)),
+                   fold_launches=fold_n, fold_ms=fold_ms, fold_ok=f_ok,
+                   fold_max_abs_err=f_err, fold_rel_l2=f_rel)
+        ok = eq2 and f_ok and fold_n == row["fold_windows"] == (2 if D31 > 64 else 1)
+        if D31 > 64:  # a dropped window must fail the same check
+            w1 = fold_rows_close(first_window(g_k2, ids, L, pref31), g_p2, ids, L, pref31)
+            row["first_window_alone"] = dict(ok=w1[0], max_abs_err=w1[1], rel_l2=w1[2])
+            ok &= not w1[0]
+        del g_k2, g_p2, tb31
+        if D31 == 100:  # replay_trace_kernel forward and backward at depth 100
+            rgb = s31.textures.rgb.clone().requires_grad_(True)
+            scene_g = dataclasses.replace(s31, textures=dataclasses.replace(s31.textures, rgb=rgb))
+            o_s, d_s, t_s = rfr[rk.RX:rk.RZ + 1].T, rfr[rk.RDX:rk.RDZ + 1].T, rfr[rk.RTM]
+            rad_p3, bc_p3 = rk.replay_fwd_torch(table, ids, rfr, rir, ml, **kw_r)
+            zero_counts()
+            rad_t, seg_t = rk.replay_trace_kernel(scene_g, ids, o_s, d_s, t_s, rir[0], rir[1],
+                                                  c31.background, D31, SEED,
+                                                  active0=rfr[rk.RACT] > 0, lengths=len31)
+            (rad_t * rbar.T).sum().backward()
+            torch.cuda.synchronize()
+            rt100_counts = counts()
+            rt_ok = (rt100_counts == only(K3=1, K2=1, fold=2) and int(seg_t) == int(bc_p3.sum())
+                     and bool(torch.equal(rad_t.detach(), rad_p3.T))
+                     and bool(torch.isfinite(rgb.grad).all()) and float(rgb.grad.abs().sum()) > 0)
+            row["replay_trace_kernel"] = dict(ok=rt_ok, launches=rt100_counts,
+                                              segments=int(seg_t),
+                                              rgb_grad_norm=float(rgb.grad.norm()))
+            ok &= rt_ok
+            del rgb, scene_g, rad_t
+        ok31 &= ok
+        k2_depth[D31] = row
+        print(f"phase 31 bench chunk at depth {D31} (B={n31}): {'ok' if ok else 'FAIL'} "
+              f"{json.dumps(row)} [{card}]")
+        del table, ids, rfr, rir, ml, rbar, len31
+    torch.cuda.empty_cache()
+    # the fwd+bwd bench sweep at depth 100 (phases [2, 2, 3, 4, 89]: K1 with
+    # ids and counts, K2 at D = 100, the fold in two windows a chunk) beside
+    # the same sweep at depth 20: walls, launches and peak device memory; its
+    # segments against a forward render's at depth 100; chunk 0's K2
+    # against its plain version and its fold against the float64 sum
+    sweeps31 = {}
+    for D31 in (20, 100):
+        fb31 = pbench._fwd_bwd_setup(max_depth=D31, device=dev)
+        fb31["plan"]()
+        fb31["sweep"]()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        _, gc31, gr31, segs31, okp31 = fb31["sweep"]()
+        torch.cuda.synchronize()
+        wall31 = time.perf_counter() - t0
+        c31s = counts()
+        peak31 = torch.cuda.max_memory_allocated(dev)
+        n_ch = fb31["n_chunks"]
+        windows = len(tg.fold_windows(D31, fb31["ns"]["prefixes"]))
+        row = dict(wall_s=wall31, segments=int(segs31), plan_ok=bool(okp31), launches=c31s,
+                   fold_windows=windows, peak_bytes=peak31,
+                   grads_finite=bool(torch.isfinite(gc31).all() and torch.isfinite(gr31).all()),
+                   grad_rgb_norm=float(gr31.norm()))
+        ok = (row["plan_ok"] and row["grads_finite"] and row["grad_rgb_norm"] > 0
+              and c31s == only(K1=5 * n_ch, K2=n_ch, fold=windows * n_ch)
+              and windows == (2 if D31 > 64 else 1))
+        if D31 == 100:
+            s100, c100 = build("bouncing_spheres", device=dev, image_width=400,
+                               samples_per_pixel=100, max_depth=D31)
+            fwd100 = Renderer(c100, hit_method="mega", max_rays_per_launch=1 << 18,
+                              phase_depths=[2, 2, 3, 4, D31 - 11]).render(s100, seed=SEED)
+            row["forward_render_segments"] = fwd100.segments
+            # chunk 0 through the sweep's own path (grads_chunk) with K2's
+            # output and the reduction's inputs captured: K2 bit-equal to its
+            # plain version on the same inputs, and the fold over the planned
+            # prefixes (two launches) within phase 11's bar per row of the
+            # float64 sum of the plain cotangents, and within phase 5's
+            # relative-L2 bar (1e-4) of it
+            seen = {}
+            real = rk.replay_bwd, rk.reduce_table_grads
+
+            def bwd_seen(*a, **k):
+                seen["bwd"], seen["g"] = (a, k), real[0](*a, **k)
+                return seen["g"]
+
+            def red_seen(g, ids, L, prefixes=None):
+                seen["red"], seen["tb"] = (ids, L, prefixes), real[1](g, ids, L, prefixes)
+                return seen["tb"]
+
+            rk.replay_bwd, rk.reduce_table_grads = bwd_seen, red_seen
+            try:
+                zero_counts()
+                kern = fb31["grads_chunk"](*fb31["args"], 0)
+                torch.cuda.synchronize()
+                c0 = counts()
+            finally:
+                rk.replay_bwd, rk.reduce_table_grads = real
+            g_plain = rk.replay_bwd_torch(*seen["bwd"][0], **seen["bwd"][1])
+            k2_eq0 = bool(torch.equal(seen["g"], g_plain))
+            ids0, L0, pref0 = seen["red"]
+            f_ok, f_err, f_rel = fold_rows_close(seen["tb"], g_plain, ids0, L0, pref0)
+            del seen, g_plain
+
+            # the chunk's scene gradients with other sums in the fold's place,
+            # each against those with the float64 sum: the fold (above), the
+            # plain version's float32 index_add_ and the first window alone
+            def chunk0_with(fold_fn):
+                real_fold = rk.fold
+                rk.fold = fold_fn
+                try:
+                    return fb31["grads_chunk"](*fb31["args"], 0)
+                finally:
+                    rk.fold = real_fold
+
+            def grads(r):
+                return torch.cat([r[1].flatten(), r[2].flatten()])
+
+            g64 = grads(chunk0_with(lambda g, ids, L, prefixes=None: tg.fold_torch(
+                g.double(), ids, L, prefixes).float()))
+            g32 = grads(chunk0_with(tg.fold_torch))
+            g_w1 = grads(chunk0_with(lambda g, ids, L, prefixes=None: tg.fold(
+                g[:tg.FOLD_MAX_D], ids[:tg.FOLD_MAX_D], L,
+                tg._prefix_list(prefixes, *ids.shape)[:tg.FOLD_MAX_D])))
+            rel = {k: float((v - g64).norm() / g64.norm()) for k, v in (
+                ("fold", grads(kern)), ("index_add_", g32), ("first_window_alone", g_w1))}
+            rel["fold_vs_index_add_"] = float((grads(kern) - g32).norm() / g32.norm())
+            row["chunk0"] = dict(launches=c0, k2_bit_equal=k2_eq0, fold_ok=f_ok,
+                                 fold_max_abs_err=f_err, fold_rel_l2=f_rel,
+                                 fold_windows=len(tg.fold_windows(D31, pref0)),
+                                 grad_rel_l2_vs_float64_sum=rel,
+                                 grad_norms=dict(center=float(kern[1].norm()),
+                                                 rgb=float(kern[2].norm())))
+            ok &= (fwd100.segments == row["segments"] and bool(kern[3]) and k2_eq0 and f_ok
+                   and f_rel < 1e-4 and c0 == only(K1=5, K2=1, fold=2))
+            del kern, g64, g32, g_w1
+        ok31 &= ok
+        sweeps31[D31] = row
+        print(f"phase 31 fwd+bwd bench sweep at depth {D31} ({n_ch} chunks of {fb31['B']} rays): "
+              f"{'ok' if ok else 'FAIL'} {json.dumps(row)} [{card}]")
+        del fb31, gc31, gr31
+        torch.cuda.empty_cache()
+    if not ok31:
+        failures.append("phase 31 replays past 64 bounces")
+
     print(f"card: {card}")  # again near the end, inside a tail of the output
     print(json.dumps({"kernels": [
         {"name": "K1 megakernel_block (BVH walk; the guarded sweep below CULL_MIN_PRIMS)",
@@ -1991,7 +2271,8 @@ def main() -> int:
          "max_abs_err": float(d3.max()), "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None,
          "ms_in_turns": {d: v["ms"] for d, v in k3_probe.items()},
-         "lane_share": {d: v["lanes"] for d, v in k3_probe.items()}},
+         "lane_share": {d: v["lanes"] for d, v in k3_probe.items()},
+         "launches_depth100_replay_trace_kernel": rt100_counts["K3"]},
         {"name": "K2 replay_bwd", "route": "cuda",
          "source": "raytracing_tpu_torch/csrc/replay_kernel.cu",
          "replaces": "raytracing_tpu/diff/replay_kernel.py:637",
@@ -1999,7 +2280,11 @@ def main() -> int:
          "launches": fb_counts["K2"], "path": "one fwd+bwd bench sweep (phase 6)",
          "launches_acceptance_config5_sweep": sweep5_counts["K2"],
          "max_abs_err": k2_err, "tbar_rel_l2": rel2, "ms": k2_ms, "plain_ms": k2_plain_ms,
-         "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None},
+         "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None,
+         "launches_depth100_sweep": sweeps31[100]["launches"]["K2"],
+         "ms_by_depth": {d: v["ms"] for d, v in k2_depth.items()},
+         "bound_ms_by_depth": {d: v["bound_ms"] for d, v in k2_depth.items()},
+         "bit_equal_by_depth": {d: v["bit_equal"] for d, v in k2_depth.items()}},
         {"name": "K5 megakernel_group", "route": "cuda",
          "source": "raytracing_tpu_torch/csrc/megakernel_group.cu",
          "replaces": "raytracing_tpu/ops/megakernel.py:285",
@@ -2026,7 +2311,10 @@ def main() -> int:
                                           "library_ms", "onehot_ms")},
          "L4224": {k: fold_rows[1][k] for k in ("max_abs_err", "ms", "plain_ms", "onehot_ms",
                                                  "bound_ms")},
-         "reduction_ms": red_ms, "reduction_bound_ms": red_bound[0]},
+         "reduction_ms": red_ms, "reduction_bound_ms": red_bound[0],
+         "launches_depth100_sweep": sweeps31[100]["launches"]["fold"],
+         "windows_depth100": sweeps31[100]["fold_windows"],
+         "reduction_ms_by_depth": {d: v["fold_ms"] for d, v in k2_depth.items()}},
     ]}))
     if failures:
         print(f"chip_smoke: FAILED {failures}", file=sys.stderr)

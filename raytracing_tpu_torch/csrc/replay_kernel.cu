@@ -18,12 +18,14 @@
 // reverse sweep and ~280 for the VJP), with a few sqrt, divides and a
 // sin/cos pair. Memory traffic per segment is one 4-byte id, one 92-byte
 // table row (served from L1/L2: the bench table is 47 KB) and, in K2, 76
-// bytes of cotangents; K2 also writes zeros for the bounces a ray did not
-// run, (D, NG, n) in all.
+// bytes of cotangents and its 36-byte stash entry, written and read back
+// through the same rows; K2 also writes zeros for the bounces a ray did
+// not run, (D, NG, n) in all.
 //
 // What the design does about it:
 // * one thread replays one ray at a time with its state in registers;
-//   nothing but the inputs, the outputs and K2's stash touches memory;
+//   nothing but the inputs and the outputs (K2's stash among them) touches
+//   memory;
 // * K3's warps are persistent and their lanes refill: a ray runs 2.7
 //   bounces on average and up to D, so one thread per ray kept a warp
 //   running until its longest ray died with most lanes idle; instead a
@@ -34,10 +36,12 @@
 //   in K2's reverse sweep rather than stashed: on the card a row read is
 //   a cached load, where the TPU kernel stashed the gathered fields
 //   because its lane gather was most of a bounce;
-// * K2's stash (9 floats per bounce) is a per-thread local array of
-//   MAX_DEPTH = 64 bounces (BASELINE config 5 replays 50; the TPU kernel
-//   sizes its VMEM stash by D); local memory is interleaved per thread,
-//   so it coalesces, and a shallower replay touches only its first D;
+// * K2's stash (each bounce's 9-float entry state) lives in its own
+//   output: thread i alone owns g[b, :, i], so the forward writes bounce
+//   b's state to g[b, 0:9, i] and the reverse sweep reads it back before
+//   it overwrites that bounce with the NG cotangents. A replay of any depth
+//   D fits (the TPU kernel sizes its VMEM stash by D), no memory is added,
+//   and the stores coalesce as the output's do;
 // * gating: bounces b >= maxlen[tile] of a 1024-ray tile are not run, as
 //   the Pallas kernels' pl.when(b < ml); within them a ray stops at its
 //   death (a dead ray's bounce is the identity, its cotangents zero);
@@ -66,7 +70,6 @@ using rt::pcg4d;
 using rt::TWO_PI;
 using rt::u01;
 
-constexpr int MAX_DEPTH = 64;  // K2's stash size; the wrapper refuses deeper replays
 constexpr int TILE = 1024;     // rays per gating tile
 constexpr float T_MIN = 1e-3f;
 constexpr float PARALLEL_EPS = 1e-8f;
@@ -478,6 +481,28 @@ RT_DEVICE void bounce_bwd(const ReplayParams& p, const Inter& I, const State& s,
   adj[8] = dbz;
 }
 
+static_assert(NG >= 9, "K2 stashes a bounce's 9-float State in its NG output rows");
+
+// K2's stash: bounce b's entry state in rows 0-8 of its output g[b, :, i]
+// (`row` = g + b * NG * n + i, `stride` = n).
+RT_DEVICE void stash_store(float* row, size_t stride, const State& s) {
+  row[0] = s.ox;
+  row[stride] = s.oy;
+  row[2 * stride] = s.oz;
+  row[3 * stride] = s.dx;
+  row[4 * stride] = s.dy;
+  row[5 * stride] = s.dz;
+  row[6 * stride] = s.tr;
+  row[7 * stride] = s.tg;
+  row[8 * stride] = s.tb;
+}
+
+RT_DEVICE State stash_load(const float* row, size_t stride) {
+  return State{row[0],          row[stride],     row[2 * stride],
+               row[3 * stride], row[4 * stride], row[5 * stride],
+               row[6 * stride], row[7 * stride], row[8 * stride]};
+}
+
 // The state after a live bounce.
 RT_DEVICE void advance(const Inter& I, State& s) {
   s.tr = s.tr * I.att_r;
@@ -575,17 +600,20 @@ RT_DEVICE void replay_fwd_ray(const ReplayParams& p, int i) {
   fwd_finish(p, i, l);
 }
 
-// K2: replay ray i forward with the stash, then the reverse sweep.
+// K2: replay ray i forward, stashing each bounce's entry state in its
+// output rows, then the reverse sweep.
 template <bool MOVING>
 RT_DEVICE void replay_bwd_ray(const ReplayParams& p, int i) {
   const int n = p.n;
   Ray ray = load_ray(p, i);
-  State stash[MAX_DEPTH];
+  float* out = p.out_g + i;
+  const size_t stride = (size_t)n;
+  const size_t bounce = (size_t)NG * stride;  // from one bounce's rows to the next's
   int n_run = 0;  // bounces the ray entered alive
   {
     State s = ray.s;
     for (int b = 0; b < ray.nb && ray.active; ++b) {
-      stash[b] = s;
+      stash_store(out + (size_t)b * bounce, stride, s);
       n_run = b + 1;
       Inter I;
       bounce_fwd<MOVING>(p, p.ids[(size_t)b * n + i], s, ray.tm, ray.pix, ray.smp, b, I);
@@ -597,16 +625,16 @@ RT_DEVICE void replay_bwd_ray(const ReplayParams& p, int i) {
   }
   const float RRr = p.rad_bar[i], RRg = p.rad_bar[n + i], RRb = p.rad_bar[2 * n + i];
   float adj[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  float* out = p.out_g + i;
-  const size_t stride = (size_t)n;
   for (int b = p.D - 1; b >= n_run; --b)
-    for (int k = 0; k < NG; ++k) out[((size_t)b * NG + k) * stride] = 0.0f;
+    for (int k = 0; k < NG; ++k) out[(size_t)b * bounce + k * stride] = 0.0f;
   for (int b = n_run - 1; b >= 0; --b) {
+    float* row = out + (size_t)b * bounce;
+    const State s = stash_load(row, stride);
     Inter I;
-    bounce_fwd<MOVING>(p, p.ids[(size_t)b * n + i], stash[b], ray.tm, ray.pix, ray.smp, b, I);
+    bounce_fwd<MOVING>(p, p.ids[(size_t)b * n + i], s, ray.tm, ray.pix, ray.smp, b, I);
     float g[NG];
-    bounce_bwd<MOVING>(p, I, stash[b], ray.tm, RRr, RRg, RRb, adj, g);
-    for (int k = 0; k < NG; ++k) out[((size_t)b * NG + k) * stride] = g[k];
+    bounce_bwd<MOVING>(p, I, s, ray.tm, RRr, RRg, RRb, adj, g);
+    for (int k = 0; k < NG; ++k) row[k * stride] = g[k];
   }
 }
 
@@ -730,7 +758,6 @@ extern "C" int rt_replay_fwd(const float* table, const int* ids, const float* ra
                              int moving, uint32_t seed, float bg_r, float bg_g, float bg_b,
                              float* out_rad, int* out_bc, int* next, void* stream) {
   if (n <= 0) return 0;
-  if (D > MAX_DEPTH) return (int)cudaErrorInvalidValue;
   const ReplayParams p{table, ids,  ray_f, ray_i, maxlen,  nullptr, n,      D,
                        n_sph, seed, bg_r,  bg_g,  bg_b,    out_rad, out_bc, nullptr};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -750,7 +777,6 @@ extern "C" int rt_replay_fwd_probe(const float* table, const int* ids, const flo
                                    float* out_rad, int* out_bc, int* next, int refill,
                                    unsigned long long* stats, void* stream) {
   if (n <= 0) return 0;
-  if (D > MAX_DEPTH) return (int)cudaErrorInvalidValue;
   const ReplayParams p{table, ids,  ray_f, ray_i, maxlen,  nullptr, n,      D,
                        n_sph, seed, bg_r,  bg_g,  bg_b,    out_rad, out_bc, nullptr};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -773,7 +799,6 @@ extern "C" int rt_replay_bwd(const float* table, const int* ids, const float* ra
                              int D, int n_sph, int moving, uint32_t seed, float bg_r, float bg_g,
                              float bg_b, float* out_g, void* stream) {
   if (n <= 0) return 0;
-  if (D > MAX_DEPTH) return (int)cudaErrorInvalidValue;
   const ReplayParams p{table, ids,  ray_f, ray_i, maxlen,  rad_bar, n,       D,
                        n_sph, seed, bg_r,  bg_g,  bg_b,    nullptr, nullptr, out_g};
   const dim3 grid((n + THREADS - 1) / THREADS);

@@ -54,7 +54,10 @@
 // (d) a larger table takes the warp-merged adds straight to the output as
 //     16-byte vector atomics (atomicAdd on float4, sm_90);
 // (e) a persistent grid of FOLD_BLOCKS_PER_SM blocks per SM walks the
-//     warp tiles of all D bounces, so one launch covers a chunk.
+//     warp tiles of all D bounces, so one launch covers a chunk of up to
+//     FOLD_MAX_D bounces (their prefixes ride in the launch parameters);
+//     the wrapper folds a deeper chunk in windows of FOLD_MAX_D bounces,
+//     one launch each, all adding into the same output.
 // The order of the adds within a row is not fixed (atomics), as with
 // index_add_; results agree to float32 reassociation.
 
@@ -67,7 +70,7 @@ constexpr int GATHER_THREADS = 256;
 constexpr int FOLD_THREADS = 256;
 constexpr int FOLD_SMEM = 96 * 1024;    // largest table the fold keeps in shared memory
 constexpr int FOLD_BLOCKS_PER_SM = 8;   // at L = 512: 0.0325 ms; 4: 0.036, 2 (512 threads): 0.036-0.040
-constexpr int FOLD_MAX_D = 64;          // bounces of one fold launch (BASELINE config 5: 50)
+constexpr int FOLD_MAX_D = 64;          // bounces of one launch; deeper replays fold in windows
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ int clip_id(int id, int L) {
@@ -225,7 +228,8 @@ extern "C" int rt_table_gather(const float* table, const int* ids, int L, int F,
 
 // The fold: out (L, FP) += the cotangents g (D, F, n) of rays i < P[b] at
 // rows clip(ids[b, i], 0, L - 1); FP = F rounded up to a multiple of 4 (the
-// pad columns stay zero). `prefixes` is a host array of D ints.
+// pad columns stay zero). `prefixes` is a host array of D ints; one
+// launch takes D <= FOLD_MAX_D bounces (the size of its parameter arrays).
 extern "C" int rt_table_fold(const float* g, const int* ids, const int* prefixes, int L, int F,
                              int n, int D, float* out, void* stream) {
   if (n <= 0 || D <= 0 || F <= 0) return 0;

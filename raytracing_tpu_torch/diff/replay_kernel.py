@@ -9,9 +9,10 @@ for hits, so it is differentiable in the table. Two kernels carry it:
 * **K3** (``replay_fwd``): the replay forward, radiance and bounce
   counts. It replaces the Pallas ``make_replay_kernels`` ``fwd_kernel``.
 * **K2** (``replay_bwd``): the forward again, stashing each bounce's
-  entry state, then the hand-derived reverse sweep (``bounce_bwd`` in the
-  JAX package) giving the per-(bounce, ray) cotangents of the NG = 19
-  differentiable table fields, ``(D, NG, n)``. It replaces ``bwd_kernel``.
+  entry state in that bounce's rows of its own output, then the
+  hand-derived reverse sweep (``bounce_bwd`` in the JAX package) giving the
+  per-(bounce, ray) cotangents of the NG = 19 differentiable table fields,
+  ``(D, NG, n)``, for a replay of any depth D. It replaces ``bwd_kernel``.
 
 Both are CUDA C++ (``csrc/replay_kernel.cu``): K2 one thread per ray, K3
 persistent warps whose lanes take a new ray as theirs ends
@@ -51,7 +52,6 @@ from ..scene.types import MAT_DIELECTRIC, MAT_DIFFUSE_LIGHT, MAT_METAL
 from . import replay_fast as rf
 
 TILE = 1024      # rays per gating tile, in the kernels' ray order
-MAX_DEPTH = 64   # the kernels' compile-time bound on the bounces of a replay (K2's stash)
 
 # ray_f rows of the replay kernels' ray state
 RX, RY, RZ, RDX, RDY, RDZ, RTM, RACT = range(8)
@@ -146,13 +146,11 @@ def _check(table, ids, ray_f, ray_i, maxlen, extra=()):
         raise ValueError(f"the replay kernels run on CUDA tensors (kernel) or CPU tensors "
                          f"(plain version), not {dev}")
     if dev.type == "cuda":
-        if D > MAX_DEPTH:
-            raise ValueError(f"the replay kernels trace at most {MAX_DEPTH} bounces, got {D}")
         if not all(t.is_contiguous() for t in tensors):
             raise ValueError("the replay kernels need contiguous tensors")
         # the kernels index the ray rows in 32 bits, (D, n) and (D, NG, n) in 64
-        if n * max(D, N_RAY_F) >= 2 ** 31:
-            raise ValueError(f"replay launch of {n} rays × {D} bounces exceeds 32-bit indexing")
+        if n * N_RAY_F >= 2 ** 31:
+            raise ValueError(f"replay launch of {n} rays exceeds the ray rows' 32-bit indexing")
     return n, D, dev
 
 
@@ -468,8 +466,9 @@ def reduce_table_grads(g, ids, L: int, prefixes=None):
     ``g[b, :, i]`` (misses, id -1, add to row 0 with zero cotangents).
     ``prefixes``: per bounce, only the first ``prefixes[b]`` rays count.
     The sum is :func:`table_gather.fold <raytracing_tpu_torch.ops.table_gather.fold>`,
-    one launch for all D bounces on the card (``index_add_`` per bounce,
-    its plain version, on the CPU); the reference's one-hot matmul was
+    one launch per window of at most ``FOLD_MAX_D`` bounces on the card
+    (``table_gather.fold_windows``; ``index_add_`` per bounce, its plain
+    version, on the CPU); the reference's one-hot matmul was
     measured slower on the card than either (PERF.md; ``chip_smoke.py``
     times all three). On CUDA it adds with atomics in a run-dependent
     order, so two runs agree to f32 reassociation, not bit for bit."""

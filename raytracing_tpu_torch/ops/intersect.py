@@ -71,6 +71,34 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).float()
 
 
+class _Atan2F64(torch.autograd.Function):
+    """atan2 through float64, rounded to float32, with float32
+    ``torch.atan2``'s backward (the gradient the float32 formula gives)."""
+
+    @staticmethod
+    def forward(ctx, y, x):
+        ctx.save_for_backward(y, x)
+        return torch.atan2(y.double(), x.double()).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        y, x = (v.detach().requires_grad_() for v in ctx.saved_tensors)
+        with torch.enable_grad():
+            return torch.autograd.grad(torch.atan2(y, x), (y, x), g)
+
+
+def atan2_rn(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """float32 ``atan2(y, x)`` that depends on nothing but its inputs,
+    with autograd. On a CUDA tensor it is ``torch.atan2`` (CUDA's
+    ``atan2f``, as the kernels call it); elsewhere a float64 atan2 rounded
+    to float32, since PyTorch's CPU float32 atan2 gives results that depend
+    on the thread count and on an element's position in the tensor. The
+    gradient is float32 ``torch.atan2``'s either way."""
+    if y.is_cuda:
+        return torch.atan2(y, x)
+    return _Atan2F64.apply(y, x)
+
+
 def safe_sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     """:func:`vecmath.safe_sqrt <raytracing_tpu_torch.core.vecmath.safe_sqrt>`
     through :func:`sqrt_rn`."""
@@ -187,9 +215,9 @@ def hit_attributes(scene: Scene, o: torch.Tensor, d: torch.Tensor, time: torch.T
     # and so is atan2(-z, x), whose gradient at (0, 0) is NaN
     sx, sy, sz = outward_s[:, 0], outward_s[:, 1], outward_s[:, 2]
     rxz = vm.safe_sqrt(sx * sx + sz * sz)
-    theta = torch.atan2(rxz, -sy)
+    theta = atan2_rn(rxz, -sy)
     x_safe = torch.where(rxz > 0, sx, 1.0)
-    phi = torch.atan2(-sz, x_safe) + torch.pi
+    phi = atan2_rn(-sz, x_safe) + torch.pi
     u_s = phi / (2.0 * torch.pi)
     v_s = theta / torch.pi
 

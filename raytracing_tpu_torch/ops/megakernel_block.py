@@ -51,7 +51,7 @@ from ..core.vecmath import NEAR_ZERO_EPS
 from ..scene import flatten as fl
 from ..scene import perlin
 from ..scene.types import PerlinTables
-from .intersect import PARALLEL_EPS, T_MIN
+from .intersect import PARALLEL_EPS, T_MIN, atan2_rn
 
 OX, OY, OZ, DX, DY, DZ, TM, TR, TG, TB, RR, RG, RB, ACT = range(14)
 N_F = 14
@@ -249,9 +249,9 @@ def image_texel(mega, ib, px, py, pz, own_x, own_y, own_z):
     the poles); a quad's is (α, β) from its corner, edges and w."""
     col = mega.table[:, ib]
     rxz = torch.sqrt(torch.clamp(own_x * own_x + own_z * own_z, min=0.0))
-    theta = torch.atan2(rxz, -own_y)
+    theta = atan2_rn(rxz, -own_y)
     x_safe = torch.where(rxz > 0.0, own_x, 1.0)
-    phi = torch.atan2(-own_z, x_safe) + math.pi
+    phi = atan2_rn(-own_z, x_safe) + math.pi
     u = phi * (1.0 / (2.0 * math.pi))
     v = theta * (1.0 / math.pi)
     if mega.n_quad > 0:

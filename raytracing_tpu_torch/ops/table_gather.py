@@ -16,8 +16,9 @@ JAX package writes it as a one-hot matmul because scatter is serial on a
 TPU.) On CUDA tensors it is a hand-written kernel too (``rt_table_fold``
 in ``csrc/table_gather.cu``), whose plain version, :func:`fold_torch`, is
 ``index_add_``; its batched form folds a whole ``(D, F, n)`` stack of
-per-bounce cotangents over per-bounce ray prefixes in one launch, the
-replay's table reduction (``diff/replay_kernel.reduce_table_grads``).
+per-bounce cotangents over per-bounce ray prefixes, the replay's table
+reduction (``diff/replay_kernel.reduce_table_grads``), in one launch per
+window of at most :data:`FOLD_MAX_D` bounces (:func:`fold_windows`).
 Both add in a run-dependent order on the card (atomics), so two backward
 passes agree to float32 reassociation, not bit for bit. Each fold launch
 adds one to :data:`fold_launches`.
@@ -30,7 +31,7 @@ import torch
 
 launches = 0       # K4 kernel launches in this process (plain-version calls excluded)
 fold_launches = 0  # fold kernel launches in this process (plain-version calls excluded)
-FOLD_MAX_D = 64    # bounces one fold launch takes (csrc/table_gather.cu FOLD_MAX_D)
+FOLD_MAX_D = 64    # bounces of one fold launch, a window (csrc/table_gather.cu FOLD_MAX_D)
 FOLD_MAX_F = 32    # fields a folded row may have
 
 
@@ -81,6 +82,19 @@ def _prefix_list(prefixes, D, n):
     return [n] * D if prefixes is None else [min(n, max(0, int(p))) for p in prefixes]
 
 
+def fold_windows(D: int, prefixes) -> list:
+    """The fold's launches for ``D`` bounces with per-bounce ray
+    ``prefixes`` (D ints): ``[(w0, prefixes[w0:w1]), ...]`` for the windows
+    ``[w0, w1)`` of at most :data:`FOLD_MAX_D` consecutive bounces, in
+    order, leaving out a window whose prefixes are all 0 (it adds
+    nothing)."""
+    P = [int(x) for x in prefixes]
+    if len(P) != D:
+        raise ValueError(f"one prefix per bounce: {D} bounces, {len(P)} prefixes")
+    return [(w0, P[w0:w0 + FOLD_MAX_D]) for w0 in range(0, D, FOLD_MAX_D)
+            if any(P[w0:w0 + FOLD_MAX_D])]
+
+
 def fold_torch(g: torch.Tensor, ids: torch.Tensor, L: int, prefixes=None) -> torch.Tensor:
     """Plain fold: ``index_add_`` of each bounce's ``g[b, :, :P_b]`` into an
     ``(L, F)`` zero table at rows ``clip(ids[b, :P_b], 0, L - 1)``."""
@@ -98,7 +112,8 @@ def fold(g: torch.Tensor, ids: torch.Tensor, L: int, prefixes=None) -> torch.Ten
     prefixes[b]`` (every ray when ``prefixes`` is None). ``g (D, F, n)``
     f32 and ``ids (D, n)`` i32, or ``(F, n)`` and ``(n,)`` for one bounce.
     On CUDA the result is a view of an ``(L, F)`` table padded to a
-    multiple of 4 columns."""
+    multiple of 4 columns, summed by one launch per window of
+    :func:`fold_windows`, each adding into it."""
     if g.dim() == 2:
         g, ids = g[None], ids[None]
     if g.dim() != 3 or g.dtype != torch.float32:
@@ -117,27 +132,30 @@ def fold(g: torch.Tensor, ids: torch.Tensor, L: int, prefixes=None) -> torch.Ten
     if dev.type != "cuda":
         raise ValueError(f"the fold runs on CUDA tensors (kernel) or CPU tensors (plain "
                          f"version), not {dev}")
-    if D > FOLD_MAX_D or F > FOLD_MAX_F:
-        raise ValueError(f"the fold takes at most {FOLD_MAX_D} bounces of {FOLD_MAX_F} fields, "
-                         f"got {D} x {F}")
-    if L * F >= 2 ** 31 or D * n >= 2 ** 31:
-        raise ValueError(f"fold of {D} x {n} rays into {L} rows exceeds its 32-bit indexing")
+    if F > FOLD_MAX_F:
+        raise ValueError(f"the fold takes at most {FOLD_MAX_F} fields, got {F}")
+    if L * F >= 2 ** 31 or min(D, FOLD_MAX_D) * n >= 2 ** 31:
+        raise ValueError(f"fold of {min(D, FOLD_MAX_D)} x {n} rays a launch into {L} rows "
+                         f"exceeds its 32-bit indexing")
     g, ids = g.contiguous(), ids.contiguous()
     fp = -(-F // 4) * 4
     out = torch.zeros((L, fp), dtype=torch.float32, device=dev)
-    P = _prefix_list(prefixes, D, n)
-    if n == 0 or F == 0 or not any(P):
+    windows = fold_windows(D, _prefix_list(prefixes, D, n))
+    if F == 0 or not windows:
         return out[:, :F]
     from .. import _kernels
 
     lib = _kernels.library().lib
     global fold_launches
     with torch.cuda.device(dev):
-        err = lib.rt_table_fold(g.data_ptr(), ids.data_ptr(), (ctypes.c_int * D)(*P), L, F, n,
-                                D, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    fold_launches += 1
-    if err != 0:
-        raise RuntimeError(f"fold launch failed: {lib.rt_error_string(err).decode()}")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for w0, P in windows:
+            dw = len(P)
+            err = lib.rt_table_fold(g[w0:w0 + dw].data_ptr(), ids[w0:w0 + dw].data_ptr(),
+                                    (ctypes.c_int * dw)(*P), L, F, n, dw, out.data_ptr(), stream)
+            fold_launches += 1
+            if err != 0:
+                raise RuntimeError(f"fold launch failed: {lib.rt_error_string(err).decode()}")
     return out[:, :F]
 
 

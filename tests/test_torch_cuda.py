@@ -22,7 +22,10 @@ from raytracing_tpu_torch.diff import replay_kernel as rk
 from raytracing_tpu_torch.ops.megakernel import build_mega_scene, pack_rays, trace_megakernel
 from raytracing_tpu_torch.render import camera as cam
 from raytracing_tpu_torch.render import pool as pool_mod
-from torch_parity import K5_EDGE_CASES, k5_edge_case, segments_close, sqrt_grads, sqrt_inputs
+from raytracing_tpu_torch.render.camera import CameraConfig
+from raytracing_tpu_torch.scene.builder import SceneBuilder
+from torch_parity import (K5_EDGE_CASES, deep_scene, deep_scene_config, k5_edge_case,
+                          segments_close, sqrt_grads, sqrt_inputs)
 
 pytestmark = pytest.mark.cuda
 SEED = 7
@@ -111,13 +114,22 @@ def test_replay_kernels_match_plain_versions(dev, name):
                                rtol=3e-5, atol=3e-6)
 
 
-def test_replay_kernels_deeper_than_32_bounces(dev):
-    """K2's stash of 64 bounces past the 32 it held: cornell_box at depth 40,
-    whose closed room keeps rays bouncing past 32, K3 and K2 against their
-    plain versions at the bars above, and the fold of K2's 40 bounces in
-    one launch against the plain reduction."""
-    scene, cfg = build("cornell_box", device=dev, image_width=64, samples_per_pixel=1,
-                       max_depth=40)
+@pytest.mark.parametrize("name,depth,phases,past", [
+    ("cornell_box", 40, [8, 32], 32), ("deep", 72, [8, 64], 64), ("deep", 96, [8, 88], 64)])
+def test_replay_kernels_deeper_than_32_bounces(dev, name, depth, phases, past):
+    """Replays past the 32 and 64 bounces K2's stash once held: cornell_box
+    at depth 40, whose closed room keeps rays bouncing past 32, and the
+    deep scene (the camera inside a fuzz-0 metal sphere) at depths 72 and
+    96, past 64; K3 and K2 against their plain versions at the bars above,
+    and the fold of K2's bounces, one launch per window of 64 bounces,
+    against the plain reduction (the deep scene's against its float64
+    sum, at the fold's bar)."""
+    if name == "deep":
+        scene = deep_scene(SceneBuilder()).compile(dev)
+        cfg = deep_scene_config(CameraConfig, image_width=64, max_depth=depth)
+    else:
+        scene, cfg = build(name, device=dev, image_width=64, samples_per_pixel=1,
+                           max_depth=depth)
     B = -(-cfg.n_pixels // 1024) * 1024
     pix = torch.clamp(torch.arange(B, device=dev), max=cfg.n_pixels - 1)
     smp = torch.zeros_like(pix)
@@ -125,13 +137,13 @@ def test_replay_kernels_deeper_than_32_bounces(dev):
     o, d, t = cam.generate_rays(cfg, cam.derive(cfg, cam.CameraParams.from_config(cfg, dev)),
                                 pix, smp, SEED, motion_blur=scene.flags.has_moving)
     _, _, ids, cnt = trace_megakernel(build_mega_scene(scene), o, d, t, pix, smp,
-                                      cfg.background, 40, SEED, phase_depths=[8, 32],
+                                      cfg.background, depth, SEED, phase_depths=phases,
                                       active0=act, want_ids=True, want_counts=True)
-    assert int((cnt > 32).sum()) > 0
+    assert int((cnt > past).sum()) > 0
     table = rf.build_replay_table(scene).detach()
     ray_f = rk.pack_replay_rays(o, d, t, act)
     ray_i = torch.stack([pix, smp]).to(torch.int32)
-    maxlen = rk.tile_maxlen(cnt, 40)
+    maxlen = rk.tile_maxlen(cnt, depth)
     rad_bar = torch.randn((3, B), generator=torch.Generator(dev).manual_seed(3), device=dev)
     kw = dict(seed=SEED, n_sph=scene.n_spheres, has_moving=scene.flags.has_moving,
               background=cfg.background)
@@ -146,9 +158,20 @@ def test_replay_kernels_deeper_than_32_bounces(dev):
     torch.testing.assert_close(rk.reduce_table_grads(g.cpu(), ids.cpu(), L), tb_p,
                                rtol=3e-5, atol=3e-6)
     before = tg.fold_launches
-    torch.testing.assert_close(rk.reduce_table_grads(g, ids, L).cpu(), tb_p, rtol=3e-5,
-                               atol=3e-6)
-    assert tg.fold_launches == before + 1
+    tb_k = rk.reduce_table_grads(g, ids, L).cpu()
+    assert tg.fold_launches == before + -(-depth // tg.FOLD_MAX_D)
+    if name == "deep":
+        # every bounce of every ray adds to the mirror's row, in an order the
+        # fold's atomics change from run to run: the fold's own bar
+        # (chip_smoke.py phase 11) against the float64 sum, atol 2e-6 per
+        # ray-bounce that row takes
+        exact = tg.fold_torch(g_p.cpu().double(), ids.cpu(), L)[:, rk._GSLOTS]
+        hits = ids[ids >= 0].long().cpu()
+        atol = 2e-6 * torch.bincount(hits, minlength=L).clamp(min=1).double()[:, None]
+        err = (tb_k[:, rk._TCOLS].double() - exact).abs()
+        assert bool((err <= atol + 1e-5 * exact.abs()).all()), float((err - atol).max())
+    else:
+        torch.testing.assert_close(tb_k, tb_p, rtol=3e-5, atol=3e-6)
 
 
 @pytest.mark.parametrize("name", ["cornell_box", "bouncing_spheres", "simple_light", "earth"])

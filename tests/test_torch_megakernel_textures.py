@@ -21,6 +21,7 @@ from raytracing_tpu.render.integrator import trace as jtrace
 from raytracing_tpu_torch import SCENES, Renderer, build
 from raytracing_tpu_torch.ops import megakernel_block as mb
 from raytracing_tpu_torch.ops import megakernel_group as mg
+from raytracing_tpu_torch.ops.intersect import hit_attributes
 from raytracing_tpu_torch.ops.megakernel import build_mega_scene, trace_megakernel
 from raytracing_tpu_torch.render import camera as pcam
 from torch_parity import jit_run, port_scene, segments_close
@@ -94,3 +95,42 @@ def test_renderer_renders_every_registry_scene(name):
     res = Renderer(cfg).render(scene, seed=SEED)
     assert res.radiance.shape == (cfg.image_height, cfg.image_width, 3)
     assert np.isfinite(res.radiance).all() and res.segments >= cfg.n_pixels
+
+
+def test_texels_and_sphere_uv_do_not_depend_on_threads_or_order():
+    """The plain versions' image texels (K1's and K5's ``image_texel``) and
+    the integrator's sphere UV (``hit_attributes``) on earth's globe are bit
+    for bit the same at 1, 2 and 8 threads and under a permutation of the
+    points: they take atan2 through ``atan2_rn``, where PyTorch's CPU
+    float32 atan2 depends on the thread count and on an element's place in
+    the tensor (an odd count of 70,001 points leaves a vector tail)."""
+    scene, _ = build("earth", device="cpu", image_width=32, samples_per_pixel=1)
+    mega = build_mega_scene(scene)
+    n = 70_001
+    rng = np.random.default_rng(9)
+    own = rng.normal(size=(n, 3))
+    own /= np.linalg.norm(own, axis=1, keepdims=True)
+    own[:4] = [(0.0, 1.0, 0.0), (0.0, -1.0, 0.0), (1.0, 0.0, 0.0), (-1.0, 0.0, -0.0)]
+    own = torch.from_numpy(own.astype(np.float32))
+    p = own * scene.spheres.radius[0] + scene.spheres.center[0]
+    zeros = torch.zeros(n)
+    ids = torch.zeros(n, dtype=torch.int32)
+    perm = torch.from_numpy(rng.permutation(n))
+
+    def run(threads, order):
+        torch.set_num_threads(threads)
+        try:
+            pp, oo = p[order], own[order]
+            texel = mb.image_texel(mega, ids.long(), *pp.unbind(1), *oo.unbind(1))
+            hit = hit_attributes(scene, pp, -oo, zeros, zeros, ids)
+            out = (*texel, hit.u, hit.v)
+        finally:
+            torch.set_num_threads(2)
+        inv = torch.argsort(order)
+        return [x[inv] for x in out]
+
+    ref = run(1, torch.arange(n))
+    for threads, order in ((2, torch.arange(n)), (8, torch.arange(n)), (1, perm), (8, perm)):
+        for x, y in zip(run(threads, order), ref):
+            assert torch.equal(x.view(torch.int32) if x.is_floating_point() else x,
+                               y.view(torch.int32) if y.is_floating_point() else y)

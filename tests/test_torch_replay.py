@@ -4,8 +4,10 @@ reduction and the fwd+bwd bench chunk) against the JAX package.
 The same inputs go to both packages: rays and ids recorded by JAX's XLA
 decision pass (``record_decisions``) at width 32, spp 1, depth 6, B =
 2048, and a numpy-seeded radiance cotangent. The JAX side runs its XLA
-paths (``replay_trace_fast`` and ``jax.vjp`` of it), jitted with
-torch_parity.FAST_COMPILE.
+paths (``replay_trace_fast`` and ``jax.vjp`` of it, ``lax.scan`` over the
+bounces), jitted with torch_parity.FAST_COMPILE. The deep scene
+(torch_parity.deep_scene: the camera inside a fuzz-0 metal sphere) runs
+at depth 72, so that some rays replay past 64 bounces.
 
 Bars (tests/test_replay_kernel.py): radiance max |Δ| < 1e-5 on
 three_spheres and cornell_box, mean |Δ| < 2e-3 on bouncing_spheres;
@@ -33,14 +35,17 @@ from raytracing_tpu.diff.replay import record_decisions
 from raytracing_tpu.diff.replay_fast import replay_trace_fast
 from raytracing_tpu.models.scenes import build as jbuild
 from raytracing_tpu.render import camera as jcam
+from raytracing_tpu.render.camera import CameraConfig as JCameraConfig
+from raytracing_tpu.scene.builder import SceneBuilder as JSceneBuilder
 from raytracing_tpu_torch.diff import replay_fast as prf
 from raytracing_tpu_torch.diff import replay_kernel as rk
 from raytracing_tpu_torch.ops.megakernel import build_mega_scene, trace_megakernel
-from torch_parity import jit_run, port_scene, segments_close, t
+from torch_parity import deep_scene, deep_scene_config, jit_run, port_scene, segments_close, t
 
 torch.set_num_threads(2)
 B = 2048
 DEPTH = 6
+DEEP_DEPTH = 72  # the deep scene's: past 64 bounces
 SEED = 5
 CSRC = Path(rk.__file__).resolve().parents[1] / "csrc"
 
@@ -50,10 +55,18 @@ def _setup(name):
     return scene, cfg, r, rad_bar.copy()
 
 
+def _depth(name):
+    return DEEP_DEPTH if name == "deep" else DEPTH
+
+
 @functools.lru_cache(maxsize=None)
 def _recorded(name):
     """Camera rays and JAX-recorded ids of one scene (shared by the tests)."""
-    scene, cfg = jbuild(name, image_width=32, samples_per_pixel=1, max_depth=DEPTH)
+    depth = _depth(name)
+    if name == "deep":
+        scene, cfg = deep_scene(JSceneBuilder()).compile(), deep_scene_config(JCameraConfig)
+    else:
+        scene, cfg = jbuild(name, image_width=32, samples_per_pixel=1, max_depth=depth)
     n_pix = cfg.n_pixels
     pix = jnp.minimum(jnp.arange(B, dtype=jnp.int32), n_pix - 1)
     smp = jnp.zeros((B,), jnp.int32)
@@ -62,7 +75,7 @@ def _recorded(name):
     o, d, tm = jcam.generate_rays(cfg, derived, pix, smp, jnp.uint32(SEED),
                                   motion_blur=scene.flags.has_moving)
     bg = jnp.asarray(cfg.background, jnp.float32)
-    ids = jit_run(lambda *a: record_decisions(scene, *a, bg, DEPTH, jnp.uint32(SEED),
+    ids = jit_run(lambda *a: record_decisions(scene, *a, bg, depth, jnp.uint32(SEED),
                                               active0=act0), o, d, tm, pix, smp)
     rad_bar = np.random.default_rng(3).normal(size=(B, 3)).astype(np.float32)
     return scene, cfg, dict(ids=ids, o=o, d=d, tm=tm, pix=pix, smp=smp, act0=act0, bg=bg), rad_bar
@@ -84,19 +97,25 @@ def _with(scene, values):
                                          for g, kw in groups.items()})
 
 
-def _port_replay(scene_p, r, values, **kw):
+def _port_replay(scene_p, r, values, depth=DEPTH, **kw):
     return rk.replay_trace_kernel(
         _with(scene_p, values), t(r["ids"]), t(r["o"]), t(r["d"]), t(r["tm"]), t(r["pix"]),
-        t(r["smp"]), np.asarray(r["bg"]), DEPTH, SEED, active0=t(r["act0"]), **kw)
+        t(r["smp"]), np.asarray(r["bg"]), depth, SEED, active0=t(r["act0"]), **kw)
 
 
-@pytest.mark.parametrize("name", ["three_spheres", "cornell_box", "bouncing_spheres"])
+@pytest.mark.parametrize("name", ["three_spheres", "cornell_box", "bouncing_spheres", "deep"])
 def test_replay_and_grads_match_jax(name):
+    """The port's replay (its plain versions on the CPU) against the JAX
+    XLA replay, radiance, segments and gradients; the deep scene at depth
+    72, past the 64 bounces the replay kernels once held."""
     scene, cfg, r, rad_bar = _setup(name)
+    depth = _depth(name)
+    if name == "deep":
+        assert int((np.asarray(r["ids"])[64:] >= 0).any(axis=0).sum()) > 0
 
     def f(*vals):
         return replay_trace_fast(_with(scene, vals), r["ids"], r["o"], r["d"], r["tm"],
-                                 r["pix"], r["smp"], r["bg"], DEPTH, jnp.uint32(SEED),
+                                 r["pix"], r["smp"], r["bg"], depth, jnp.uint32(SEED),
                                  active0=r["act0"])
 
     jvals = [getattr(getattr(scene, g), f_) for g, f_ in GRAD_FIELDS]
@@ -104,7 +123,7 @@ def test_replay_and_grads_match_jax(name):
     scene_p = port_scene(scene)
     pvals = [getattr(getattr(scene_p, g), f_).clone().requires_grad_(True)
              for g, f_ in GRAD_FIELDS]
-    rad_p, seg_p = _port_replay(scene_p, r, pvals)
+    rad_p, seg_p = _port_replay(scene_p, r, pvals, depth)
     diff = np.abs(rad_p.detach().numpy() - np.asarray(rad_j))
     if name == "bouncing_spheres":
         assert diff.mean() < 2e-3, diff.mean()
@@ -133,7 +152,7 @@ def _decision(name, phases=None, **kw):
     scene_p = port_scene(scene)
     rays = {k: t(r[k]) for k in ("o", "d", "tm", "pix", "smp", "act0")}
     out = trace_megakernel(build_mega_scene(scene_p), rays["o"], rays["d"], rays["tm"],
-                           rays["pix"], rays["smp"], cfg.background, DEPTH, SEED,
+                           rays["pix"], rays["smp"], cfg.background, _depth(name), SEED,
                            phase_depths=phases, active0=rays["act0"], want_counts=True, **kw)
     return scene_p, cfg, rays, torch.from_numpy(rad_bar), out
 
@@ -332,24 +351,27 @@ def host_replay(tmp_path_factory):
     return lib
 
 
-@pytest.mark.parametrize("name", ["three_spheres", "cornell_box", "bouncing_spheres"])
+@pytest.mark.parametrize("name", ["three_spheres", "cornell_box", "bouncing_spheres", "deep"])
 def test_kernel_source_on_the_host_matches_plain(host_replay, name):
     """K3's and K2's arithmetic compiled for the CPU against the plain
     versions: radiance and counts at the forward bars, K2's per-(bounce,
     ray) cotangents reduced to the table at rtol 3e-5, atol 3e-6 (host
-    libm and PyTorch may differ by an ulp in sin/cos)."""
+    libm and PyTorch may differ by an ulp in sin/cos). The deep scene
+    replays 72 bounces, past 64: K2's stash holds any depth."""
     scene_p, cfg, rays, rad_bar, (_, _, ids, cnt) = _decision(name, want_ids=True)
+    depth = _depth(name)
+    assert name != "deep" or int((cnt > 64).sum()) > 0
     table = prf.build_replay_table(scene_p).detach()
     ray_f = rk.pack_replay_rays(rays["o"], rays["d"], rays["tm"], rays["act0"])
     ray_i = torch.stack([rays["pix"], rays["smp"]]).to(torch.int32)
-    maxlen = rk.tile_maxlen(cnt, DEPTH)
+    maxlen = rk.tile_maxlen(cnt, depth)
     rb = rad_bar.T.contiguous()
     kw = dict(seed=SEED, n_sph=scene_p.n_spheres, has_moving=scene_p.flags.has_moving,
               background=cfg.background)
     rad, bc = torch.empty(3, B), torch.empty(B, dtype=torch.int32)
-    g = torch.empty(DEPTH, rk.NG, B)
+    g = torch.empty(depth, rk.NG, B)
     args = (table.data_ptr(), ids.data_ptr(), ray_f.data_ptr(), ray_i.data_ptr(),
-            maxlen.data_ptr(), rb.data_ptr(), B, DEPTH, scene_p.n_spheres,
+            maxlen.data_ptr(), rb.data_ptr(), B, depth, scene_p.n_spheres,
             int(scene_p.flags.has_moving), SEED, *cfg.background)
     host_replay.host_replay(0, *args, rad.data_ptr(), bc.data_ptr(), None)
     host_replay.host_replay(1, *args, None, None, g.data_ptr())

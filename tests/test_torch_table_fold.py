@@ -92,6 +92,41 @@ def test_batched_fold_with_prefixes_matches_onehot():
     assert torch.equal(tg.fold(g, ids, L), tg.fold(g, ids, L, [n] * D))
 
 
+def test_fold_windows_split_deep_chunks():
+    """A chunk deeper than FOLD_MAX_D bounces folds in windows of at most 64
+    consecutive bounces, one launch each (a window whose prefixes are all 0
+    is not launched, and D <= 64 stays one launch); the windows' folds,
+    added into one table, equal the reference's one-hot reduction of all
+    72 bounces at the fold's bar."""
+    assert tg.FOLD_MAX_D == 64
+    P = [2048 - 25 * b for b in range(72)]
+    assert tg.fold_windows(72, P) == [(0, P[:64]), (64, P[64:])]
+    assert tg.fold_windows(64, P[:64]) == [(0, P[:64])]
+    assert tg.fold_windows(1, [7]) == [(0, [7])]
+    assert [(w0, len(p)) for w0, p in tg.fold_windows(130, [1] * 130)] == [(0, 64), (64, 64),
+                                                                          (128, 2)]
+    cut = P[:64] + [0] * 8
+    assert tg.fold_windows(72, cut) == [(0, P[:64])]
+    assert tg.fold_windows(72, [0] * 64 + P[64:]) == [(64, P[64:])]
+    assert tg.fold_windows(72, [0] * 72) == []
+    with pytest.raises(ValueError, match="one prefix per bounce"):
+        tg.fold_windows(72, P[:64])
+    L, D, n = 128, 72, 2048
+    rng = np.random.default_rng(6)
+    g = torch.from_numpy(rng.normal(size=(D, rk.NG, n)).astype(np.float32))
+    ids = torch.from_numpy(_ids(rng, L, (D, n)))
+    acc = torch.zeros((L, rk.NG))
+    for b, Pb in enumerate(P):
+        acc += (torch.arange(L)[:, None] == ids[b, :Pb].clamp(0, L - 1)[None, :]).float() @ \
+            g[b, :, :Pb].T
+    windowed = torch.zeros((L, rk.NG))
+    for w0, Pw in tg.fold_windows(D, P):
+        w1 = w0 + len(Pw)
+        windowed += tg.fold(g[w0:w1], ids[w0:w1], L, Pw)
+    torch.testing.assert_close(windowed, acc, **_bar(sum(P), L))
+    torch.testing.assert_close(tg.fold(g, ids, L, P), acc, **_bar(sum(P), L))
+
+
 def test_zero_skip_is_exact():
     """The fold kernel skips a ray whose cotangents are all zero and a zero
     field: ``index_add_`` over every ray equals it over the rays with a

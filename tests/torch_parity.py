@@ -117,6 +117,25 @@ def mixed_scene_config(config_cls, **overrides):
         **overrides})
 
 
+def deep_scene(b):
+    """A scene whose rays run past 64 bounces, in a SceneBuilder of either
+    package: the camera inside a large fuzz-0 metal sphere, so every ray
+    reflects and stays alive until it meets the small light; a lambertian
+    sphere inside scatters some of them. Returns ``b``."""
+    b.sphere((0.0, 0.0, 0.0), 10.0, b.metal((0.95, 0.9, 0.85), 0.0))
+    b.sphere((2.0, -1.5, -1.0), 1.5, b.lambertian((0.7, 0.5, 0.3)))
+    b.sphere((-3.0, 2.0, 1.0), 0.6, b.diffuse_light((6.0, 6.0, 6.0)))
+    return b
+
+
+def deep_scene_config(config_cls, **overrides):
+    """:func:`deep_scene`'s camera (32×32, depth 72) as ``config_cls``."""
+    return config_cls(**{**dict(
+        image_width=32, aspect_ratio=1.0, samples_per_pixel=1, max_depth=72, vfov=70.0,
+        lookfrom=(0.0, 0.0, 6.0), lookat=(0.0, 0.0, 0.0), background=(0.0, 0.0, 0.0)),
+        **overrides})
+
+
 def sqrt_inputs(device, n: int = 1 << 24, seed: int = 11) -> torch.Tensor:
     """float32 inputs of a square root: ``n`` random bit patterns of the
     non-negative finite floats (every exponent, denormals included), then

@@ -26,7 +26,10 @@ queued behind a spin kernel so the wrappers' host time is hidden):
   length with the tiles' recorded maxima (phase 5 of chip_smoke.py), and
   on the same rays in camera order with every tile at depth 20 (what
   ``replay_trace_kernel`` runs without ``lengths``), and K2 on the sorted
-  rays, each with a checksum of its outputs.
+  rays, each with a checksum of its outputs;
+* K2 on the same chunk traced and sorted at depth 50 (BASELINE config
+  5's; the decision pass's phases ``[2, 2, 3, 4, 39]``), with a checksum
+  of its output.
 
 ``--probe`` (a checkout that has ``replay_fwd_probe``) then runs K3's two
 designs (``replay_kernel.K3_DESIGNS``: one thread per ray, and lanes that
@@ -48,6 +51,8 @@ import numpy as np
 import torch
 
 SEED = 7
+K2_DEPTH = 50  # K2's second depth: BASELINE config 5's
+
 
 def checksum(*tensors) -> str:
     """sha256 (16 hex digits) of the tensors' bytes."""
@@ -57,13 +62,14 @@ def checksum(*tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def chunk_inputs(pkg, rk, rf, mk, cam, dev):
-    """The fwd+bwd chunk (spp_chunk 4, B = 360,448) of the bench workload:
-    a K1 decision pass with ids and counts, its rays sorted by recorded
-    length as replay_grads_sorted sorts them, and a numpy-seeded radiance
-    cotangent. Returns (sorted inputs, camera-order inputs, kw, lengths)."""
+def chunk_inputs(pkg, rk, rf, mk, cam, dev, depth=20):
+    """The fwd+bwd chunk (spp_chunk 4, B = 360,448) of the bench workload
+    at ``depth``: a K1 decision pass with ids and counts, its rays sorted by
+    recorded length as replay_grads_sorted sorts them, and a numpy-seeded
+    radiance cotangent. Returns (sorted inputs, camera-order inputs, kw,
+    lengths)."""
     scene, cfg = pkg.build("bouncing_spheres", device=dev, image_width=400,
-                           samples_per_pixel=100, max_depth=20)
+                           samples_per_pixel=100, max_depth=depth)
     D, spp_chunk, n_pix = cfg.max_depth, 4, cfg.n_pixels
     npix_pad = -(-n_pix // 1024) * 1024
     n = npix_pad * spp_chunk
@@ -183,8 +189,15 @@ def main() -> int:
              ms=ms(lambda: rk.replay_fwd(tab, ids, ray_f, ray_i, maxlen, **kw)))
     tab, ids, ray_f, ray_i, maxlen, rad_bar = sorted_
     g2 = rk.replay_bwd(tab, ids, ray_f, ray_i, rad_bar, maxlen, **kw)
-    line(kernel="K2", case="sorted, tile maxima", B=n, checksum=checksum(g2), ms=ms(
+    line(kernel="K2", case="sorted, tile maxima", B=n, D=D, checksum=checksum(g2), ms=ms(
         lambda: rk.replay_bwd(tab, ids, ray_f, ray_i, rad_bar, maxlen, **kw)))
+    del g2
+    (tab, ids, ray_f, ray_i, maxlen, rad_bar), _, kw50, len50 = chunk_inputs(
+        pkg, rk, rf, mk, cam, dev, K2_DEPTH)
+    g2 = rk.replay_bwd(tab, ids, ray_f, ray_i, rad_bar, maxlen, **kw50)
+    line(kernel="K2", case="sorted, tile maxima", B=n, D=K2_DEPTH, longest=int(len50.max()),
+         checksum=checksum(g2), ms=ms(
+             lambda: rk.replay_bwd(tab, ids, ray_f, ray_i, rad_bar, maxlen, **kw50)))
     del g2
 
     if not args.probe:
