@@ -145,6 +145,21 @@ planned prefixes within phase 11's bar per row and phase 5's relative-L2
 bar of the float64 sum, with the chunk's scene gradients from the fold,
 from the plain version's float32 index_add_ and from the first window
 alone, each against those from the float64 sum.
+Phase 32 holds the fused single dispatch (Renderer(fused=True), the
+default, and the bench's fused plan and sweep: one launch or
+chunk captured once as a CUDA graph and replayed once a launch) against
+the launch loop (fused=False), timed in turns (tools/time_fused.py): the
+bench render's plan (equal prefixes), the bench render (u8 and f32
+bit-equal, 24,259,990 segments, ok, 250 K1 launches either way),
+bouncing_spheres_64 (K5, bit-equal), the bench's fwd+bwd sweep (loss,
+segments and ok equal; the gradients of both against a sweep with a
+float64 fold, per row at phase 11's bar for the ray-bounces each row
+gathers and in whole at phase 5's relative-L2 bar) and BASELINE config
+5's render (bit-equal, phase 28's segments) and sweep (phase 28's planned
+setup, which ran its chunk loop), with walls, capture seconds and peak
+device memory. Phases 3, 6, 10 and 31 time the fused path (their counts
+read after the render or sweep that captured); phases 25 and 28 keep the
+loop where they measure it.
 
 Kernels shorter than their wrappers' host time (K3, K4, the fold and the
 PyTorch calls beside them) are timed with their launches queued behind a
@@ -160,6 +175,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -504,12 +520,14 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     def zero_counts():
-        mb.launches = rk.fwd_launches = rk.bwd_launches = mg.launches = tg.launches = 0
-        tg.fold_launches = 0
+        for count in (mb.launches, rk.fwd_launches, rk.bwd_launches, mg.launches, tg.launches,
+                      tg.fold_launches):
+            count.reset()
 
     def counts():
-        return dict(K1=mb.launches, K3=rk.fwd_launches, K2=rk.bwd_launches, K5=mg.launches,
-                    K4=tg.launches, fold=tg.fold_launches)
+        return {k: int(count) for k, count in (
+            ("K1", mb.launches), ("K3", rk.fwd_launches), ("K2", rk.bwd_launches),
+            ("K5", mg.launches), ("K4", tg.launches), ("fold", tg.fold_launches))}
 
     def only(**kw):
         """The counts of a run that launched only the kernels named."""
@@ -761,10 +779,10 @@ def main() -> int:
     # matmul, each against a float64 sum
     prefixes = rk.plan_prefixes(torch.bincount(len_s.long(), minlength=D + 1).cpu(), n_full, D,
                                 margin=1.0)
-    before = tg.fold_launches
+    before = int(tg.fold_launches)
     red_fold = rk.reduce_table_grads(g_k2, ids, L, prefixes)
     torch.cuda.synchronize()
-    ok5r = tg.fold_launches == before + 1
+    ok5r = int(tg.fold_launches) == before + 1
     red64 = index_add_reduce(torch, rk, g_k2.double(), ids, L, prefixes)
     reds = dict(fold=red_fold, index_add_=index_add_reduce(torch, rk, g_k2, ids, L, prefixes),
                 onehot=onehot_reduce(torch, rk, g_k2, ids, L, prefixes))
@@ -858,11 +876,11 @@ def main() -> int:
         ok8 = True
         for use_bvh in (True, False):
             kw8 = dict(max_depth=depth, background=cfg_s.background, use_bvh=use_bvh)
-            before = mg.launches
+            before = int(mg.launches)
             out = mg.trace_group(mega_s, ray_f, ray_i, SEED, 3, **kw8)
             torch.cuda.synchronize()
             ref = mg.trace_group_torch(mega_s, ray_f, ray_i, SEED, 3, **kw8)
-            ok8 &= mg.launches == before + 1 and equal_outputs(out, ref)
+            ok8 &= int(mg.launches) == before + 1 and equal_outputs(out, ref)
             outs[use_bvh] = out
         walk_eq_sweep = equal_outputs(outs[True], outs[False])
         ok8 &= walk_eq_sweep and int(outs[True][1].sum()) > 0
@@ -1025,13 +1043,13 @@ def main() -> int:
         def lookup_onehot():
             return (torch.arange(L, device=dev)[:, None] == idc[None, :]).float() @ g_out.t()
 
-        before = tg.fold_launches
+        before = int(tg.fold_launches)
         tbar = tg.fold(g_out, idv, L)
         torch.cuda.synchronize()
         exact = torch.zeros((L, F), dtype=torch.float64, device=dev).index_add_(
             0, idc, g_out.t().double())
         fold_bar = dict(rtol=1e-5, atol=2e-6 * max(1, n_full // L))
-        fold_ok = (tg.fold_launches == before + 1
+        fold_ok = (int(tg.fold_launches) == before + 1
                    and bool(torch.allclose(tbar.double(), exact, **fold_bar)))
         errs = {k: float((v.double() - exact).abs().max()) for k, v in
                 (("fold", tbar), ("index_add_", lookup_index_add()), ("onehot", lookup_onehot()))}
@@ -1555,7 +1573,7 @@ def main() -> int:
     mbig = build_mega_scene(big)
     _, (ray_f, ray_i) = first_launch(big, cbig, -(-cbig.n_pixels // 1024) * 1024, 2, dev)
     kwb = dict(max_depth=cbig.max_depth, background=cbig.background, want_ids=True)
-    before = mb.launches
+    before = int(mb.launches)
     outb = mb.trace_block(mbig, ray_f, ray_i, SEED, 0, **kwb)
     torch.cuda.synchronize()
     refb = mb.trace_block_torch(mbig, ray_f, ray_i, SEED, 0, **kwb)
@@ -1564,7 +1582,7 @@ def main() -> int:
         refused = False
     except ValueError:
         refused = True
-    okb = (mb.walks(mbig) and mb.launches == before + 1 and bit_equal(torch, outb, refb)
+    okb = (mb.walks(mbig) and int(mb.launches) == before + 1 and bit_equal(torch, outb, refb)
            and refused and int(outb[1].sum()) > 0)
     print(f"phase 22 large scene ({mbig.n_sph} spheres, sweep tables "
           f"{4 * (mbig.sph_sweep.numel() + mbig.quad_sweep.numel())} B): "
@@ -1644,7 +1662,10 @@ def main() -> int:
         failures.append("phase 24 cli render")
 
     # ---- phase 25: the bench render with a checkpoint every sample chunk, resumed ----
-    r25 = Renderer(cfg24, phase_depths=kw["phase_depths"], phase_prefixes=pref)
+    # the walls without a checkpoint are the launch loop's, which a
+    # checkpoint takes; the resumed render is fused (its second render,
+    # after the one that captured its graph, is counted)
+    r25 = Renderer(cfg24, phase_depths=kw["phase_depths"], phase_prefixes=pref, fused=False)
     n_mid = -(-cfg24.samples_per_pixel // r25.spp_chunk) // 2
 
     def save_each(st):
@@ -1659,9 +1680,10 @@ def main() -> int:
         walls25[turn].append((x, counts()))
     whole, ck_run = walls25["none"][0][0], walls25["every chunk"][0][0]
     mid = ckpt.load_render_state(str(tmp / "mid.npz"))
+    r25f = Renderer(cfg24, phase_depths=kw["phase_depths"], phase_prefixes=pref)
+    r25f.render(scene24, seed=SEED, resume_state=mid)
     zero_counts()
-    resumed = Renderer(cfg24, phase_depths=kw["phase_depths"],
-                       phase_prefixes=pref).render(scene24, seed=SEED, resume_state=mid)
+    resumed = r25f.render(scene24, seed=SEED, resume_state=mid)
     resumed_counts = counts()
     ok25 = (bool(np.array_equal(resumed.radiance, whole.radiance))
             and bool(np.array_equal(ck_run.radiance, whole.radiance))
@@ -1794,7 +1816,7 @@ def main() -> int:
         rad_k3, bc_k3 = rk.replay_fwd(table, ids, rfr, rir, ml, **kw_r)
         g_k2 = rk.replay_bwd(table, ids, rfr, rir, rbar, ml, **kw_r)
         L = table.shape[0]
-        before = tg.fold_launches
+        before = int(tg.fold_launches)
         tb_k = rk.reduce_table_grads(g_k2, ids, L)
         torch.cuda.synchronize()
         rad_p3, bc_p3 = rk.replay_fwd_torch(table, ids, rfr, rir, ml, **kw_r)
@@ -1805,7 +1827,7 @@ def main() -> int:
         eq3, eq2 = bool(torch.equal(rad_k3, rad_p3)), bool(torch.equal(g_k2, g_p2))
         fold_ok, fold_err = fold_close(tb_k, g_p2, ids, L, int(bc_p3.sum()))
         ok_deep = (eq3 and bool(torch.equal(bc_k3, bc_p3)) and eq2 and fold_ok
-                   and tg.fold_launches == before + 1 and deep > 0)
+                   and int(tg.fold_launches) == before + 1 and deep > 0)
         print(f"phase 28 K3, K2 and the fold at depth 50, {name5} (B={rfr.shape[1]}, {deep} "
               f"rays past 32 bounces, longest {int(len5.max())}): {'ok' if ok_deep else 'FAIL'} "
               f"K3 bit-equal {eq3} (past 32 bounces {eq3_deep}) segments {int(bc_k3.sum())} "
@@ -1825,7 +1847,7 @@ def main() -> int:
                                                                       [2, 2, 3, 4, 39])
     n5c, L = rfr.shape[1], table.shape[0]
     g_k2 = rk.replay_bwd(table, ids, rfr, rir, rbar, ml, **kw_r)
-    before = tg.fold_launches
+    before = int(tg.fold_launches)
     tb_k = rk.reduce_table_grads(g_k2, ids, L)
     torch.cuda.synchronize()
     n_tiles = -(-n5c // rk.TILE)
@@ -1841,7 +1863,7 @@ def main() -> int:
         eq5c &= bool(torch.equal(g_k2[:, :, sl], g_p))
     top = ((g_k2.shape[0] - 1) * rk.NG + rk.NG - 1) * n5c + n5c - 1  # last element checked
     fold5_ok, fold5_err = fold_close(tb_k, g_k2, ids, L, seg5c)
-    ok5c = (eq5c and fold5_ok and tg.fold_launches == before + 1 and g_k2.numel() >= 2 ** 31
+    ok5c = (eq5c and fold5_ok and int(tg.fold_launches) == before + 1 and g_k2.numel() >= 2 ** 31
             and deep_tiles > 0)
     print(f"phase 28 K2 and the fold at config 5's chunk (B={n5c}, D={g_k2.shape[0]}, output "
           f"{g_k2.numel()} elements, {tiles} tiles held up to element {top}): "
@@ -1856,12 +1878,12 @@ def main() -> int:
     fb5 = pbench._fwd_bwd_setup(width=c5["width"], spp=c5["spp"], max_depth=c5["depth"],
                                 seed=SEED, spp_chunk=4, device=dev)
     zero_counts()
-    fb5["plan"]()
+    fb5["plan"](fused=False)  # the chunk loop here; phase 32 holds the fused sweep to it
     torch.cuda.synchronize()
     plan5_s, plan5_counts = time.perf_counter() - t0, counts()
     zero_counts()
     t1 = time.perf_counter()
-    _, gc5, gr5, seg5, ok5 = fb5["sweep"]()
+    _, gc5, gr5, seg5, ok5 = fb5["sweep"](fused=False)
     torch.cuda.synchronize()
     sweep5_s, sweep5_counts = time.perf_counter() - t1, counts()
     peak5 = torch.cuda.max_memory_allocated(dev)
@@ -1878,7 +1900,7 @@ def main() -> int:
           f"{sweep5_counts} [{card}]")
     if not ok28g:
         failures.append("phase 28 config 5 fwd+bwd")
-    del fb5, gc5, gr5
+    del gc5, gr5  # fb5 (planned) stays for phase 32
 
     # ---- phase 29: the stored C++ configurations through the default Renderer ----
     from raytracing_tpu_torch import cpp_compare
@@ -2037,11 +2059,11 @@ def main() -> int:
         L, n31 = table.shape[0], rfr.shape[1]
         pref31 = rk.plan_prefixes(torch.bincount(len31.long(), minlength=97).cpu(), n31, 96,
                                   margin=1.0)
-        before = tg.fold_launches
+        before = int(tg.fold_launches)
         tb_k = rk.reduce_table_grads(g_k2, ids, L)
         tb_kp = rk.reduce_table_grads(g_k2, ids, L, pref31)
         torch.cuda.synchronize()
-        fold_n = tg.fold_launches - before
+        fold_n = int(tg.fold_launches) - before
         tb_w1 = first_window(g_k2, ids, L, pref31)
         rad_p3, bc_p3 = rk.replay_fwd_torch(table, ids, rfr, rir, ml, **kw_r)
         g_p2 = rk.replay_bwd_torch(table, ids, rfr, rir, rbar, ml, **kw_r)
@@ -2090,10 +2112,10 @@ def main() -> int:
                    + 4 * table.numel() + 4 * g_k2.numel())
         pref31 = rk.plan_prefixes(torch.bincount(len31.long(), minlength=D31 + 1).cpu(), n31,
                                   D31, margin=1.0)
-        before = tg.fold_launches
+        before = int(tg.fold_launches)
         tb31 = rk.reduce_table_grads(g_k2, ids, L, pref31)
         torch.cuda.synchronize()
-        fold_n = tg.fold_launches - before
+        fold_n = int(tg.fold_launches) - before
         fold_ms = device_ms(torch, lambda: tg.fold(g_k2, ids, L, pref31), 10)
         # the fold over the planned prefixes against the float64 sum of K2's
         # plain version's cotangents, at phase 11's bar per row
@@ -2144,16 +2166,19 @@ def main() -> int:
     for D31 in (20, 100):
         fb31 = pbench._fwd_bwd_setup(max_depth=D31, device=dev)
         fb31["plan"]()
-        fb31["sweep"]()  # warm-up
+        # the peak of the first sweep: its warm-up chunk and the capture
+        # allocate what a chunk needs (the replays reuse the graph's pool)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
+        fb31["sweep"]()
+        torch.cuda.synchronize()
+        peak31 = torch.cuda.max_memory_allocated(dev)
         zero_counts()
         t0 = time.perf_counter()
         _, gc31, gr31, segs31, okp31 = fb31["sweep"]()
         torch.cuda.synchronize()
         wall31 = time.perf_counter() - t0
         c31s = counts()
-        peak31 = torch.cuda.max_memory_allocated(dev)
         n_ch = fb31["n_chunks"]
         windows = len(tg.fold_windows(D31, fb31["ns"]["prefixes"]))
         row = dict(wall_s=wall31, segments=int(segs31), plan_ok=bool(okp31), launches=c31s,
@@ -2241,6 +2266,122 @@ def main() -> int:
     if not ok31:
         failures.append("phase 31 replays past 64 bounces")
 
+    # ---- phase 32: the fused single dispatch against the launch loop ----
+    # tools/time_fused.py: one launch (or chunk) captured once as a CUDA
+    # graph and replayed once a launch, against fused=False, in turns
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    import time_fused as tf
+    from raytracing_tpu_torch.scene.types import TEX_CHECKER
+
+    rows32 = {}
+    s32, c32 = build("bouncing_spheres", device=dev, image_width=400, samples_per_pixel=100,
+                     max_depth=20)
+    kw32 = dict(hit_method="mega", max_rays_per_launch=1 << 18, transfer="u8",
+                phase_depths=[2, 2, 3, 4, c32.max_depth - 11])
+    p32 = rows32["bench_plan"] = tf.compare_plans(s32, c32, kw32)
+    n_launch = math.prod(Renderer(c32, **kw32)._grid())
+    ok = (p32["equal"] and p32["fused"]["prefixes"] == pref
+          and p32["loop"]["counts"]["K1"] == 5 * n_launch
+          and p32["fused"]["counts"]["K1"] == 5 * (n_launch + 1))  # + the warm-up launch
+    print(f"phase 32 bench plan fused against the loop: {'ok' if ok else 'FAIL'} "
+          f"{json.dumps(p32)} [{card}]")
+    ok32 = ok
+    r32 = rows32["bench_render"] = tf.compare_renders(s32, c32, dict(kw32, phase_prefixes=pref))
+    ok = (r32["equal"] and r32["f32_equal"] and r32["segments"] == PORT_BENCH_SEGMENTS
+          and r32["ok"] is True and r32["counts_fused"] == r32["counts_loop"] == only(K1=250))
+    print(f"phase 32 bench render fused against the loop: {'ok' if ok else 'FAIL'} "
+          f"{json.dumps(r32)} [{card}]")
+    ok32 &= ok
+    s64b, c64b = bouncing_spheres_64(dev)
+    r64 = rows32["bouncing_spheres_64_render"] = tf.compare_renders(
+        s64b, c64b, dict(max_rays_per_launch=1 << 18, transfer="u8",
+                         phase_depths=[2, 2, 3, 4, c64b.max_depth - 11]))
+    ok = (r64["equal"] and r64["f32_equal"]
+          and r64["counts_fused"] == r64["counts_loop"] == only(K5=5 * r64["launches"]))
+    print(f"phase 32 bouncing_spheres_64 render (K5) fused against the loop: "
+          f"{'ok' if ok else 'FAIL'} {json.dumps(r64)} [{card}]")
+    ok32 &= ok
+    del s64b, c64b
+
+    # the bench sweep (phase 6's planned setup), fused and unfused, each
+    # held to the sweep with a float64 fold (per row: phase 11's bar for the
+    # ray-bounces the gradient row gathers; whole: phase 5's relative L2)
+    sw = rows32["bench_sweep"] = tf.compare_sweeps(fbs)
+    hits = {}
+
+    def fold64(g, ids, L, prefixes=None):
+        h = hits.setdefault("rows", torch.zeros(L, dtype=torch.float64, device=dev))
+        for b, P in enumerate(tg._prefix_list(prefixes, *ids.shape)):
+            h.index_add_(0, ids[b, :P].clamp(0, L - 1).long(),
+                         torch.ones(P, dtype=torch.float64, device=dev))
+        return tg.fold_torch(g.double(), ids, L, prefixes).float()
+
+    real_fold = rk.fold
+    rk.fold = fold64
+    try:
+        _, gc64, gr64, seg64, _ = fbs["sweep"](fused=False)
+    finally:
+        rk.fold = real_fold
+    fused_g = fbs["sweep"](fused=True)
+    loop_g = fbs["sweep"](fused=False)
+    mats, texs = s32.materials, s32.textures
+    tid = mats.tex_id[s32.spheres.mat_id.long()].long()
+    chk = texs.ttype[tid] == TEX_CHECKER
+    n_sph = s32.n_spheres
+    row_hits = hits["rows"][:n_sph]
+    tex_hits = torch.zeros(texs.rgb.shape[0], dtype=torch.float64, device=dev)
+    for col in (0, 1):  # the even and the odd texture columns of each row
+        tex_hits.index_add_(0, torch.where(chk, texs.child[tid, col].long(), tid), row_hits)
+
+    def grads_close(gc, gr):
+        rel = float((gr.double() - gr64.double()).norm() / gr64.double().norm())
+        rows_ok = bool(torch.all((gr.double() - gr64.double()).abs()
+                                 <= 1e-5 * gr64.double().abs() + 2e-6 * tex_hits[:, None]))
+        rows_ok &= bool(torch.all((gc.double() - gc64.double()).abs()
+                                  <= 1e-5 * gc64.double().abs() + 2e-6 * row_hits[:, None]))
+        return rel, rows_ok
+
+    rel_f, rows_f = grads_close(fused_g[1], fused_g[2])
+    rel_l, rows_l = grads_close(loop_g[1], loop_g[2])
+    sw.update(grad_rgb_rel_l2_vs_float64_fused=rel_f, grad_rgb_rel_l2_vs_float64_loop=rel_l,
+              rows_within_bar_fused=rows_f, rows_within_bar_loop=rows_l)
+    expect = only(K1=5 * fbs["n_chunks"], K2=fbs["n_chunks"], fold=fbs["n_chunks"])
+    ok = (sw["loss"] == sw["loss_loop"] and sw["segments"] == sw["segments_loop"]
+          == PORT_BENCH_SEGMENTS == int(seg64) and sw["ok"] and sw["ok_loop"]
+          and sw["counts_fused"] == sw["counts_loop"] == expect
+          and rel_f < 1e-4 and rel_l < 1e-4 and rows_f and rows_l
+          and sw["grad_rgb_rel_l2"] < 1e-4)
+    print(f"phase 32 bench fwd+bwd sweep fused against unfused: {'ok' if ok else 'FAIL'} "
+          f"{json.dumps(sw)} [{card}]")
+    ok32 &= ok
+    del fused_g, loop_g, gc64, gr64
+
+    # BASELINE config 5: the default Renderer fused and looped (phase 28
+    # rendered it fused), then phase 28's planned sweep fused and unfused
+    c5 = acceptance.CONFIGS[5]
+    s5r, c5r = build(c5["scene"], device=dev, image_width=c5["width"],
+                     samples_per_pixel=c5["spp"], max_depth=c5["depth"])
+    torch.cuda.empty_cache()
+    r5 = rows32["config5_render"] = tf.compare_renders(s5r, c5r, {}, reps=1)
+    ok = (r5["equal"] and r5["segments"] == accept_rows[5]["segments"]
+          and r5["counts_fused"] == r5["counts_loop"] == only(K1=r5["counts_loop"]["K1"]))
+    print(f"phase 32 config 5 render fused against the loop: {'ok' if ok else 'FAIL'} "
+          f"{json.dumps(r5)} [{card}]")
+    ok32 &= ok
+    del s5r, c5r
+    torch.cuda.empty_cache()
+    sw5 = rows32["config5_sweep"] = tf.compare_sweeps(fb5, reps=1)
+    ok = (sw5["loss"] == sw5["loss_loop"] and sw5["segments"] == sw5["segments_loop"]
+          == int(seg5) and sw5["ok"] and sw5["ok_loop"] and sw5["grad_rgb_rel_l2"] < 1e-4
+          and sw5["counts_fused"] == sw5["counts_loop"])
+    print(f"phase 32 config 5 fwd+bwd sweep fused against unfused: {'ok' if ok else 'FAIL'} "
+          f"{json.dumps(sw5)} [{card}]")
+    ok32 &= ok
+    del fb5
+    torch.cuda.empty_cache()
+    if not ok32:
+        failures.append("phase 32 fused single dispatch")
+
     print(f"card: {card}")  # again near the end, inside a tail of the output
     print(json.dumps({"kernels": [
         {"name": "K1 megakernel_block (BVH walk; the guarded sweep below CULL_MIN_PRIMS)",
@@ -2256,6 +2397,8 @@ def main() -> int:
          "launches_acceptance_config5_plan": plan5_counts["K1"],
          "launches_acceptance_config5_sweep": sweep5_counts["K1"],
          "launches_cpp_compare": cpp_counts,
+         "launches_fused_bench_render": rows32["bench_render"]["counts_fused"]["K1"],
+         "launches_fused_bench_sweep": rows32["bench_sweep"]["counts_fused"]["K1"],
          "launches_sharded_per_rank": {k: v["K1_per_rank"] for k, v in rows30.items()},
          "max_abs_err": stats["max_abs_err"], "ms": ms, "ms_sweep": ms_sweep,
          "plain_ms": plain_ms, "bound_ms": k1_walk_bound[0], "bound_by": k1_walk_bound[1],
@@ -2282,6 +2425,7 @@ def main() -> int:
          "max_abs_err": k2_err, "tbar_rel_l2": rel2, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None,
          "launches_depth100_sweep": sweeps31[100]["launches"]["K2"],
+         "launches_fused_bench_sweep": rows32["bench_sweep"]["counts_fused"]["K2"],
          "ms_by_depth": {d: v["ms"] for d, v in k2_depth.items()},
          "bound_ms_by_depth": {d: v["bound_ms"] for d, v in k2_depth.items()},
          "bit_equal_by_depth": {d: v["bit_equal"] for d, v in k2_depth.items()}},
@@ -2290,6 +2434,7 @@ def main() -> int:
          "replaces": "raytracing_tpu/ops/megakernel.py:285",
          "launches_phases_28_30": new_paths["K5"],
          "launches": k5_counts["K5"], "path": "bouncing_spheres_64 render (phase 10)",
+         "launches_fused_render": rows32["bouncing_spheres_64_render"]["counts_fused"]["K5"],
          **k5_entry, "library_ms": None,
          **{f"{k}_full_width": v["k5"] for k, v in tex_rows.items()}},
         {"name": "K4 table_gather", "route": "cuda",
@@ -2313,6 +2458,7 @@ def main() -> int:
                                                  "bound_ms")},
          "reduction_ms": red_ms, "reduction_bound_ms": red_bound[0],
          "launches_depth100_sweep": sweeps31[100]["launches"]["fold"],
+         "launches_fused_bench_sweep": rows32["bench_sweep"]["counts_fused"]["fold"],
          "windows_depth100": sweeps31[100]["fold_windows"],
          "reduction_ms_by_depth": {d: v["fold_ms"] for d, v in k2_depth.items()}},
     ]}))

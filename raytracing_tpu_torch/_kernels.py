@@ -19,6 +19,8 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -37,6 +39,40 @@ class Kernels:
 
 
 _loaded: Kernels | None = None
+
+
+class LaunchCount:
+    """A kernel wrapper's launches, counted on the device that runs them.
+
+    :meth:`add` adds one to a 0-d int64 counter on the launch's device, on
+    the stream the kernel was launched on, right beside the launch: an
+    eager launch adds one when it runs, and a launch captured into a CUDA
+    graph adds one on every replay of the graph (the capture itself runs
+    nothing, so it adds nothing). ``int()`` reads the total (a host sync);
+    :meth:`reset` zeroes every counter in place, so graphs captured before
+    go on adding to it."""
+
+    def __init__(self):
+        self._counts: dict[torch.device, torch.Tensor] = {}
+
+    def add(self, dev: torch.device) -> None:
+        count = self._counts.get(dev)
+        if count is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("a kernel's first launch on a device is under CUDA graph "
+                                   "capture: launch it once eagerly (a warm-up) first")
+            count = self._counts[dev] = torch.zeros((), dtype=torch.int64, device=dev)
+        count.add_(1)
+
+    def reset(self) -> None:
+        for count in self._counts.values():
+            count.zero_()
+
+    def __int__(self) -> int:
+        return sum(int(count) for count in self._counts.values())
+
+    def __repr__(self) -> str:
+        return f"LaunchCount({int(self)})"
 
 
 def _nvcc() -> str:

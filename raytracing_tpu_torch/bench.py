@@ -33,14 +33,10 @@ from .diff.replay_kernel import TILE, plan_prefixes, replay_grads_sorted
 from .models.scenes import build
 from .ops.megakernel import BLOCK, build_mega_scene, trace_megakernel
 from .render import camera as cam_mod
-from .render.renderer import Renderer
+from .render import graphs
+from .render.renderer import Renderer, rays_past
 
 BASELINE_RAYS_PER_S = 5e8
-
-
-def _sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def bench_forward(width=400, spp=100, max_depth=20, seed=7, device=DEFAULT_DEVICE, reps=3):
@@ -73,12 +69,23 @@ def _fwd_bwd_setup(width=400, spp=100, max_depth=20, seed=7, spp_chunk=4, phases
     ``build_replay_table`` to sphere centers and texture rgbs.
 
     Returns a dict: ``grads_chunk(center, rgb, sample0) -> (loss, g_center,
-    g_rgb, ok, segments)``, ``plan()`` (the untimed planning sweep that
+    g_rgb, ok, segments)`` (``sample0`` an int or a 0-d int64 tensor on
+    the device), ``plan(fused=True)`` (the untimed planning sweep that
     installs the per-bounce prefixes and the decision pass's phase
-    prefixes into ``ns``), ``sweep()`` (every chunk, summed: ``(loss,
-    g_center, g_rgb, segments, ok)``), ``args``, ``n_chunks``,
-    ``spp_chunk``, ``B``, ``ns`` and ``device``. ``cull`` forces K1's
-    search in the decision pass (``trace_megakernel``)."""
+    prefixes into ``ns``), ``sweep(fused=True)`` (every chunk, summed:
+    ``(loss, g_center, g_rgb, segments, ok)``), ``args``, ``n_chunks``,
+    ``spp_chunk``, ``B``, ``ns``, ``device`` and ``programs``. ``cull``
+    forces K1's search in the decision pass (``trace_megakernel``).
+
+    ``fused``, as in the JAX bench: the sweep (or the plan) is one chunk
+    program (``render/graphs.py``) replayed once a chunk, a CUDA graph on
+    a card, the chunk's first sample read from a device counter and its
+    results added into static accumulators; ``fused=False`` issues every
+    chunk from Python. Both give the same loss, segments and ``ok`` and,
+    on the CPU, the same gradients bit for bit (on a card the fold adds
+    in a run-dependent order). ``programs`` keeps the last program (its
+    graph and ``capture_seconds``); a sweep after a new plan captures
+    anew."""
     dev = resolve(device)
     scene, cfg = build("bouncing_spheres", device=dev, image_width=width,
                        samples_per_pixel=spp, max_depth=max_depth)
@@ -124,14 +131,24 @@ def _fwd_bwd_setup(width=400, spp=100, max_depth=20, seed=7, spp_chunk=4, phases
         ok = ok[0] if ok else torch.ones((), dtype=torch.bool, device=dev)
         return rad, bundle, cnt, ok, (o, d, t, smp)
 
-    def plan():
+    programs = graphs.ProgramSlot()
+
+    def over_chunks(kind, make_state, step, fused):
+        """``step(c, state)`` for every chunk ``c``: a loop, or with
+        ``fused`` the replayed program of ``kind`` for the installed
+        prefixes (``graphs.over_chunks``). Returns the state."""
+        key = (kind, ns["prefixes"], ns["decide_prefixes"])
+        return graphs.over_chunks(programs, key, make_state, step, 0, n_chunks, dev, fused)[0]
+
+    def plan_step(c, st):
+        cnt = decide(c * spp_chunk)[2]
+        torch.maximum(st["nb_max"], rays_past(cnt, max_depth), out=st["nb_max"])
+
+    def plan(fused=True):
         """The untimed planning sweep: per-bounce live-ray maxima over the
         chunks (bounce b touches the rays with recorded length > b)."""
-        nb_max = torch.zeros(max_depth + 1, dtype=torch.int64, device=dev)
-        for c in range(n_chunks):
-            cnt = decide(c * spp_chunk)[2]
-            hist = torch.bincount(torch.clamp(cnt, 0, max_depth).long(), minlength=max_depth + 1)
-            nb_max = torch.maximum(nb_max, torch.flip(torch.cumsum(torch.flip(hist, [0]), 0), [0]))
+        nb_max = over_chunks("plan", lambda: dict(nb_max=torch.zeros(
+            max_depth + 1, dtype=torch.int64, device=dev)), plan_step, fused)["nb_max"]
         nb = nb_max.cpu().tolist()
         # the length histogram whose suffix sums are those maxima
         hist = [nb[k] - (nb[k + 1] if k < max_depth else 0) for k in range(max_depth + 1)]
@@ -178,53 +195,62 @@ def _fwd_bwd_setup(width=400, spp=100, max_depth=20, seed=7, spp_chunk=4, phases
 
     args = (scene.spheres.center, scene.textures.rgb)
 
-    def sweep():
-        lo = torch.zeros((), dtype=torch.float32, device=dev)
-        gc, gr = torch.zeros_like(args[0]), torch.zeros_like(args[1])
-        segs = torch.zeros((), dtype=torch.int64, device=dev)
-        ok = torch.ones((), dtype=torch.bool, device=dev)
-        for c in range(n_chunks):
-            loss, g1, g2, ok_c, seg = grads_chunk(*args, c * spp_chunk)
-            lo, gc, gr, segs, ok = lo + loss, gc + g1, gr + g2, segs + seg, ok & ok_c
-        return lo, gc, gr, segs, ok
+    def sums():
+        return dict(loss=torch.zeros((), dtype=torch.float32, device=dev),
+                    gc=torch.zeros_like(args[0]), gr=torch.zeros_like(args[1]),
+                    segs=torch.zeros((), dtype=torch.int64, device=dev),
+                    ok=torch.ones((), dtype=torch.bool, device=dev))
+
+    def sweep_step(c, st):
+        loss, g1, g2, ok_c, seg = grads_chunk(*args, c * spp_chunk)
+        st["loss"].add_(loss)
+        st["gc"].add_(g1)
+        st["gr"].add_(g2)
+        st["segs"].add_(seg)
+        st["ok"].logical_and_(ok_c)
+
+    def sweep(fused=True):
+        st = over_chunks("sweep", sums, sweep_step, fused)
+        return tuple(st[k].clone() for k in ("loss", "gc", "gr", "segs", "ok"))
 
     return dict(grads_chunk=grads_chunk, plan=plan, sweep=sweep, args=args, n_chunks=n_chunks,
-                spp_chunk=spp_chunk, B=B, ns=ns, device=dev)
+                spp_chunk=spp_chunk, B=B, ns=ns, device=dev, programs=programs)
 
 
 def bench_fwd_bwd(width=400, spp=100, max_depth=20, seed=7, spp_chunk=4, phases="default",
-                  device=DEFAULT_DEVICE, reps=3):
+                  device=DEFAULT_DEVICE, reps=3, fused=True):
     """Forward+backward throughput: the planning sweep (untimed), one
-    warm-up sweep, then :func:`time_fwd_bwd` over ``reps`` sweeps."""
+    warm-up sweep, then :func:`time_fwd_bwd` over ``reps`` sweeps, each
+    one replayed chunk program with ``fused`` (the JAX bench's single
+    dispatch), else a chunk loop."""
     s = _fwd_bwd_setup(width=width, spp=spp, max_depth=max_depth, seed=seed,
                        spp_chunk=spp_chunk, phases=phases, device=device)
-    s["plan"]()
-    s["sweep"]()
-    return time_fwd_bwd(s, reps)
+    s["plan"](fused=fused)
+    s["sweep"](fused=fused)
+    return dict(time_fwd_bwd(s, reps, fused=fused), fused=fused)
 
 
-def time_fwd_bwd(s, reps=3):
+def time_fwd_bwd(s, reps=3, fused=True):
     """The best of ``reps`` timed sweeps of a planned ``_fwd_bwd_setup``
-    over every chunk: loss value and gradients with respect to sphere
-    centers and texture rgbs. Each timed sweep must keep its plan
+    over every chunk (``sweep(fused=fused)``): loss value and gradients
+    with respect to sphere centers and texture rgbs, read to the host in
+    one copy inside the timed region. Each timed sweep must keep its plan
     (``ok``), else this raises: the gradients would be incomplete.
     Segments are the decision pass's exact count, each counted once.
     Returns ``seconds``, ``segments``, ``rays_per_s``, ``loss``,
     ``grads_finite`` and the best sweep's ``grad_center`` and
-    ``grad_rgb``."""
-    dev = s["device"]
+    ``grad_rgb`` (host tensors)."""
     best = None
     for _ in range(reps):
         t0 = time.perf_counter()
-        lo, gc, gr, segs, ok = s["sweep"]()
-        _sync(dev)
-        ok, segments = bool(ok), int(segs)
+        lo, gc, gr, segs, ok = graphs.to_host(*s["sweep"](fused=fused))
         dt = time.perf_counter() - t0
         if not ok:
             raise RuntimeError("replay prefix plan violated: gradients incomplete")
         if best is None or dt < best[0]:
-            best = (dt, float(lo), gc, gr)
-    dt, loss, gc, gr = best
+            best = (dt, float(lo), int(segs), gc, gr)
+    dt, loss, segments, gc, gr = best
+    gc, gr = torch.from_numpy(gc), torch.from_numpy(gr)
     return dict(seconds=dt, segments=segments, rays_per_s=segments / dt, loss=loss,
                 grads_finite=bool(torch.isfinite(gc).all() and torch.isfinite(gr).all()),
                 grad_center=gc, grad_rgb=gr)

@@ -74,14 +74,23 @@ def to_unit_float(u: torch.Tensor) -> torch.Tensor:
     return (u >> 8).to(torch.float32) * _INV_2_24
 
 
+def _lanes(x, uid: torch.Tensor) -> torch.Tensor:
+    """``x`` (a tensor or a Python int) as int64 lanes of ``uid``'s shape.
+    An int is filled on the device rather than copied from the host, so
+    ray generation can run inside a captured CUDA graph."""
+    if isinstance(x, torch.Tensor):
+        x = x.to(device=uid.device, dtype=torch.int64)
+    else:
+        x = torch.full((), int(x), dtype=torch.int64, device=uid.device)
+    return x.expand(uid.shape)
+
+
 def uniform4(uid: torch.Tensor, sample: torch.Tensor, ctr, seed) -> torch.Tensor:
     """Four independent U[0,1) floats per element; shape ``uid.shape + (4,)``.
 
     ``uid``: per-ray id (pixel index). ``sample``: sample index. ``ctr``:
     bounce * N_STREAMS + stream (tensor or int). ``seed``: render seed."""
-    ctr = torch.as_tensor(ctr, dtype=torch.int64, device=uid.device).expand(uid.shape)
-    seed = torch.as_tensor(seed, dtype=torch.int64, device=uid.device).expand(uid.shape)
-    v = pcg4d(uid, sample, ctr, seed)
+    v = pcg4d(uid, sample, _lanes(ctr, uid), _lanes(seed, uid))
     return torch.stack([to_unit_float(x) for x in v], dim=-1)
 
 

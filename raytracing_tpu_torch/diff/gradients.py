@@ -52,7 +52,7 @@ def render_once(scene: Scene, cfg: CameraConfig, params: Optional[CameraParams] 
     radiance, segments = trace(scene, o, d, t, pixel_ids, sample_ids, cfg.background,
                                cfg.max_depth, seed, hit_fn=hit_fn, mode="scan", remat=remat)
     img = radiance.reshape(spp, n_pix, 3).mean(0).reshape(cfg.image_height, cfg.image_width, 3)
-    return (img, segments) if return_segments else img
+    return (img, int(segments)) if return_segments else img
 
 
 def mse_loss(scene: Scene, target: torch.Tensor, cfg: CameraConfig,

@@ -44,6 +44,7 @@ import math
 import numpy as np
 import torch
 
+from .. import _kernels
 from ..core import rng as rng_mod
 from ..core.vecmath import NEAR_ZERO_EPS
 from ..ops.intersect import PARALLEL_EPS, T_MIN
@@ -83,8 +84,24 @@ _TABLE_GRAD_COLS = (
 _TCOLS = [tc for tc, _ in _TABLE_GRAD_COLS]
 _GSLOTS = [gs for _, gs in _TABLE_GRAD_COLS]
 
-fwd_launches = 0  # K3 kernel launches in this process (plain-version calls excluded)
-bwd_launches = 0  # K2 kernel launches in this process (plain-version calls excluded)
+
+def _copy_runs(pairs):
+    """``(table column, gradient slot, n)`` runs of consecutive pairs: the
+    map as slices, so copying it needs no index tensor on the device (a
+    list index is copied from the host, which a captured graph cannot)."""
+    runs = []
+    for tc, gs in pairs:
+        if runs and runs[-1][0] + runs[-1][2] == tc and runs[-1][1] + runs[-1][2] == gs:
+            runs[-1][2] += 1
+        else:
+            runs.append([tc, gs, 1])
+    return tuple(tuple(r) for r in runs)
+
+
+_COPY_RUNS = _copy_runs(_TABLE_GRAD_COLS)
+
+fwd_launches = _kernels.LaunchCount()  # K3 kernel launches (plain-version calls excluded)
+bwd_launches = _kernels.LaunchCount()  # K2 kernel launches (plain-version calls excluded)
 
 
 def plan_prefixes(length_hist, B, max_depth, margin=1.15):
@@ -164,14 +181,11 @@ def replay_fwd(table, ids, ray_f, ray_i, maxlen, *, seed: int, n_sph: int,
     if dev.type == "cpu":
         return replay_fwd_torch(table, ids, ray_f, ray_i, maxlen, seed=seed, n_sph=n_sph,
                                 has_moving=has_moving, background=background)
-    from .. import _kernels
-
     lib = _kernels.library().lib
     rad = torch.empty((3, n), dtype=torch.float32, device=dev)
     bc = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return rad, bc
-    global fwd_launches
     with torch.cuda.device(dev):
         nxt = torch.zeros((1,), dtype=torch.int32, device=dev)  # the lanes' ray counter
         err = lib.rt_replay_fwd(
@@ -179,7 +193,7 @@ def replay_fwd(table, ids, ray_f, ray_i, maxlen, *, seed: int, n_sph: int,
             maxlen.data_ptr(), n, D, n_sph, int(has_moving), ctypes.c_uint32(seed),
             *(float(x) for x in background), rad.data_ptr(), bc.data_ptr(), nxt.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
-    fwd_launches += 1
+    fwd_launches.add(dev)
     if err != 0:
         raise RuntimeError(f"K3 launch failed: {lib.rt_error_string(err).decode()}")
     return rad, bc
@@ -203,8 +217,6 @@ def replay_fwd_probe(table, ids, ray_f, ray_i, maxlen, *, seed: int, n_sph: int,
     n, D, dev = _check(table, ids, ray_f, ray_i, maxlen)
     if dev.type != "cuda" or design not in K3_DESIGNS:
         raise ValueError(f"K3's probe runs on CUDA tensors in a design of {K3_DESIGNS}")
-    from .. import _kernels
-
     lib = _kernels.library().lib
     rad = torch.empty((3, n), dtype=torch.float32, device=dev)
     bc = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -236,20 +248,17 @@ def replay_bwd(table, ids, ray_f, ray_i, rad_bar, maxlen, *, seed: int, n_sph: i
     if dev.type == "cpu":
         return replay_bwd_torch(table, ids, ray_f, ray_i, rad_bar, maxlen, seed=seed,
                                 n_sph=n_sph, has_moving=has_moving, background=background)
-    from .. import _kernels
-
     lib = _kernels.library().lib
     g = torch.empty((D, NG, n), dtype=torch.float32, device=dev)
     if n == 0:
         return g
-    global bwd_launches
     with torch.cuda.device(dev):
         err = lib.rt_replay_bwd(
             table.data_ptr(), ids.data_ptr(), ray_f.data_ptr(), ray_i.data_ptr(),
             maxlen.data_ptr(), rad_bar.data_ptr(), n, D, n_sph, int(has_moving),
             ctypes.c_uint32(seed), *(float(x) for x in background), g.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
-    bwd_launches += 1
+    bwd_launches.add(dev)
     if err != 0:
         raise RuntimeError(f"K2 launch failed: {lib.rt_error_string(err).decode()}")
     return g
@@ -474,7 +483,8 @@ def reduce_table_grads(g, ids, L: int, prefixes=None):
     order, so two runs agree to f32 reassociation, not bit for bit."""
     acc = fold(g, ids.to(torch.int32), L, prefixes)
     tbar = torch.zeros((L, rf.N_FIELDS), dtype=torch.float32, device=g.device)
-    tbar[:, _TCOLS] = acc[:, _GSLOTS]
+    for tc, gs, n in _COPY_RUNS:
+        tbar[:, tc:tc + n] = acc[:, gs:gs + n]
     return tbar
 
 

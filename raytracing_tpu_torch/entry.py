@@ -264,10 +264,11 @@ def card_modes(device, spec: dict) -> dict:
                            samples_per_pixel=c["spp"], max_depth=c["depth"])
         render_sharded(scene, cfg, mesh, seed=c.get("seed", 7), hit_method=c["hit"])
         barrier(mesh)
-        mb.launches = mg.launches = 0
+        mb.launches.reset()
+        mg.launches.reset()
         t0 = time.perf_counter()
         img, segs = render_sharded(scene, cfg, mesh, seed=c.get("seed", 7), hit_method=c["hit"])
         wall = time.perf_counter() - t0
-        out[name] = dict(img=img, segments=segs, seconds=wall, K1=mb.launches, K5=mg.launches,
-                         rank=mesh.rank)
+        out[name] = dict(img=img, segments=segs, seconds=wall, K1=int(mb.launches),
+                         K5=int(mg.launches), rank=mesh.rank)
     return out

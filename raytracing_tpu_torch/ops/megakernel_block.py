@@ -46,6 +46,7 @@ import math
 
 import torch
 
+from .. import _kernels
 from ..core import rng as rng_mod
 from ..core.vecmath import NEAR_ZERO_EPS
 from ..scene import flatten as fl
@@ -74,7 +75,7 @@ CULL_MIN_PRIMS = 64
 # primitives per vectorized step of the plain version's sweep
 PLAIN_CHUNK = 128
 
-launches = 0  # K1 kernel launches in this process (plain-version calls excluded)
+launches = _kernels.LaunchCount()  # K1 kernel launches (plain-version calls excluded)
 
 
 def _sweep_rows(mega):
@@ -145,8 +146,6 @@ def trace_block(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
     if n >= 2 ** 31 // N_F:
         raise ValueError(f"K1 launch of {n} rays exceeds its 32-bit indexing")
 
-    from .. import _kernels
-
     lib = _kernels.library().lib
     rad = torch.empty((3, n), dtype=torch.float32, device=dev)
     bounces = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -155,7 +154,6 @@ def trace_block(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
     out = (rad, bounces, state, ids) if want_ids else (rad, bounces, state)
     if n == 0:
         return out
-    global launches
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rt_trace_block(
@@ -173,7 +171,7 @@ def trace_block(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
             depth_cap if depth_cap is not None else 0,
             mega.cull_nodes.data_ptr(), mega.cull_nodes.shape[0], mega.sph_gid.data_ptr(),
             mega.n_sph_chunks, mega.quad_gid.data_ptr(), *mega.cull_ball, int(walk), stream)
-    launches += 1
+    launches.add(dev)
     if err != 0:
         raise RuntimeError(f"K1 launch failed: {lib.rt_error_string(err).decode()}")
     return out

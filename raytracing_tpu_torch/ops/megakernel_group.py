@@ -48,6 +48,7 @@ import ctypes
 
 import torch
 
+from .. import _kernels
 from ..scene import flatten as fl
 from . import megakernel_block as mb
 from .intersect import PARALLEL_EPS, T_MIN, sqrt_rn
@@ -59,7 +60,7 @@ NO_GID = 2 ** 31 - 1  # above every unified column: loses every gid tie
 # multiple of 8: see _sweep)
 PLAIN_CHUNK = 128
 
-launches = 0  # K5 kernel launches in this process (plain-version calls excluded)
+launches = _kernels.LaunchCount()  # K5 kernel launches (plain-version calls excluded)
 # the probe's designs (csrc/megakernel_group.cu rt_trace_group_probe): the
 # baseline (one loop, the root of max(disc, 0)) and K5's (the guarded root
 # and the node/leaf loop split, what trace_group runs)
@@ -102,15 +103,12 @@ def trace_group(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int, b_off
     if n >= 2 ** 31 // mb.N_F or mega.table.numel() >= 2 ** 31:
         raise ValueError(f"K5 launch of {n} rays exceeds its 32-bit indexing")
 
-    from .. import _kernels
-
     lib = _kernels.library().lib
     rad = torch.empty((3, n), dtype=torch.float32, device=dev)
     bounces = torch.empty((n,), dtype=torch.int32, device=dev)
     state = torch.empty((mb.N_F, n), dtype=torch.float32, device=dev) if want_state else None
     if n == 0:
         return rad, bounces, state
-    global launches
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rt_trace_group(
@@ -118,7 +116,7 @@ def trace_group(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int, b_off
                          background),
             int(bool(use_bvh)), int(mega.has_noise), int(mega.has_image),
             mega.perm.data_ptr(), mega.grad.data_ptr(), mega.atlas.data_ptr(), stream)
-    launches += 1
+    launches.add(dev)
     if err != 0:
         raise RuntimeError(f"K5 launch failed: {lib.rt_error_string(err).decode()}")
     return rad, bounces, state
@@ -155,8 +153,6 @@ def trace_group_probe(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
         raise ValueError("the K5 probe takes scenes without marble or image textures")
     if not all(t.is_contiguous() for t in (ray_f, ray_i, *tables)):
         raise ValueError("K5 needs contiguous tensors")
-    from .. import _kernels
-
     lib = _kernels.library().lib
     n = ray_f.shape[1]
     rad = torch.empty((3, n), dtype=torch.float32, device=dev)

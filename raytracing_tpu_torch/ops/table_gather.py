@@ -29,8 +29,10 @@ import ctypes
 
 import torch
 
-launches = 0       # K4 kernel launches in this process (plain-version calls excluded)
-fold_launches = 0  # fold kernel launches in this process (plain-version calls excluded)
+from .. import _kernels
+
+launches = _kernels.LaunchCount()       # K4 kernel launches (plain-version calls excluded)
+fold_launches = _kernels.LaunchCount()  # fold kernel launches (plain-version calls excluded)
 FOLD_MAX_D = 64    # bounces of one fold launch, a window (csrc/table_gather.cu FOLD_MAX_D)
 FOLD_MAX_F = 32    # fields a folded row may have
 
@@ -65,14 +67,11 @@ def gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     out = torch.empty((F, B), dtype=torch.float32, device=dev)
     if B == 0:
         return out
-    from .. import _kernels
-
     lib = _kernels.library().lib
-    global launches
     with torch.cuda.device(dev):
         err = lib.rt_table_gather(table.data_ptr(), ids.data_ptr(), L, F, B, out.data_ptr(),
                                   torch.cuda.current_stream(dev).cuda_stream)
-    launches += 1
+    launches.add(dev)
     if err != 0:
         raise RuntimeError(f"K4 launch failed: {lib.rt_error_string(err).decode()}")
     return out
@@ -143,17 +142,14 @@ def fold(g: torch.Tensor, ids: torch.Tensor, L: int, prefixes=None) -> torch.Ten
     windows = fold_windows(D, _prefix_list(prefixes, D, n))
     if F == 0 or not windows:
         return out[:, :F]
-    from .. import _kernels
-
     lib = _kernels.library().lib
-    global fold_launches
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for w0, P in windows:
             dw = len(P)
             err = lib.rt_table_fold(g[w0:w0 + dw].data_ptr(), ids[w0:w0 + dw].data_ptr(),
                                     (ctypes.c_int * dw)(*P), L, F, n, dw, out.data_ptr(), stream)
-            fold_launches += 1
+            fold_launches.add(dev)
             if err != 0:
                 raise RuntimeError(f"fold launch failed: {lib.rt_error_string(err).decode()}")
     return out[:, :F]

@@ -225,7 +225,6 @@ def _rank_render(scene: Scene, params: CameraParams, seed: int, lo: int, hi: int
             rad, seg = trace(scene, o, d, t, pix, samp, cfg.background, cfg.max_depth, seed,
                              hit_fn=hit_fn, mode="scan", remat=False, active0=active0,
                              grad_psum=grad_psum)
-            seg = torch.tensor(seg, dtype=torch.int64, device=dev)
         rad = torch.where(active0[:, None], rad, 0.0)
         part = part + rad.reshape(k, p_local, 3).sum(dim=0)
         segments = segments + seg

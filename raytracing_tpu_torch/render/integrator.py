@@ -161,9 +161,10 @@ def trace(scene: Scene, o: torch.Tensor, d: torch.Tensor, time: torch.Tensor,
     """Trace a batch of rays (o, d (B, 3), time (B,), pixel and sample ids
     (B,) i32 as the RNG identity) to completion.
 
-    Returns ``(radiance (B, 3), segments)``, ``segments`` a Python int: the
-    ray-scene queries actually traced. Rays still alive after
-    ``max_depth`` bounces add nothing more.
+    Returns ``(radiance (B, 3), segments)``, ``segments`` a 0-d int64
+    tensor on the rays' device (as ``trace_megakernel``'s, so a captured
+    CUDA graph can run the trace): the ray-scene queries actually traced.
+    Rays still alive after ``max_depth`` bounces add nothing more.
 
     ``grad_psum``: when autograd records and some scene tensor requires
     grad, each bounce runs as one :class:`_OverlappedBounce` whose
@@ -190,4 +191,4 @@ def trace(scene: Scene, o: torch.Tensor, d: torch.Tensor, time: torch.Tensor,
         state = run_bounce(
             lambda st, b=bounce: _bounce_once(scene, background, seed, hit_fn, st, b),
             state, remat and mode == "scan")
-    return state[5], int(state[8])
+    return state[5], state[8]

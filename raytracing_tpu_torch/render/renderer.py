@@ -19,12 +19,18 @@ The megakernel schedules:
 
 * ``schedule="phased"``: launches of (pixel block × sample chunk) rays
   through the phased megakernel trace, accumulated into the image. The
-  JAX package fuses every launch into one jitted loop; here the launches
-  are a Python loop that never waits on the device until the image is
-  copied to the host at the end, unless ``checkpoint_cb`` asks for the
-  state after every sample chunk (``render(resume_state=)`` picks a
-  render up from such a state, bit for bit). The integrator's methods
-  render in these launches too.
+  integrator's methods render in these launches too. With ``fused=True``
+  (the default, as in the JAX package) one launch's ops are captured once
+  as a CUDA graph (``render/graphs.py``), keyed on (scene, seed, device),
+  and replayed once a launch, the launch's offsets read from a device
+  counter; the image, segments and ``ok`` cross to the host in one copy
+  at the end. ``fused=False``, ``progress``, ``checkpoint_cb`` and
+  ``hit_method="bvh"`` (whose walk reads the device every few
+  iterations) take the launch loop instead: a Python loop that never
+  waits on the device until the image is copied to the host at the end,
+  unless ``checkpoint_cb`` asks for the state after every sample chunk.
+  ``render(resume_state=)`` picks a render up from such a state, bit for
+  bit, fused or not.
 * ``schedule="pool"``: the regenerating pool (``render/pool.py``), one
   persistent wavefront for the whole render, split into sample windows
   only where the (pixel, sample) stream passes ``MAX_POOL_STREAM``. It has
@@ -33,6 +39,7 @@ The megakernel schedules:
 """
 from __future__ import annotations
 
+import math
 import time as _time
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -46,6 +53,7 @@ from ..ops.traverse import closest_hit_bvh
 from ..ops.megakernel import build_mega_scene, expressible, select_layout, trace_megakernel
 from ..scene.types import Scene
 from . import camera as cam_mod
+from . import graphs
 from . import integrator
 from . import pool as pool_mod
 from .camera import CameraConfig, CameraParams
@@ -89,13 +97,14 @@ def launch_shape(cfg: CameraConfig, max_rays_per_launch: int = MAX_RAYS_PER_LAUN
     return n_block, max(1, min(cfg.samples_per_pixel, max_rays_per_launch // n_block))
 
 
-def chunk_rays(cfg: CameraConfig, derived, pixel_start: int, sample_start: int,
+def chunk_rays(cfg: CameraConfig, derived, pixel_start, sample_start,
                seed: int, *, n_block: int, spp_chunk: int, has_moving: bool, device):
     """Camera rays of one launch: n_block contiguous pixels × spp_chunk
     samples, laid out sample-major. Returns (o, d, time, pixel_ids,
     sample_ids, valid, alive): ``valid`` marks samples below spp,
     ``alive`` the rays that start alive (padded samples and the clamped
-    duplicates of the last pixel start dead)."""
+    duplicates of the last pixel start dead). The starts are ints or 0-d
+    int64 tensors on ``device`` (a replayed launch), with the same ids."""
     pix_raw = pixel_start + torch.arange(n_block, device=device)
     pix = torch.clamp(pix_raw, max=cfg.n_pixels - 1)
     pixel_ids = pix.repeat(spp_chunk)
@@ -107,8 +116,8 @@ def chunk_rays(cfg: CameraConfig, derived, pixel_start: int, sample_start: int,
     return o, d, t, pixel_ids, sample_ids, valid, alive
 
 
-def _render_chunk(mega, cfg: CameraConfig, derived, pixel_start: int,
-                  sample_start: int, seed: int, *, n_block: int, spp_chunk: int,
+def _render_chunk(mega, cfg: CameraConfig, derived, pixel_start, sample_start,
+                  seed: int, *, n_block: int, spp_chunk: int,
                   has_moving: bool, phases, phase_prefixes=None,
                   want_counts: bool = False, cull=None):
     """One launch. Returns (radiance summed over the chunk's samples
@@ -127,21 +136,31 @@ def _render_chunk(mega, cfg: CameraConfig, derived, pixel_start: int,
     return rad, out[1], (out[2] if phase_prefixes is not None else None)
 
 
-def _integrator_chunk(scene: Scene, cfg: CameraConfig, derived, pixel_start: int,
-                      sample_start: int, seed: int, *, n_block: int, spp_chunk: int,
-                      hit_fn: Callable):
+def _integrator_chunk(scene: Scene, cfg: CameraConfig, derived, pixel_start,
+                      sample_start, seed: int, *, n_block: int, spp_chunk: int,
+                      hit_fn: Callable, background: torch.Tensor):
     """One launch through the wavefront integrator with the closest hit
     ``hit_fn``: (radiance summed over the chunk's samples (n_block, 3),
-    segments as a 0-d int64 tensor)."""
+    segments as a 0-d int64 tensor on the device). ``background``: the
+    config's as an f32 tensor on the device, so a replayed launch copies
+    nothing from the host."""
     o, d, t, pixel_ids, sample_ids, valid, alive = chunk_rays(
         cfg, derived, pixel_start, sample_start, seed, n_block=n_block,
         spp_chunk=spp_chunk, has_moving=scene.flags.has_moving,
         device=scene.spheres.radius.device)
     radiance, segments = integrator.trace(
-        scene, o, d, t, pixel_ids, sample_ids, cfg.background, cfg.max_depth, seed,
+        scene, o, d, t, pixel_ids, sample_ids, background, cfg.max_depth, seed,
         hit_fn=hit_fn, mode="scan", remat=False, active0=alive)
     radiance = torch.where(valid[:, None], radiance, 0.0)
-    return radiance.reshape(spp_chunk, n_block, 3).sum(dim=0), torch.tensor(segments)
+    return radiance.reshape(spp_chunk, n_block, 3).sum(dim=0), segments
+
+
+def rays_past(counts: torch.Tensor, max_depth: int) -> torch.Tensor:
+    """``(max_depth + 1,)`` int64: how many rays traced at least k
+    bounces (per-ray ``counts``, clamped to ``max_depth``), for every k.
+    No host read (``graphs.histogram``)."""
+    hist = graphs.histogram(torch.clamp(counts, 0, max_depth), max_depth + 1)
+    return torch.flip(torch.cumsum(torch.flip(hist, [0]), 0), [0])
 
 
 class Renderer:
@@ -154,12 +173,18 @@ class Renderer:
     the stream's length. Schedules, phase prefixes and ``cull`` belong to
     the megakernel: the integrator renders in phased launches without
     them. ``cull`` forces K1's search in every launch (None: by the scene,
-    ``ops.megakernel_block.walks``); it changes speed, never a result."""
+    ``ops.megakernel_block.walks``); it changes speed, never a result.
+
+    ``fused`` (default True) renders and plans the phased schedule as one
+    launch program replayed once a launch (a CUDA graph on a card; see the
+    module note for what takes the loop). The renderer keeps one program,
+    the last (kind, scene, seed, device) it ran, and its graph's memory;
+    :attr:`programs` holds it, with its ``capture_seconds``."""
 
     def __init__(self, cfg: CameraConfig, *, hit_method: str = "auto",
                  max_rays_per_launch: int = MAX_RAYS_PER_LAUNCH, phase_depths=None,
                  transfer: str = "f32", phase_prefixes=None, strict_prefixes: bool = True,
-                 schedule: str = "phased", cull=None):
+                 schedule: str = "phased", cull=None, fused: bool = True):
         if hit_method not in HIT_METHODS:
             raise ValueError(f"hit_method must be one of {HIT_METHODS}, got {hit_method!r}")
         if transfer not in ("f32", "u8"):
@@ -177,6 +202,8 @@ class Renderer:
             self._refuse_integrator(hit_method)
         self.strict_prefixes = strict_prefixes
         self.n_block, self.spp_chunk = launch_shape(cfg, max_rays_per_launch)
+        self.fused = fused
+        self.programs = graphs.ProgramSlot()
         self._mega = None
         self._mega_scene = None
 
@@ -210,12 +237,24 @@ class Renderer:
             self._mega_scene = scene
         return self._mega
 
-    def _launches(self):
-        """(pixel_start, sample_start) of every launch, in render order."""
-        n_blocks = -(-self.cfg.n_pixels // self.n_block)
-        n_schunks = -(-self.cfg.samples_per_pixel // self.spp_chunk)
-        return [(b * self.n_block, s * self.spp_chunk)
-                for s in range(n_schunks) for b in range(n_blocks)]
+    def _grid(self):
+        """(n_blocks, n_schunks): launch ``c`` (in render order) traces
+        block ``c % n_blocks`` of sample chunk ``c // n_blocks``."""
+        return (-(-self.cfg.n_pixels // self.n_block),
+                -(-self.cfg.samples_per_pixel // self.spp_chunk))
+
+    def _launch_starts(self, c):
+        """(pixel_start, sample_start, block) of launch ``c`` in render
+        order: ints for an int ``c``, 0-d int64 tensors for a replay's
+        device counter (the same integers)."""
+        n_blocks, _ = self._grid()
+        b = c % n_blocks
+        return b * self.n_block, (c // n_blocks) * self.spp_chunk, b
+
+    def _program_key(self, kind: str, scene: Scene, seed: int, dev):
+        """What a launch program of ``kind`` is captured for. Its step
+        holds the scene, so the scene's id names no other while it lives."""
+        return (kind, id(scene), int(seed), str(dev), self.phase_prefixes, self.cull)
 
     def _chunk_kwargs(self, scene: Scene):
         return dict(n_block=self.n_block, spp_chunk=self.spp_chunk,
@@ -244,15 +283,22 @@ class Renderer:
                 f"({mega.n_prims} primitive columns) renders through the group layout (K5), "
                 f"which takes no prefixes: render it without phase_prefixes")
         dev = mega.sph_sweep.device
-        derived = cam_mod.derive(cfg, CameraParams.from_config(cfg, dev))
         d = cfg.max_depth
-        nb_max = torch.zeros(d + 1, dtype=torch.int64, device=dev)
-        for pixel_start, sample_start in self._launches():
-            cnt = _render_chunk(mega, cfg, derived, pixel_start, sample_start, seed,
-                                **self._chunk_kwargs(scene), want_counts=True)
-            hist = torch.bincount(torch.clamp(cnt, 0, d).to(torch.int64), minlength=d + 1)
-            # rays with at least k bounces, for every k
-            nb_max = torch.maximum(nb_max, torch.flip(torch.cumsum(torch.flip(hist, [0]), 0), [0]))
+        kw = dict(self._chunk_kwargs(scene), want_counts=True)
+
+        def make_state():
+            return dict(derived=cam_mod.derive(cfg, CameraParams.from_config(cfg, dev)),
+                        nb_max=torch.zeros(d + 1, dtype=torch.int64, device=dev))
+
+        def step(c, st):
+            pixel_start, sample_start, _ = self._launch_starts(c)
+            cnt = _render_chunk(mega, cfg, st["derived"], pixel_start, sample_start, seed, **kw)
+            torch.maximum(st["nb_max"], rays_past(cnt, d), out=st["nb_max"])
+
+        st, _ = graphs.over_chunks(self.programs, self._program_key("plan", scene, seed, dev),
+                                   make_state, step, 0, math.prod(self._grid()), dev,
+                                   self.fused)
+        nb_max = st["nb_max"]
         nb_max = nb_max.cpu().numpy()
         B = self.n_block * self.spp_chunk
         out = [None]
@@ -315,7 +361,14 @@ class Renderer:
         sample chunk, and the render then equals the whole one bit for bit.
         The state belongs to this renderer's launch shape: an ``accum`` of
         another shape raises. The pool schedule has no sample chunks: it
-        refuses both and prints no progress."""
+        refuses both and prints no progress.
+
+        With ``fused`` the phased launches replay one launch program
+        unless ``progress`` or ``checkpoint_cb`` is given or the scene
+        traces through ``"bvh"``, which take the launch loop (as the JAX
+        ``Renderer`` keeps its loop for progress and checkpoints). The
+        result is the loop's, bit for bit; ``seconds`` leaves out the
+        program's one-time capture."""
         cfg = self.cfg
         method = self.resolve_hit_method(scene)
         if method in INTEGRATOR_HIT_FNS:
@@ -338,78 +391,99 @@ class Renderer:
                 raise ValueError("schedule='pool' has no sample chunks to checkpoint or resume "
                                  "from; render with schedule='phased'")
             return self._render_pool(scene, mega, params, seed)
-        n_blocks = -(-cfg.n_pixels // self.n_block)
-        n_schunks = -(-cfg.samples_per_pixel // self.spp_chunk)
+        n_blocks, n_schunks = self._grid()
+        acc_h, start, seg_base = self._resumed(resume_state)
+        n_block, spp_chunk = self.n_block, self.spp_chunk
+        hit_fn = INTEGRATOR_HIT_FNS.get(method)
+
+        def make_state():
+            if acc_h is None:
+                accum = torch.zeros((n_blocks * n_block, 3), dtype=torch.float32, device=dev)
+            else:
+                accum = torch.from_numpy(acc_h.copy()).to(dev)
+            return dict(derived=cam_mod.derive(cfg, params), accum=accum,
+                        segments=torch.zeros((), dtype=torch.int64, device=dev),
+                        ok=torch.ones((), dtype=torch.bool, device=dev),
+                        background=torch.tensor(cfg.background, dtype=torch.float32, device=dev))
+
+        def step(c, st):
+            """Launch ``c``: its radiance added into its block of ``accum``
+            (one addend an element, so an int's slice and a replay's device
+            index give the same bits), its segments and ``ok`` into theirs."""
+            pixel_start, sample_start, b = self._launch_starts(c)
+            if hit_fn is not None:
+                with torch.no_grad():
+                    rad, seg = _integrator_chunk(
+                        scene, cfg, st["derived"], pixel_start, sample_start, seed,
+                        n_block=n_block, spp_chunk=spp_chunk, hit_fn=hit_fn,
+                        background=st["background"])
+            else:
+                rad, seg, ok_c = _render_chunk(
+                    mega, cfg, st["derived"], pixel_start, sample_start, seed,
+                    **self._chunk_kwargs(scene), phase_prefixes=self.phase_prefixes,
+                    cull=self.cull)
+                if ok_c is not None:
+                    st["ok"].logical_and_(ok_c)
+            acc3 = st["accum"].view(n_blocks, n_block, 3)
+            if isinstance(b, torch.Tensor):
+                b = b.reshape(1)
+                acc3.index_copy_(0, b, acc3.index_select(0, b) + rad[None])
+            else:
+                acc3[b] += rad
+            st["segments"].add_(seg)
 
         t0 = _time.perf_counter()
-        derived = cam_mod.derive(cfg, params)
-        seg_base, start = 0, 0
-        if resume_state is None:
-            accum = torch.zeros((n_blocks * self.n_block, 3), dtype=torch.float32, device=dev)
+        first, total = start * n_blocks, (n_schunks - start) * n_blocks
+        if self.fused and checkpoint_cb is None and not progress and method != "bvh":
+            st, capture_s = graphs.over_chunks(
+                self.programs, self._program_key("render", scene, seed, dev), make_state, step,
+                first, total, dev, True)
         else:
-            acc_h = np.asarray(resume_state["accum"], np.float32)
-            if acc_h.shape != (n_blocks * self.n_block, 3):
-                raise ValueError(
-                    f"resume_state['accum'] has shape {acc_h.shape}, but this renderer's "
-                    f"launches accumulate into ({n_blocks * self.n_block}, 3) "
-                    f"({n_blocks} blocks of {self.n_block} pixels): resume with the "
-                    f"max_rays_per_launch the state was saved with")
-            start = int(resume_state["schunk"])
-            if not 0 <= start <= n_schunks:
-                raise ValueError(f"resume_state['schunk'] = {start} is outside this render's "
-                                 f"{n_schunks} sample chunks")
-            accum = torch.from_numpy(acc_h.copy()).to(dev)  # added to in place below
-            seg_base = int(resume_state["segments"])
-        seg_parts = []
-        ok = torch.ones((), dtype=torch.bool, device=dev)
-        hit_fn = INTEGRATOR_HIT_FNS.get(method)
-        for s in range(start, n_schunks):
-            sample_start = s * self.spp_chunk
-            for pixel_start in range(0, n_blocks * self.n_block, self.n_block):
-                if hit_fn is not None:
-                    with torch.no_grad():
-                        rad, seg = _integrator_chunk(
-                            scene, cfg, derived, pixel_start, sample_start, seed,
-                            n_block=self.n_block, spp_chunk=self.spp_chunk, hit_fn=hit_fn)
-                    ok_c = None
-                else:
-                    rad, seg, ok_c = _render_chunk(
-                        mega, cfg, derived, pixel_start, sample_start, seed,
-                        **self._chunk_kwargs(scene), phase_prefixes=self.phase_prefixes,
-                        cull=self.cull)
-                accum[pixel_start:pixel_start + self.n_block] += rad
-                seg_parts.append(seg)
-                if ok_c is not None:
-                    ok = ok & ok_c
-            if progress:
-                print(f"\rsample chunks remaining: {n_schunks - s - 1} ", end="", flush=True)
-            if checkpoint_cb is not None:
-                checkpoint_cb({"accum": accum.to("cpu", copy=True).numpy(),
-                               "segments": seg_base + _segment_sum(seg_parts),
-                               "schunk": s + 1})
-        mean = (accum[:cfg.n_pixels] / cfg.samples_per_pixel).reshape(
+            st, capture_s = make_state(), 0.0
+            for s in range(start, n_schunks):
+                for c in range(s * n_blocks, (s + 1) * n_blocks):
+                    step(c, st)
+                if progress:
+                    print(f"\rsample chunks remaining: {n_schunks - s - 1} ", end="", flush=True)
+                if checkpoint_cb is not None:
+                    checkpoint_cb({"accum": st["accum"].to("cpu", copy=True).numpy(),
+                                   "segments": seg_base + int(st["segments"]),
+                                   "schunk": s + 1})
+        mean = (st["accum"][:cfg.n_pixels] / cfg.samples_per_pixel).reshape(
             cfg.image_height, cfg.image_width, 3)
         img = to_u8_image(mean) if self.transfer == "u8" else mean
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        img_h = img.cpu().numpy()
-        seconds = _time.perf_counter() - t0
-        segments = seg_base + _segment_sum(seg_parts)
+        img_h, seg_h, ok_h = graphs.to_host(img, st["segments"], st["ok"])
+        seconds = _time.perf_counter() - t0 - capture_s
         if progress:
             print("\rDone.                        ", flush=True)
-        ok_h = bool(ok) if self.phase_prefixes is not None else None
+        return self._result(img_h, seg_base + int(seg_h), seconds, total,
+                            bool(ok_h) if self.phase_prefixes is not None else None)
+
+    def _resumed(self, resume_state: Optional[dict]):
+        """``(accum host array or None, first sample chunk, segments so
+        far)`` of a render started from ``resume_state`` (or from
+        scratch)."""
+        if resume_state is None:
+            return None, 0, 0
+        n_blocks, n_schunks = self._grid()
+        acc_h = np.asarray(resume_state["accum"], np.float32)
+        if acc_h.shape != (n_blocks * self.n_block, 3):
+            raise ValueError(
+                f"resume_state['accum'] has shape {acc_h.shape}, but this renderer's "
+                f"launches accumulate into ({n_blocks * self.n_block}, 3) "
+                f"({n_blocks} blocks of {self.n_block} pixels): resume with the "
+                f"max_rays_per_launch the state was saved with")
+        start = int(resume_state["schunk"])
+        if not 0 <= start <= n_schunks:
+            raise ValueError(f"resume_state['schunk'] = {start} is outside this render's "
+                             f"{n_schunks} sample chunks")
+        return acc_h, start, int(resume_state["segments"])
+
+    def _result(self, img_h, segments: int, seconds: float, launches: int, ok_h):
         if self.transfer == "u8":
-            return self._checked(RenderResult(None, segments, seconds, len(seg_parts),
-                                              u8=img_h, ok=ok_h))
-        return self._checked(RenderResult(img_h, segments, seconds, len(seg_parts), ok=ok_h))
-
-
-def _segment_sum(seg_parts) -> int:
-    """The launches' segment counts (0-d device tensors), summed in int64
-    on the host."""
-    if not seg_parts:
-        return 0
-    return int(torch.stack(seg_parts).cpu().numpy().astype(np.int64).sum())
+            return self._checked(RenderResult(None, segments, seconds, launches, u8=img_h,
+                                              ok=ok_h))
+        return self._checked(RenderResult(img_h, segments, seconds, launches, ok=ok_h))
 
 
 def render(scene: Scene, cfg: CameraConfig, params: Optional[CameraParams] = None,

@@ -64,7 +64,8 @@ def _image_value(scene: Scene, tex_id: torch.Tensor, u: torch.Tensor,
         i = torch.clamp((uu * w.to(u.dtype)).to(torch.int32).long(), zero, wm)
         j = torch.clamp((vv * h.to(u.dtype)).to(torch.int32).long(), zero, hm)
         texel = atlas.texels[img, j, i]
-    cyan = torch.tensor(CYAN, dtype=texel.dtype, device=texel.device)
+    # filled on the device (no host copy), so a captured CUDA graph can run it
+    cyan = torch.stack([texel.new_full((), c) for c in CYAN])
     return torch.where((h > 0)[..., None], texel, cyan)
 
 

@@ -4,11 +4,15 @@ scene too large for the sweep), K3 (its lanes refill, so no ray's result
 may depend on its lane), K2, K5 (walk and dense sweep), K4 (the table
 gather) and the table fold against their plain PyTorch versions (the fold
 against a float64 sum), a render on the card against the same render on
-the CPU, and the pool schedule against the phased one. Marked ``cuda``; each test skips when no CUDA
+the CPU, the pool schedule against the phased one, and the fused single
+dispatch (renders, plans and the fwd+bwd sweep replayed as CUDA graphs)
+against the launch loop. Marked ``cuda``; each test skips when no CUDA
 device is present. On a GPU machine:
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 """
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -56,10 +60,10 @@ def test_kernel_matches_plain_version(dev, name, exact, b_off, cull):
     ray_f, ray_i = pack_rays(o, d, t, pix, smp)
     args = (mega, ray_f, ray_i, SEED, b_off)
     kw = dict(max_depth=6, background=cfg.background, want_ids=True)
-    before = mb.launches
+    before = int(mb.launches)
     rad, bc, state, ids = mb.trace_block(*args, cull=cull, **kw)
     torch.cuda.synchronize()
-    assert mb.launches == before + 1
+    assert int(mb.launches) == before + 1
     rad_p, bc_p, state_p, ids_p = mb.trace_block_torch(*args, **kw)
     assert torch.equal(ids, ids_p)
     assert torch.equal(rad, rad_p) and torch.equal(bc, bc_p) and torch.equal(state, state_p)
@@ -157,9 +161,9 @@ def test_replay_kernels_deeper_than_32_bounces(dev, name, depth, phases, past):
     tb_p = rk.reduce_table_grads(g_p.cpu(), ids.cpu(), L)
     torch.testing.assert_close(rk.reduce_table_grads(g.cpu(), ids.cpu(), L), tb_p,
                                rtol=3e-5, atol=3e-6)
-    before = tg.fold_launches
+    before = int(tg.fold_launches)
     tb_k = rk.reduce_table_grads(g, ids, L).cpu()
-    assert tg.fold_launches == before + -(-depth // tg.FOLD_MAX_D)
+    assert int(tg.fold_launches) == before + -(-depth // tg.FOLD_MAX_D)
     if name == "deep":
         # every bounce of every ray adds to the mirror's row, in an order the
         # fold's atomics change from run to run: the fold's own bar
@@ -189,10 +193,10 @@ def test_group_kernel_matches_plain_version(dev, name):
     outs = []
     for use_bvh in (True, False):
         kw = dict(max_depth=6, background=cfg.background, use_bvh=use_bvh)
-        before = mg.launches
+        before = int(mg.launches)
         out = mg.trace_group(mega, ray_f, ray_i, SEED, 3, **kw)
         torch.cuda.synchronize()
-        assert mg.launches == before + 1
+        assert int(mg.launches) == before + 1
         ref = mg.trace_group_torch(mega, ray_f, ray_i, SEED, 3, **kw)
         for x, y in zip(out, ref):
             assert torch.equal(x, y)
@@ -212,10 +216,10 @@ def test_group_kernel_edge_cases_match_plain_version(dev, case):
     mega, ray_f, ray_i = k5_edge_case(case, dev)
     for use_bvh in (True, False):
         kw = dict(max_depth=3, background=(0.7, 0.8, 1.0), use_bvh=use_bvh)
-        before = mg.launches
+        before = int(mg.launches)
         out = mg.trace_group(mega, ray_f, ray_i, SEED, 0, **kw)
         torch.cuda.synchronize()
-        assert mg.launches == before + 1
+        assert int(mg.launches) == before + 1
         ref = mg.trace_group_torch(mega, ray_f, ray_i, SEED, 0, want_counts=True, **kw)
         for x, y in zip(out, ref[:3]):
             assert torch.equal(x, y)
@@ -264,10 +268,10 @@ def test_table_gather_matches_plain_version(dev, L, F, B):
     rng = np.random.default_rng(L)
     table = torch.from_numpy(rng.normal(size=(L, F)).astype(np.float32)).to(dev)
     ids = torch.from_numpy(rng.integers(-2, L + 3, B).astype(np.int32)).to(dev)
-    before = tg.launches
+    before = int(tg.launches)
     out = tg.gather(table, ids)
     torch.cuda.synchronize()
-    assert tg.launches == before + 1 and out.shape == (F, B) and out.is_contiguous()
+    assert int(tg.launches) == before + 1 and out.shape == (F, B) and out.is_contiguous()
     assert torch.equal(out, tg.gather_torch(table, ids))
     tb = table.clone().requires_grad_(True)
     w = torch.from_numpy(rng.normal(size=(F, B)).astype(np.float32))
@@ -297,10 +301,10 @@ def test_fold_matches_float64_sum(dev, L, miss):
         for gg, ii in ((g[0], ids[0]), (g, ids)):
             rows = torch.bincount(ii.reshape(-1).clamp(0, L - 1).long(), minlength=L)
             bar = dict(rtol=1e-5, atol=2e-6 * max(1, int(rows.max())))
-            before = tg.fold_launches
+            before = int(tg.fold_launches)
             out = tg.fold(gg, ii, L, None if gg.dim() == 2 else prefixes)
             torch.cuda.synchronize()
-            assert tg.fold_launches == before + 1 and out.shape == (L, F)
+            assert int(tg.fold_launches) == before + 1 and out.shape == (L, F)
             exact = tg.fold_torch(gg.double()[None] if gg.dim() == 2 else gg.double(),
                                   ii[None] if ii.dim() == 1 else ii, L,
                                   None if gg.dim() == 2 else prefixes)
@@ -330,10 +334,10 @@ def test_k3_rays_do_not_depend_on_their_lane(dev):
     rad_bar = torch.randn((3, B), generator=torch.Generator(dev).manual_seed(3), device=dev)
     kw = dict(seed=SEED, n_sph=scene.n_spheres, has_moving=scene.flags.has_moving,
               background=cfg.background)
-    before = rk.fwd_launches
+    before = int(rk.fwd_launches)
     rad, bc = rk.replay_fwd(table, ids, ray_f, ray_i, maxlen, **kw)
     torch.cuda.synchronize()
-    assert rk.fwd_launches == before + 1
+    assert int(rk.fwd_launches) == before + 1
     rad_p, bc_p = rk.replay_fwd_torch(table, ids, ray_f, ray_i, maxlen, **kw)
     assert torch.equal(rad, rad_p) and torch.equal(bc, bc_p)
     perm = torch.from_numpy(np.random.default_rng(0).permutation(B)).to(dev)
@@ -347,7 +351,7 @@ def test_k3_rays_do_not_depend_on_their_lane(dev):
                                         count=True, **kw)
         assert all(torch.equal(x, y) for x, y in ((r1, rad), (r2, rad), (b1, bc), (b2, bc)))
         assert c["bounces"] == int(bc.sum()) and 0 < c["bounces"] <= 32 * c["issues"]
-    assert rk.fwd_launches == before + 2
+    assert int(rk.fwd_launches) == before + 2
     g = rk.replay_bwd(table, ids, ray_f, ray_i, rad_bar, maxlen, **kw)
     g_q = rk.replay_bwd(*args_p[:4], rad_bar[:, perm].contiguous(), maxlen, **kw)
     assert torch.equal(g_q, g[:, :, perm])
@@ -382,9 +386,9 @@ def test_pool_render_matches_phased(dev, monkeypatch):
     scene, cfg = build("bouncing_spheres", device=dev, image_width=64, samples_per_pixel=4,
                        max_depth=8)
     monkeypatch.setattr(pool_mod, "POOL_SIZE", 4096)
-    before = mb.launches
+    before = int(mb.launches)
     pool = Renderer(cfg, schedule="pool").render(scene, seed=SEED)
-    assert mb.launches > before
+    assert int(mb.launches) > before
     phased = Renderer(cfg).render(scene, seed=SEED)
     assert pool.segments == phased.segments
     np.testing.assert_allclose(pool.radiance, phased.radiance, rtol=2e-6, atol=2e-6)
@@ -422,3 +426,87 @@ def test_walk_runs_a_scene_beyond_the_sweeps_shared_memory(dev):
     ref = mb.trace_block_torch(mega, ray_f, ray_i, SEED, 0, **kw)
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
     assert int(out[1].sum()) > B
+
+
+@pytest.mark.parametrize("name,method", [("three_spheres", "mega"), ("cornell_box", "mega"),
+                                         ("bouncing_spheres", "mega"),
+                                         ("three_spheres", "brute")])
+def test_fused_render_equals_the_loop(dev, name, method):
+    """``Renderer(fused=True)`` replays a captured CUDA graph once a
+    launch: its image, segments, ``ok`` and kernel launches equal the
+    launch loop's bit for bit, with and without planned prefixes."""
+    scene, cfg = build(name, device=dev, image_width=64, samples_per_pixel=4, max_depth=6)
+    kw = dict(hit_method=method, max_rays_per_launch=2048, phase_depths=[1, 2, 3])
+    pref = None
+    if method == "mega":
+        pref = Renderer(cfg, **kw, fused=False).plan_phase_prefixes(scene, seed=SEED)
+        assert Renderer(cfg, **kw).plan_phase_prefixes(scene, seed=SEED) == pref
+    for p in {None, pref}:
+        fused = Renderer(cfg, **kw, phase_prefixes=p)
+        fused.render(scene, seed=SEED)  # captures
+        assert fused.programs.program.graph is not None
+        before = int(mb.launches)
+        a = fused.render(scene, seed=SEED)
+        n_fused = int(mb.launches) - before
+        before = int(mb.launches)
+        b = Renderer(cfg, **kw, phase_prefixes=p, fused=False).render(scene, seed=SEED)
+        assert n_fused == int(mb.launches) - before
+        assert (a.segments, a.ok, a.launches) == (b.segments, b.ok, b.launches)
+        np.testing.assert_array_equal(a.radiance, b.radiance)
+    # resumed from every sample chunk's state, the last (nothing left to
+    # replay) included: the whole render, bit for bit
+    whole = Renderer(cfg, **kw, phase_prefixes=pref).render(scene, seed=SEED)
+    states = []
+    Renderer(cfg, **kw, phase_prefixes=pref).render(scene, seed=SEED,
+                                                    checkpoint_cb=states.append)
+    assert len(states) >= 2
+    for k, state in enumerate(states, 1):
+        res = Renderer(cfg, **kw, phase_prefixes=pref).render(scene, seed=SEED,
+                                                              resume_state=state)
+        assert res.launches == whole.launches * (len(states) - k) // len(states)
+        assert res.segments == whole.segments
+        np.testing.assert_array_equal(res.radiance, whole.radiance)
+
+
+def test_capture_holds_off_the_cycle_collector(dev):
+    """A program captures with Python's cycle collector off (a dead
+    program freed mid-capture would destroy its graph and invalidate the
+    capture), turns it back on, and replays its steps in order."""
+    from raytracing_tpu_torch.render import graphs
+
+    seen = []
+
+    def step(counter, st):
+        if torch.cuda.is_current_stream_capturing():
+            seen.append(gc.isenabled())
+        st["x"].add_(counter)
+
+    st, _ = graphs.over_chunks(
+        graphs.ProgramSlot(), "k", lambda: dict(x=torch.zeros((), dtype=torch.int64, device=dev)),
+        step, 2, 4, dev, True)
+    assert seen == [False] and gc.isenabled() and int(st["x"]) == 2 + 3 + 4 + 5
+
+
+def test_fused_sweep_equals_the_loop(dev):
+    """``bench``'s fwd+bwd sweep as one replayed chunk program: loss,
+    segments and ``ok`` equal the chunk loop's, the gradients within
+    float32 reassociation (the fold's atomics), the launches equal."""
+    from raytracing_tpu_torch import bench as pbench
+
+    s = pbench._fwd_bwd_setup(width=64, spp=8, max_depth=8, spp_chunk=2, device=dev)
+    assert s["plan"](fused=True) == s["plan"](fused=False)
+    s["sweep"](fused=True)  # captures
+    counts = []
+    outs = []
+    for fused in (True, False):
+        before = (int(mb.launches), int(rk.bwd_launches), int(tg.fold_launches))
+        outs.append(s["sweep"](fused=fused))
+        torch.cuda.synchronize()
+        counts.append(tuple(x - y for x, y in zip(
+            (int(mb.launches), int(rk.bwd_launches), int(tg.fold_launches)), before)))
+    (lf, gcf, grf, sf, okf), (ll, gcl, grl, sl, okl) = outs
+    assert counts[0] == counts[1] and counts[0][1] == s["n_chunks"]
+    assert bool(okf) and bool(okl) and int(sf) == int(sl) > 0
+    assert float(lf) == float(ll)
+    for a, b in ((gcf, gcl), (grf, grl)):
+        assert float((a - b).double().norm()) <= 1e-5 * max(float(b.double().norm()), 1e-30)

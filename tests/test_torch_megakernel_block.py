@@ -89,13 +89,13 @@ def _jax_k1(name, ray_f, ray_i, b_off):
     ("three_spheres", 3), ("bouncing_spheres", 3),
 ])
 def test_plain_k1_matches_pallas_kernel(name, b_off):
-    before_mb = mb.launches
+    before_mb = int(mb.launches)
     scene, cfg, ray_f, ray_i = _inputs(name)
     ref = _jax_k1(name, ray_f, ray_i, b_off)
     mega = pmega(port_scene(scene))
     rad, bc, state = mb.trace_block(mega, torch.from_numpy(ray_f), torch.from_numpy(ray_i),
                                     SEED, b_off, max_depth=DEPTH, background=cfg.background)
-    assert mb.launches == before_mb  # CPU tensors ran the plain version
+    assert int(mb.launches) == before_mb  # CPU tensors ran the plain version
     rad, bc, state = rad.numpy(), bc.numpy(), state.numpy()
 
     diff = np.abs(rad - np.stack(ref[0:3]))
@@ -497,7 +497,7 @@ def test_wrapper_refuses_what_k1_does_not_port():
     """want_ids is a fourth output; ``depth_cap`` and ``dep`` come together
     or not at all, and bad shapes or types are refused; a noise scene runs
     (the plain version on CPU tensors)."""
-    before_mb = mb.launches
+    before_mb = int(mb.launches)
     scene, cfg, ray_f, ray_i = _inputs("three_spheres")
     mega = pmega(port_scene(scene))
     f, i = torch.from_numpy(ray_f), torch.from_numpy(ray_i)
@@ -520,4 +520,4 @@ def test_wrapper_refuses_what_k1_does_not_port():
     assert mega_n.has_noise
     rad, bc, _ = mb.trace_block(mega_n, torch.from_numpy(f_n), torch.from_numpy(i_n), 0, 0,
                                 **{**kw, "background": cfg_n.background})
-    assert bool(torch.isfinite(rad).all()) and int(bc.sum()) > 0 and mb.launches == before_mb
+    assert bool(torch.isfinite(rad).all()) and int(bc.sum()) > 0 and int(mb.launches) == before_mb

@@ -56,12 +56,12 @@ def _pool(scene, cfg, **kw):
 def test_bit_identical_at_1spp():
     """One sample: the per-pixel sum is the path itself, so the pool
     equals the phased trace bit for bit."""
-    before_mb = mb.launches
+    before_mb = int(mb.launches)
     scene, cfg = build("three_spheres", device="cpu", image_width=32, samples_per_pixel=1,
                        max_depth=8)
     want, wseg = _phased_reference(scene, cfg)
     got, gseg = _pool(scene, cfg)
-    assert mb.launches == before_mb  # CPU tensors ran K1's plain version
+    assert int(mb.launches) == before_mb  # CPU tensors ran K1's plain version
     assert torch.equal(got, want) and gseg == wseg
 
 

@@ -60,9 +60,9 @@ def test_fold_matches_jax_lookup_vjp(F):
     _, vjp = jax.vjp(lambda tb: jlookup(tb, jnp.asarray(ids)), jnp.asarray(table))
     (want,) = vjp(tuple(jnp.asarray(cot[f]) for f in range(F)))
     want = np.asarray(want)
-    before = tg.fold_launches
+    before = int(tg.fold_launches)
     got = tg.fold(torch.from_numpy(cot), torch.from_numpy(ids), L)
-    assert got.shape == (L, F) and tg.fold_launches == before  # CPU: the plain version
+    assert got.shape == (L, F) and int(tg.fold_launches) == before  # CPU: the plain version
     np.testing.assert_allclose(got.numpy(), want, **_bar(B, L))
     exact = np.zeros((L, F))
     np.add.at(exact, np.clip(ids, 0, L - 1), cot.T.astype(np.float64))

@@ -290,14 +290,14 @@ def test_renderer_bvh_matches_jax():
     same winners) and launching no kernel."""
     scene, cfg = build("bouncing_spheres", device="cpu", **CAMERA)
     ref, ref_seg = _jax_bvh_render()
-    before = mb.launches
+    before = int(mb.launches)
     out = Renderer(cfg, hit_method="bvh").render(scene, seed=5)
     assert Renderer(cfg, hit_method="bvh").resolve_hit_method(scene) == "bvh"
     assert float(np.abs(out.radiance - ref).mean()) < 2e-3
     assert segments_close(ref_seg, out.segments), (ref_seg, out.segments)
     brute = Renderer(cfg, hit_method="brute").render(scene, seed=5)
     np.testing.assert_array_equal(out.radiance, brute.radiance)
-    assert out.segments == brute.segments and mb.launches == before
+    assert out.segments == brute.segments and int(mb.launches) == before
     with pytest.raises(ValueError, match="without a BVH"):
         Renderer(cfg, hit_method="bvh").render(
             build("bouncing_spheres", device="cpu", use_bvh=False, **CAMERA)[0], seed=5)

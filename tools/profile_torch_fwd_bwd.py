@@ -22,7 +22,9 @@ correctly rounded there) and through a float64 sqrt rounded to float32
 
 ``--search sweep`` or ``walk`` makes every K1 launch of the bench and
 fast paths take that search (``cull``); the default picks it by the
-scene's primitive count.
+scene's primitive count. ``--loop`` plans and sweeps the bench path
+through its chunk loop (``fused=False``) instead of the default fused
+program, a CUDA graph replayed once a chunk.
 
 Each profile prints the device time and share of K1-K4, the table fold
 and ``index_add_``. Prints the card's name, power limit and max SM clock
@@ -90,14 +92,18 @@ def print_profile(label, fn):
         print(f"  {dt / 1e3:9.3f} ms {count:6d}  {key[:100]}")
 
 
-def profile_bench(cull):
+def profile_bench(cull, fused=True):
     s = bench._fwd_bwd_setup(device="cuda", cull=cull)
-    print("prefixes", s["plan"](), "decide prefixes", s["ns"]["decide_prefixes"])
-    s["sweep"]()
-    runs = [timed(s["sweep"]) for _ in range(5)]
-    print("sweep seconds", [round(t, 4) for t, _ in runs], "segments", int(runs[0][1][3]),
-          "ok", [bool(o[4]) for _, o in runs])
-    print_profile("sweep", s["sweep"])
+    print("prefixes", s["plan"](fused=fused), "decide prefixes", s["ns"]["decide_prefixes"])
+
+    def sweep():
+        return s["sweep"](fused=fused)
+
+    sweep()
+    runs = [timed(sweep) for _ in range(5)]
+    print("fused" if fused else "loop", "sweep seconds", [round(t, 4) for t, _ in runs],
+          "segments", int(runs[0][1][3]), "ok", [bool(o[4]) for _, o in runs])
+    print_profile("sweep", sweep)
     center, rgb = s["args"]
     d_ms, h_ms = event_ms(lambda: s["grads_chunk"](center, rgb, 0), reps=10)
     print(f"whole chunk: device span {d_ms:.3f} ms, host {h_ms:.3f} ms")
@@ -182,6 +188,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", choices=("bench", "fast", "render_once"), default="bench")
     ap.add_argument("--search", choices=("auto", "sweep", "walk"), default="auto")
+    ap.add_argument("--loop", action="store_true", help="the bench's chunk loop (fused=False)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -191,7 +198,7 @@ def main() -> int:
                          check=True).stdout.strip())
     _kernels.library()
     cull = {"auto": None, "sweep": False, "walk": True}[args.search]
-    {"bench": lambda: profile_bench(cull), "fast": lambda: profile_fast(cull),
+    {"bench": lambda: profile_bench(cull, fused=not args.loop), "fast": lambda: profile_fast(cull),
      "render_once": profile_render_once}[args.path]()
     return 0
 

@@ -18,6 +18,9 @@ per-launch timings are the phased schedule's and are skipped).
 ``--search sweep`` or ``walk`` makes every K1 launch take that search
 (``Renderer(cull=)``); the default picks it by the scene's primitive
 count. The profile sums K1's and K5's device time and launches.
+``--loop`` renders (and plans) through the launch loop
+(``Renderer(fused=False)``) instead of the default fused program, a CUDA
+graph replayed once a launch.
 """
 from __future__ import annotations
 
@@ -61,6 +64,7 @@ def main() -> int:
                     default="bouncing_spheres")
     ap.add_argument("--schedule", choices=("phased", "pool"), default="phased")
     ap.add_argument("--search", choices=("auto", "sweep", "walk"), default="auto")
+    ap.add_argument("--loop", action="store_true", help="Renderer(fused=False)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -80,7 +84,8 @@ def main() -> int:
     else:
         scene, cfg = build(args.scene, device=dev)
     kw = dict(max_rays_per_launch=1 << 18, transfer="u8",
-              cull={"auto": None, "sweep": False, "walk": True}[args.search])
+              cull={"auto": None, "sweep": False, "walk": True}[args.search],
+              fused=not args.loop)
     pref = None
     if args.schedule == "pool":
         kw["schedule"] = "pool"
@@ -92,7 +97,8 @@ def main() -> int:
     for _ in range(2):
         r.render(scene, seed=SEED)
     runs = [r.render(scene, seed=SEED) for _ in range(5)]
-    print(f"{args.scene} ({args.schedule}, K1 search {args.search}): segments "
+    print(f"{args.scene} ({args.schedule}, {'loop' if args.loop else 'fused'}, K1 search "
+          f"{args.search}): segments "
           f"{runs[0].segments}, render seconds", [x.seconds for x in runs])
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

@@ -71,9 +71,9 @@ def main() -> int:
                        samples_per_pixel=100, max_depth=20)
     r = Renderer(cfg, max_rays_per_launch=1 << 18, transfer="u8", schedule="pool")
     r.render(scene, seed=SEED)  # warm-up
-    before = mb.launches
+    before = int(mb.launches)
     res = r.render(scene, seed=SEED)
-    n_iter = mb.launches - before
+    n_iter = int(mb.launches) - before
     print(f"pool render: {res.seconds:.4f} s, {n_iter} iterations, "
           f"{res.segments} segments")
 
