@@ -160,6 +160,21 @@ setup, which ran its chunk loop), with walls, capture seconds and peak
 device memory. Phases 3, 6, 10 and 31 time the fused path (their counts
 read after the render or sweep that captured); phases 25 and 28 keep the
 loop where they measure it.
+Phase 33 holds the pool's single dispatch (Renderer(schedule="pool"),
+fused by default: each sample window one launch of a CUDA graph whose
+device-side WHILE node repeats one captured pool iteration,
+csrc/graph_while.cu) against its host loop (fused=False), timed in turns
+(tools/time_fused.py --pool): the bench render (u8 and f32 bit-equal,
+24,259,990 segments, 62 K1 launches either way from the device
+counters), bouncing_spheres_64 (64 K1 launches), perlin_sphere,
+simple_light and earth (phase 20's pool counts) and BASELINE config 5
+(25 windows of 20 spp, phase 28's segments), with walls, capture
+seconds, host milliseconds a window's launch and peak device memory.
+Every fused render after its capture runs under
+torch.cuda.set_sync_debug_mode("error") until its copy to the host, so
+a host read in a window's set-up or launch fails the phase. Phases 19,
+20 and 22 render the pool fused (the default) and keep their checks
+against the phased render.
 
 Kernels shorter than their wrappers' host time (K3, K4, the fold and the
 PyTorch calls beside them) are timed with their launches queued behind a
@@ -184,6 +199,7 @@ from pathlib import Path
 
 BENCH_SEGMENTS = 24_280_645  # bench workload's traced segments (JAX reference)
 PORT_BENCH_SEGMENTS = 24_259_990  # the port's, in both schedules
+POOL_BENCH_K1 = 62  # K1 launches (pool iterations) of the bench render through the pool
 SEED = 7
 
 # Bounds: the larger of operations over the card's FP32 peak and bytes
@@ -1536,17 +1552,18 @@ def main() -> int:
     rp64 = {search: Renderer(c64, max_rays_per_launch=1 << 18, transfer="u8", schedule="pool",
                              cull=search == "walk") for search in ("walk", "sweep")}
     pool64 = {}
-    for search in ("walk", "walk", "sweep", "walk"):  # the first is a warm-up
+    # each renderer's first render (its capture, and a warm-up launch) is a warm-up
+    for search in ("walk", "sweep", "walk", "sweep", "walk"):
         zero_counts()
         x = rp64[search].render(s64, seed=SEED)
         pool64.setdefault(search, []).append((x, counts()))
     xw, cw = pool64["walk"][1]
-    xs, cs = pool64["sweep"][0]
+    xs, cs = pool64["sweep"][1]
     ok22p = (xw.segments == xs.segments and bool(np.array_equal(xw.u8, xs.u8))
              and cw["K1"] > 0 and cw["K1"] == cs["K1"]
              and cw == only(K1=cw["K1"])
              and 20 < float(xw.u8.mean()) < 235)
-    pool64_s = {k: [round(x.seconds, 4) for x, _ in v[k == "walk":]] for k, v in pool64.items()}
+    pool64_s = {k: [round(x.seconds, 4) for x, _ in v[1:]] for k, v in pool64.items()}
     print(f"phase 22 bouncing_spheres_64 pool render: {'ok' if ok22p else 'FAIL'} segments "
           f"{xw.segments} (sweep {xs.segments}, phased K5 render {res10.segments}) u8 equal "
           f"{bool(np.array_equal(xw.u8, xs.u8))} K1 launches {cw['K1']} seconds walk "
@@ -2382,6 +2399,33 @@ def main() -> int:
     if not ok32:
         failures.append("phase 32 fused single dispatch")
 
+    # ---- phase 33: the pool's single dispatch against its host loop ----
+    # tools/time_fused.py --pool: each sample window one launch of a CUDA
+    # graph with a device-side WHILE loop (fused, the default) against
+    # fused=False, in turns; fused renders after their capture run under
+    # torch.cuda.set_sync_debug_mode("error") until the copy to the host
+    torch.cuda.empty_cache()
+    rows33 = tf.compare_pools(dev, config5=True)
+    expect33 = {"bench_pool": (PORT_BENCH_SEGMENTS, POOL_BENCH_K1),
+                "bouncing_spheres_64_pool": (xw.segments, cw["K1"]),
+                **{f"{n}_pool": (None, reg_counts[n]["pool"]) for n in tf.POOL_SCENES},
+                "config5_pool": (accept_rows[5]["segments"], None)}
+    ok33 = True
+    for name33, row in rows33.items():
+        seg33, k1_33 = expect33[name33]
+        ok = (row["equal"] and row.get("f32_equal", True)
+              and row["counts_fused"] == row["counts_loop"]
+              == only(K1=row["counts_loop"]["K1"]) and row["counts_loop"]["K1"] > 0
+              and (seg33 is None or row["segments"] == seg33)
+              and (k1_33 is None or row["counts_loop"]["K1"] == k1_33))
+        print(f"phase 33 {name33} fused against the host loop: {'ok' if ok else 'FAIL'} "
+              f"{json.dumps(row)} [{card}]")
+        ok33 &= ok
+    ok33 &= rows33["bouncing_spheres_64_pool"]["counts_loop"]["K1"] == 64
+    ok33 &= rows33["config5_pool"]["launches"] == 25
+    if not ok33:
+        failures.append("phase 33 the pool's single dispatch")
+
     print(f"card: {card}")  # again near the end, inside a tail of the output
     print(json.dumps({"kernels": [
         {"name": "K1 megakernel_block (BVH walk; the guarded sweep below CULL_MIN_PRIMS)",
@@ -2399,6 +2443,8 @@ def main() -> int:
          "launches_cpp_compare": cpp_counts,
          "launches_fused_bench_render": rows32["bench_render"]["counts_fused"]["K1"],
          "launches_fused_bench_sweep": rows32["bench_sweep"]["counts_fused"]["K1"],
+         "launches_fused_pool_render": rows33["bench_pool"]["counts_fused"]["K1"],
+         "launches_fused_pool_render_config5": rows33["config5_pool"]["counts_fused"]["K1"],
          "launches_sharded_per_rank": {k: v["K1_per_rank"] for k, v in rows30.items()},
          "max_abs_err": stats["max_abs_err"], "ms": ms, "ms_sweep": ms_sweep,
          "plain_ms": plain_ms, "bound_ms": k1_walk_bound[0], "bound_by": k1_walk_bound[1],

@@ -106,6 +106,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rt_table_gather.restype = ctypes.c_int
     lib.rt_table_fold.argtypes = [P, P, P, I, I, I, I, P, P]
     lib.rt_table_fold.restype = ctypes.c_int
+    lib.rt_while_build.argtypes = [P, P, ctypes.POINTER(P)]
+    lib.rt_while_build.restype = ctypes.c_int
+    lib.rt_while_launch.argtypes = [P, P]
+    lib.rt_while_launch.restype = ctypes.c_int
+    lib.rt_while_destroy.argtypes = [P]
+    lib.rt_while_destroy.restype = ctypes.c_int
     lib.rt_error_string.argtypes = [ctypes.c_int]
     lib.rt_error_string.restype = ctypes.c_char_p
 

@@ -16,18 +16,55 @@ CPU tests hold its arithmetic against the loop it replaces.
 :func:`over_chunks` drives one step function either way: as a Python loop
 over int chunk indices (``fused=False``) or as a program's replays.
 
+A :class:`WhileProgram` does the same for a loop whose trip count only
+the device knows, as the JAX package's pool runs each sample window as
+one compiled ``lax.while_loop``: its ``step()`` sets a device flag, and
+on a card one captured step sits inside a CUDA graph WHILE node
+(``csrc/graph_while.cu``), so a whole loop is one graph launch.
+
 The kernels' launch counts (``_kernels.LaunchCount``) are device counters
 that each wrapper adds to on its launch stream, so a replay adds the
 launches it runs, as an eager launch does.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import gc
 import time
 from typing import Callable, Optional
 
 import torch
+
+from .. import _kernels
+
+
+def _capture(warm_up: Callable[[], None], body: Callable[[], None], device,
+             keep_graph: bool = False) -> torch.cuda.CUDAGraph:
+    """A CUDA graph of one ``body()``, captured after ``warm_up()`` has
+    run on a side stream (as ``torch.cuda.graph`` requires). Capture
+    errors propagate."""
+    current = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        warm_up()
+    current.wait_stream(side)
+    # A dead program in a reference cycle (its step holds its owner) that
+    # Python's cycle collector frees mid-capture destroys its graph then,
+    # and that invalidates this capture: collect now, and keep the
+    # collector off until the capture has ended.
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True) if keep_graph else torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            body()
+    finally:
+        if enabled:
+            gc.enable()
+    return graph
 
 
 class ChunkProgram:
@@ -70,28 +107,12 @@ class ChunkProgram:
 
     def _capture(self, start: Callable[[], None]) -> float:
         t0 = time.perf_counter()
-        current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
+
+        def warm_up():
             start()
             self._step()
-        current.wait_stream(side)
-        # A dead program in a reference cycle (its step holds its owner)
-        # that Python's cycle collector frees mid-capture destroys its
-        # graph then, and that invalidates this capture: collect now, and
-        # keep the collector off until the capture has ended.
-        gc.collect()
-        enabled = gc.isenabled()
-        gc.disable()
-        try:
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                self._step()
-        finally:
-            if enabled:
-                gc.enable()
-        self.graph = graph
+
+        self.graph = _capture(warm_up, self._step, self.device)
         torch.cuda.synchronize(self.device)
         # the warm-up's blocks go back to the card: a program holds its
         # graph's pool, not that pool and the eager one's cache as well
@@ -114,15 +135,109 @@ class ChunkProgram:
             self.graph.replay()
 
 
+class WhileProgram:
+    """``step()`` on static buffers ``state`` while the 0-d bool device
+    tensor ``flag`` is true, the flag tested before every step (the first
+    included), as ``lax.while_loop`` tests its condition; the step writes
+    the flag. :meth:`run` runs the loop to its end once.
+
+    ``fused`` on a card: one step is captured as a CUDA graph and wrapped
+    in a graph with a device-side WHILE node on the flag
+    (``csrc/graph_while.cu``), launched once a run, so the host reads
+    nothing. Otherwise (the CPU, or ``fused=False``) the loop runs eagerly
+    and reads the flag once an iteration. The program keeps the captured
+    graph, and with it its memory pool, as long as the WHILE graph."""
+
+    def __init__(self, step: Callable[[], None], flag: torch.Tensor, device, state,
+                 fused: bool = True):
+        if flag.shape != () or flag.dtype != torch.bool:
+            raise ValueError(f"flag must be a 0-d bool tensor, got {tuple(flag.shape)} "
+                             f"{flag.dtype}")
+        self.step = step
+        self.flag = flag
+        self.device = torch.device(device)
+        if flag.device != self.device:
+            raise ValueError(f"flag lies on {flag.device}, the program on {self.device}")
+        self.state = state
+        self.fused = fused
+        self.prepared = False
+        self.graph: Optional[torch.cuda.CUDAGraph] = None  # the captured step
+        self._exec = None  # the WHILE graph (cudaGraphExec_t)
+        self.capture_seconds = 0.0  # warm-up, capture and build, once
+
+    def run(self, init: Callable[[], None]) -> float:
+        """The loop to its end after ``init()`` sets the state and the
+        flag. With ``fused`` the first run prepares: ``init()`` and one
+        warm-up step (on a side stream on a card), then, on a card, the
+        capture of one step and the WHILE graph's build; it returns the
+        seconds that took, which a caller's timing leaves out (0.0
+        otherwise). A graph that cannot be captured, built or launched
+        raises: there is no eager fallback."""
+        spent = self._prepare(init) if self.fused and not self.prepared else 0.0
+        init()
+        self.replay(1)
+        return spent
+
+    def _prepare(self, init: Callable[[], None]) -> float:
+        t0 = time.perf_counter()
+
+        def warm_up():
+            init()
+            self.step()
+
+        if self.device.type == "cuda":
+            graph = _capture(warm_up, self.step, self.device, keep_graph=True)
+            lib = _kernels.library().lib
+            exe = ctypes.c_void_p()
+            err = lib.rt_while_build(graph.raw_cuda_graph(), self.flag.data_ptr(),
+                                     ctypes.byref(exe))
+            if err != 0:
+                raise RuntimeError("building the WHILE graph around the captured step failed: "
+                                   f"{lib.rt_error_string(err).decode()}")
+            self.graph, self._exec = graph, exe
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()  # as ChunkProgram._capture
+        else:
+            warm_up()
+        self.prepared = True
+        self.capture_seconds = time.perf_counter() - t0
+        return self.capture_seconds
+
+    def replay(self, n: int = 1) -> None:
+        """``n`` runs of the loop on the state as it stands (a loop whose
+        flag is false runs no step), with no host synchronization on a
+        card's fused program."""
+        if self._exec is None:
+            if self.fused and self.device.type == "cuda":
+                raise RuntimeError("WhileProgram.replay before its capture on a CUDA device")
+            for _ in range(n):
+                while bool(self.flag):
+                    self.step()
+            return
+        lib = _kernels.library().lib
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        for _ in range(n):
+            err = lib.rt_while_launch(self._exec, stream)
+            if err != 0:
+                raise RuntimeError("WHILE graph launch failed: "
+                                   f"{lib.rt_error_string(err).decode()}")
+
+    def __del__(self):
+        if getattr(self, "_exec", None) is not None and _kernels._loaded is not None:
+            _kernels._loaded.lib.rt_while_destroy(self._exec)
+            self._exec = None
+
+
 class ProgramSlot:
-    """One chunk program at a time: a new key drops the old program (and
-    its graph's memory pool) before the new one is built."""
+    """One program (a :class:`ChunkProgram` or a :class:`WhileProgram`) at
+    a time: a new key drops the old program (and its graph's memory pool)
+    before the new one is built."""
 
     def __init__(self):
         self.key = None
-        self.program: Optional[ChunkProgram] = None
+        self.program = None
 
-    def get(self, key, make: Callable[[], ChunkProgram]) -> ChunkProgram:
+    def get(self, key, make: Callable[[], object]):
         if self.program is None or self.key != key:
             self.key = self.program = None
             self.program = make()

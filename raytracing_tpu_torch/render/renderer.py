@@ -33,9 +33,15 @@ The megakernel schedules:
   bit, fused or not.
 * ``schedule="pool"``: the regenerating pool (``render/pool.py``), one
   persistent wavefront for the whole render, split into sample windows
-  only where the (pixel, sample) stream passes ``MAX_POOL_STREAM``. It has
-  no sample chunks to checkpoint, and refuses ``resume_state`` and
-  ``checkpoint_cb``.
+  only where the (pixel, sample) stream passes ``MAX_POOL_STREAM``. With
+  ``fused=True`` (the default) each window is one launch of a CUDA graph
+  whose device-side WHILE node runs a captured pool iteration until the
+  window is done, captured once per (scene, seed, window size), as the JAX
+  package runs each window as one compiled ``while_loop``; nothing is read
+  from the device until the image is copied to the host. ``fused=False``
+  runs the iterations from a host loop that reads the loop's flag once an
+  iteration. It has no sample chunks to checkpoint, and refuses
+  ``resume_state`` and ``checkpoint_cb``.
 """
 from __future__ import annotations
 
@@ -177,9 +183,12 @@ class Renderer:
 
     ``fused`` (default True) renders and plans the phased schedule as one
     launch program replayed once a launch (a CUDA graph on a card; see the
-    module note for what takes the loop). The renderer keeps one program,
+    module note for what takes the loop), and each sample window of the
+    pool as one launch of a WHILE program. The renderer keeps one program,
     the last (kind, scene, seed, device) it ran, and its graph's memory;
-    :attr:`programs` holds it, with its ``capture_seconds``."""
+    :attr:`programs` holds it, with its ``capture_seconds`` (a pool render
+    split into windows of two sizes keeps its shorter window's program in
+    a second slot)."""
 
     def __init__(self, cfg: CameraConfig, *, hit_method: str = "auto",
                  max_rays_per_launch: int = MAX_RAYS_PER_LAUNCH, phase_depths=None,
@@ -204,6 +213,7 @@ class Renderer:
         self.n_block, self.spp_chunk = launch_shape(cfg, max_rays_per_launch)
         self.fused = fused
         self.programs = graphs.ProgramSlot()
+        self._tail_programs = graphs.ProgramSlot()  # the pool's shorter last window
         self._mega = None
         self._mega_scene = None
 
@@ -323,31 +333,49 @@ class Renderer:
     def _render_pool(self, scene: Scene, mega, params: CameraParams,
                      seed: int) -> RenderResult:
         """The regenerating-pool schedule: one pool per sample window, the
-        windows' radiance summed on the device. ``transfer="u8"`` quantizes
-        on the device when the render is one window; a split render
-        returns its f32 radiance, as in the JAX package."""
+        windows' radiance summed on the device and copied to the host once.
+        ``transfer="u8"`` quantizes on the device when the render is one
+        window; a split render returns its f32 radiance, as in the JAX
+        package. With ``fused`` each window is one launch of its size's
+        WHILE program (``render/pool.py``), kept in :attr:`programs` (the
+        full windows) and a second slot (a shorter last window), keyed on
+        (scene, seed, device, window samples, pool size, ``cull``), as the
+        JAX package compiles one executable per window size; ``seconds``
+        leaves out their capture."""
         cfg = self.cfg
         spp = cfg.samples_per_pixel
         spp_w = min(spp, max(1, (pool_mod.MAX_POOL_STREAM - 1) // cfg.n_pixels))
         windows = [(s, min(spp_w, spp - s)) for s in range(0, spp, spp_w)]
         u8_mode = self.transfer == "u8" and len(windows) == 1
+        dev = mega.sph_sweep.device
         t0 = _time.perf_counter()
-        acc, seg_parts = None, []
+        capture_s = 0.0
+        acc = seg = banked = None
         for start, n in windows:
-            rad, seg = pool_mod.trace_pool(
-                mega, cfg, params, seed,
-                pool_size=min(pool_mod.POOL_SIZE, -(-cfg.n_pixels * n // 1024) * 1024),
-                sample_start=start, n_samples=n, motion_blur=scene.flags.has_moving,
-                cull=self.cull)
+            kw = dict(pool_size=min(pool_mod.POOL_SIZE, -(-cfg.n_pixels * n // 1024) * 1024),
+                      n_samples=n, motion_blur=scene.flags.has_moving, cull=self.cull)
+            if self.fused:
+                slot = self.programs if n == spp_w else self._tail_programs
+                key = ("pool", id(scene), int(seed), str(dev), n, kw["pool_size"], self.cull)
+                prog = slot.get(key, lambda: pool_mod.program(mega, cfg, seed, fused=True, **kw))
+            else:
+                prog = pool_mod.program(mega, cfg, seed, fused=False, **kw)
+            pool = prog.state
+            capture_s += prog.run(lambda: pool.init(params, start))
+            # new tensors: the next window of this size rewrites the pool's
+            rad = pool.radiance()
             acc = rad if acc is None else acc + rad
-            seg_parts.append(seg)
+            seg = pool.segments.clone() if seg is None else seg + pool.segments
+            banked = pool.banked.clone() if banked is None else banked + pool.banked
         mean = (acc / spp).reshape(cfg.image_height, cfg.image_width, 3)
-        img_h = (to_u8_image(mean) if u8_mode else mean).cpu().numpy()
-        seconds = _time.perf_counter() - t0
-        segments = int(torch.stack(seg_parts).sum())
+        img_h, seg_h, banked_h = graphs.to_host(to_u8_image(mean) if u8_mode else mean, seg,
+                                                banked)
+        seconds = _time.perf_counter() - t0 - capture_s
+        if int(banked_h) != cfg.n_pixels * spp:
+            raise RuntimeError(f"pool banked {int(banked_h)} paths of {cfg.n_pixels * spp}")
         if u8_mode:
-            return RenderResult(None, segments, seconds, len(windows), u8=img_h)
-        return RenderResult(img_h, segments, seconds, len(windows))
+            return RenderResult(None, int(seg_h), seconds, len(windows), u8=img_h)
+        return RenderResult(img_h, int(seg_h), seconds, len(windows))
 
     def render(self, scene: Scene, params: Optional[CameraParams] = None, seed: int = 0,
                progress: bool = False, resume_state: Optional[dict] = None,
@@ -366,9 +394,10 @@ class Renderer:
         With ``fused`` the phased launches replay one launch program
         unless ``progress`` or ``checkpoint_cb`` is given or the scene
         traces through ``"bvh"``, which take the launch loop (as the JAX
-        ``Renderer`` keeps its loop for progress and checkpoints). The
+        ``Renderer`` keeps its loop for progress and checkpoints), and the
+        pool runs each sample window as one launch of a WHILE program. The
         result is the loop's, bit for bit; ``seconds`` leaves out the
-        program's one-time capture."""
+        programs' one-time capture."""
         cfg = self.cfg
         method = self.resolve_hit_method(scene)
         if method in INTEGRATOR_HIT_FNS:

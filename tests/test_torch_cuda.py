@@ -5,9 +5,10 @@ may depend on its lane), K2, K5 (walk and dense sweep), K4 (the table
 gather) and the table fold against their plain PyTorch versions (the fold
 against a float64 sum), a render on the card against the same render on
 the CPU, the pool schedule against the phased one, and the fused single
-dispatch (renders, plans and the fwd+bwd sweep replayed as CUDA graphs)
-against the launch loop. Marked ``cuda``; each test skips when no CUDA
-device is present. On a GPU machine:
+dispatch (renders, plans and the fwd+bwd sweep replayed as CUDA graphs,
+the pool's windows as WHILE graphs) against the launch loop. Marked
+``cuda``; each test skips when no CUDA device is present. On a GPU
+machine:
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 """
@@ -393,6 +394,67 @@ def test_pool_render_matches_phased(dev, monkeypatch):
     assert pool.segments == phased.segments
     np.testing.assert_allclose(pool.radiance, phased.radiance, rtol=2e-6, atol=2e-6)
 
+
+
+@pytest.mark.parametrize("k", [5, 0])
+def test_while_graph_counts_its_iterations(dev, k):
+    """A toy WHILE program: its step adds one to a device counter and sets
+    the flag while the counter is below k. One launch of the WHILE graph
+    runs it k times (none when the flag starts false) with no host read,
+    a launch on the finished state runs none, and a second run reuses the
+    capture."""
+    from raytracing_tpu_torch.render import graphs
+
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    flag = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def step():
+        count.add_(1)
+        flag.copy_(count < k)
+
+    def init():
+        count.zero_()
+        flag.fill_(k > 0)
+
+    prog = graphs.WhileProgram(step, flag, dev, None)
+    assert prog.run(init) > 0.0 and prog.graph is not None
+    assert int(count) == k
+    prog.replay(1)
+    assert int(count) == k
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assert prog.run(init) == 0.0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(count) == k and not bool(flag)
+
+
+def test_fused_pool_equals_the_looped_pool(dev, monkeypatch):
+    """Renderer(schedule="pool") fused (each window one launch of its
+    WHILE graph) against fused=False (the host loop), a 4,096-lane pool
+    so lanes refill: f32 and u8 images, segments and K1 launches equal,
+    in one window and split into windows of two sizes (two programs)."""
+    scene, cfg = build("bouncing_spheres", device=dev, image_width=64, samples_per_pixel=4,
+                       max_depth=8)
+    monkeypatch.setattr(pool_mod, "POOL_SIZE", 4096)
+    for split in (False, True):
+        if split:  # windows of 3 and 1 samples
+            monkeypatch.setattr(pool_mod, "MAX_POOL_STREAM", cfg.n_pixels * 3 + 1)
+        for transfer in ("f32", "u8"):
+            fused = Renderer(cfg, schedule="pool", transfer=transfer)
+            fused.render(scene, seed=SEED)  # captures
+            assert fused.programs.program.graph is not None
+            assert (fused._tail_programs.program is not None) == split
+            runs = []
+            for r in (fused, Renderer(cfg, schedule="pool", transfer=transfer, fused=False)):
+                before = int(mb.launches)
+                runs.append((r.render(scene, seed=SEED), int(mb.launches) - before))
+            (a, na), (b, nb) = runs
+            assert na == nb > 0 and a.segments == b.segments and a.launches == b.launches
+            for x, y in ((a.radiance, b.radiance), (a.u8, b.u8)):
+                assert (x is None) == (y is None)
+                if x is not None:
+                    np.testing.assert_array_equal(x, y)
 
 def test_walk_runs_a_scene_beyond_the_sweeps_shared_memory(dev):
     """9,001 spheres: the sweep's tables exceed a block's shared memory, so

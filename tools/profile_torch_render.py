@@ -14,7 +14,10 @@ bouncing_spheres_64`` renders chip_smoke.py's 64x64-grid scene instead
 registry scene at its registry configuration (400x225, 100 spp, depth
 50, phases [2, 3, 45]). ``--schedule pool`` renders through the
 regenerating pool instead (K1 only, no phases or prefixes; the two
-per-launch timings are the phased schedule's and are skipped).
+per-launch timings are the phased schedule's and are skipped); fused, a
+window runs inside a CUDA graph WHILE node whose kernels the profiler
+does not see, so one window's graph launch is also timed with CUDA
+events (its device span, beside the render's wall).
 ``--search sweep`` or ``walk`` makes every K1 launch take that search
 (``Renderer(cull=)``); the default picks it by the scene's primitive
 count. The profile sums K1's and K5's device time and launches.
@@ -55,6 +58,22 @@ def event_ms(fn, reps=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, 1e3 * (time.perf_counter() - t0) / reps
+
+
+def graph_ms(fn, reps=20):
+    """Device ms of ``fn`` captured as a CUDA graph, over ``reps`` replays:
+    its kernels as a graph launches them (issued one by one, a call of
+    some 200 small kernels is host-bound, and that many queued calls
+    overflow the launch queue)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return event_ms(graph.replay, reps)[0]
 
 
 def main() -> int:
@@ -118,6 +137,30 @@ def main() -> int:
         print(f"  {dt / 1e3:9.3f} ms {count:6d}  {key[:100]}")
 
     if args.schedule == "pool":
+        if not args.loop:
+            # the profiler does not see the kernels inside the WHILE node's
+            # body: time one window's graph launch with CUDA events instead
+            prog = r.programs.program
+            pool, params = prog.state, cam.CameraParams.from_config(cfg, dev)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            spans = []
+            for _ in range(5):
+                pool.init(params, 0)
+                start.record()
+                prog.replay(1)
+                end.record()
+                torch.cuda.synchronize()
+                spans.append(start.elapsed_time(end))
+            print(f"one window's WHILE graph launch: device span ms {spans}, "
+                  f"{int(pool.iterations)} iterations; best span over the best render "
+                  f"wall {min(spans) / (1e3 * min(x.seconds for x in runs)):.3f}")
+            # an iteration computes camera rays for every lane (and keeps the
+            # refilled lanes'): their device time a call, inside a graph
+            gid = torch.arange(pool.P, dtype=torch.int32, device=dev)
+            d_ms, h_ms = event_ms(lambda: pool._fresh(gid))
+            g_ms = graph_ms(lambda: pool._fresh(gid))
+            print(f"camera rays for all {pool.P} lanes: device {g_ms:.3f} ms a call in a CUDA "
+                  f"graph; eager span {d_ms:.3f} ms, host {h_ms:.3f} ms")
         return 0
     mega = r._get_mega(scene)
     derived = cam.derive(cfg, cam.CameraParams.from_config(cfg, dev))

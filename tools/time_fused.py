@@ -1,6 +1,6 @@
 """The fused single dispatch against the launch loop on one CUDA device.
 
-    python3 tools/time_fused.py [--reps N] [--config5] [--out FILE]
+    python3 tools/time_fused.py [--reps N] [--config5] [--pool] [--out FILE]
 
 For each path it runs the fused program (one chunk's ops captured once as
 a CUDA graph and replayed once a chunk, ``render/graphs.py``) and the loop
@@ -18,6 +18,14 @@ fused, loop, ...), and checks that they agree:
 * with ``--config5``: BASELINE config 5 (bouncing_spheres 1200x675, 500
   spp, depth 50, the default Renderer): one render each way, and the
   fused and unfused fwd+bwd sweeps, with their peak memory.
+* with ``--pool``, the regenerating pool instead (``Renderer(schedule=
+  "pool")``: each sample window one launch of a CUDA graph whose WHILE
+  node repeats a captured pool iteration, against the host loop): the
+  bench render, bouncing_spheres_64, the textured registry scenes
+  (perlin_sphere, simple_light, earth) and, with ``--config5``, config
+  5 (25 windows of 20 spp); every fused render after its capture runs
+  under ``torch.cuda.set_sync_debug_mode("error")`` up to its copy to
+  the host (:func:`no_host_reads`), so a host read there raises.
 
 Walls are host clocks through the copy to the host (``RenderResult.seconds``
 for renders, which leaves out the one-time capture; the capture's seconds
@@ -30,6 +38,7 @@ functions.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -92,12 +101,45 @@ def _host_ms_per_replay(prog, n: int) -> float:
     return 1e3 * dt / n
 
 
+@contextlib.contextmanager
+def no_host_reads(renderer):
+    """Inside: ``renderer``'s pool renders (every window's set-up and
+    launch, the image's sums on the device) run under
+    ``torch.cuda.set_sync_debug_mode("error")``, so any host read there
+    raises; only the final copy to the host (``graphs.to_host``) may
+    synchronize."""
+    from raytracing_tpu_torch.render import graphs
+
+    real_pool, real_to_host = renderer._render_pool, graphs.to_host
+
+    def render_pool(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real_pool(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    def to_host(*tensors):
+        torch.cuda.set_sync_debug_mode(0)
+        return real_to_host(*tensors)
+
+    renderer._render_pool = render_pool
+    graphs.to_host = to_host
+    try:
+        yield
+    finally:
+        del renderer._render_pool
+        graphs.to_host = real_to_host
+
+
 def compare_renders(scene, cfg, kw: dict, reps: int = 3) -> dict:
     """A fused and a looped ``Renderer(cfg, **kw)`` on ``scene``: one
     warm-up each (the fused one captures), then ``reps`` renders each in
     turns. Returns walls, capture seconds, the kernels' launches in one
-    render of each, peak memory, and whether images, segments and ``ok``
-    agree bit for bit (u8 and f32)."""
+    render of each, peak memory (the fused render's first, with its
+    capture, and a later one), and whether images, segments and ``ok``
+    agree bit for bit (u8 and f32). A pool's fused renders after the
+    capture run inside :func:`no_host_reads`."""
     from raytracing_tpu_torch import Renderer
 
     dev = scene.spheres.radius.device
@@ -105,6 +147,13 @@ def compare_renders(scene, cfg, kw: dict, reps: int = 3) -> dict:
     rl = Renderer(cfg, **kw, fused=False)
     first, peak_f = _peak(dev, lambda: rf.render(scene, seed=SEED))
     capture_s = rf.programs.program.capture_seconds if rf.programs.program else 0.0
+    pool = kw.get("schedule") == "pool"
+
+    def strict(fused=True):
+        return no_host_reads(rf) if pool and fused else contextlib.nullcontext()
+
+    with strict():
+        _, peak_f2 = _peak(dev, lambda: rf.render(scene, seed=SEED))
     _, peak_l = _peak(dev, lambda: rl.render(scene, seed=SEED))
     walls = {"fused": [], "loop": []}
     counts = {}
@@ -113,7 +162,8 @@ def compare_renders(scene, cfg, kw: dict, reps: int = 3) -> dict:
         mode = ("loop", "fused", "fused", "loop")[i % 4]
         r = rf if mode == "fused" else rl
         _zero_counts()
-        out = r.render(scene, seed=SEED)
+        with strict(mode == "fused"):
+            out = r.render(scene, seed=SEED)
         counts.setdefault(mode, k_counts())
         res.setdefault(mode, out)
         walls[mode].append(out.seconds)
@@ -127,7 +177,7 @@ def compare_renders(scene, cfg, kw: dict, reps: int = 3) -> dict:
                walls_fused=walls["fused"], walls_loop=walls["loop"], capture_s=capture_s,
                counts_fused=counts["fused"], counts_loop=counts["loop"],
                host_ms_per_replay=host_ms, peak_bytes_first_fused=peak_f,
-               peak_bytes_loop=peak_l)
+               peak_bytes_fused=peak_f2, peak_bytes_loop=peak_l)
     if u8:  # the f32 radiance too, through one more render each way
         f32 = {k: v for k, v in kw.items() if k != "transfer"}
         a = Renderer(cfg, **f32).render(scene, seed=SEED)
@@ -191,10 +241,43 @@ def compare_sweeps(setup: dict, reps: int = 3) -> dict:
                 peak_bytes_fused=peak_f, peak_bytes_loop=peak_l)
 
 
+POOL_SCENES = ("perlin_sphere", "simple_light", "earth")
+
+
+def compare_pools(dev, reps: int = 3, config5: bool = False) -> dict:
+    """:func:`compare_renders` of the pool schedule (u8 transfer, one
+    window) on the bench, bouncing_spheres_64 and :data:`POOL_SCENES` at
+    their registry configurations, and with ``config5`` on BASELINE
+    config 5 (f32, 25 windows of 20 spp; one render a mode)."""
+    from chip_smoke import bouncing_spheres_64
+    from raytracing_tpu_torch import build
+
+    kw = dict(max_rays_per_launch=1 << 18, transfer="u8", schedule="pool")
+    rows = {}
+    scene, cfg = build("bouncing_spheres", device=dev, image_width=400, samples_per_pixel=100,
+                       max_depth=20)
+    rows["bench_pool"] = compare_renders(scene, cfg, kw, reps)
+    scene, cfg = bouncing_spheres_64(dev)
+    rows["bouncing_spheres_64_pool"] = compare_renders(scene, cfg, kw, reps)
+    for name in POOL_SCENES:
+        scene, cfg = build(name, device=dev)
+        rows[f"{name}_pool"] = compare_renders(scene, cfg, kw, reps)
+    del scene
+    if config5:
+        torch.cuda.empty_cache()
+        scene, cfg = build("bouncing_spheres", device=dev, image_width=1200,
+                           samples_per_pixel=500, max_depth=50)
+        rows["config5_pool"] = compare_renders(scene, cfg, dict(schedule="pool"), 1)
+        del scene
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--config5", action="store_true")
+    ap.add_argument("--pool", action="store_true", help="the pool schedule's renders")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -208,6 +291,8 @@ def main() -> int:
     name = card()
     print(f"time_fused: {name} torch {torch.__version__}")
     _kernels.library()
+    if args.pool:
+        return _report(name, compare_pools(dev, args.reps, args.config5), args.out)
     rows = {}
     scene, cfg = build("bouncing_spheres", device=dev, image_width=400, samples_per_pixel=100,
                        max_depth=20)
@@ -234,11 +319,15 @@ def main() -> int:
         s["plan"]()
         rows["config5_sweep"] = compare_sweeps(s, 1)
         del s
+    return _report(name, rows, args.out)
+
+
+def _report(name: str, rows: dict, out) -> int:
     for k, v in rows.items():
         print(f"{k}: {json.dumps(v)} [{name}]")
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps(dict(card=name, rows=rows)) + "\n")
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text(json.dumps(dict(card=name, rows=rows)) + "\n")
     return 0
 
 

@@ -20,11 +20,13 @@ checked for the same work. With ``--renders N`` it then times the bench
 render (400x225, 100 spp, depth 20, seed 7, u8 transfer) N times in each
 schedule, in turns: the phased one ([2, 2, 3, 4, 9] with planned
 prefixes) and the pool, after a warm-up of each (host clock through the
-copy of the image to the host, as ``RenderResult.seconds``).
+copy of the image to the host, as ``RenderResult.seconds``), and prints
+a hash of each schedule's u8 and f32 images.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib
 import inspect
 import json
@@ -97,7 +99,15 @@ def main() -> int:
         for _ in range(args.renders):
             for k, r in renderers.items():
                 seconds[k].append(r.render(scene, seed=SEED).seconds)
-        print(json.dumps(dict(scene="bench", renders=seconds, segments=segments, card=card)))
+        # the images' bytes, u8 and f32, for two checkouts to compare
+        sha = {k: hashlib.sha256(r.render(scene, seed=SEED).u8.tobytes()).hexdigest()[:16]
+               for k, r in renderers.items()}
+        sha_f32 = {k: hashlib.sha256(pkg.Renderer(cfg, **{**kw, **extra, "transfer": "f32"})
+                                     .render(scene, seed=SEED).radiance.tobytes()).hexdigest()[:16]
+                   for k, extra in (("phased", dict(phased, phase_prefixes=pref)),
+                                    ("pool", dict(schedule="pool")))}
+        print(json.dumps(dict(scene="bench", renders=seconds, segments=segments, u8_sha256=sha,
+                              f32_sha256=sha_f32, card=card)))
     return 0
 
 
