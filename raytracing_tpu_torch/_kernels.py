@@ -106,6 +106,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rt_table_gather.restype = ctypes.c_int
     lib.rt_table_fold.argtypes = [P, P, P, I, I, I, I, P, P]
     lib.rt_table_fold.restype = ctypes.c_int
+    lib.rt_bvh_walk.argtypes = [P, P, P, I, P, P, P, P, I, P, P, P, I, P, P, P, P, P, P, P, F,
+                                F, I, P, P, P]
+    lib.rt_bvh_walk.restype = ctypes.c_int
     lib.rt_while_build.argtypes = [P, P, ctypes.POINTER(P)]
     lib.rt_while_build.restype = ctypes.c_int
     lib.rt_while_launch.argtypes = [P, P]

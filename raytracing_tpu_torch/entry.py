@@ -243,13 +243,14 @@ def card_modes(device, spec: dict) -> dict:
     """The sharded renders ``chip_smoke.py`` holds on the card, on this
     rank: for every entry of ``spec`` (name → dict(mesh=(sizes, names),
     scene, width, spp, depth, hit)) the render's image and segments, its
-    wall (after one warm-up) and this rank's kernel launches in the timed
-    render."""
+    wall (after one warm-up) and this rank's kernel launches (K1, K5 and
+    the BVH walk) in the timed render."""
     import time
 
     from .models.scenes import build
     from .ops import megakernel_block as mb
     from .ops import megakernel_group as mg
+    from .ops import traverse
     from .parallel.mesh import barrier, make_mesh
     from .parallel.shard import render_sharded
 
@@ -264,11 +265,11 @@ def card_modes(device, spec: dict) -> dict:
                            samples_per_pixel=c["spp"], max_depth=c["depth"])
         render_sharded(scene, cfg, mesh, seed=c.get("seed", 7), hit_method=c["hit"])
         barrier(mesh)
-        mb.launches.reset()
-        mg.launches.reset()
+        for count in (mb.launches, mg.launches, traverse.launches):
+            count.reset()
         t0 = time.perf_counter()
         img, segs = render_sharded(scene, cfg, mesh, seed=c.get("seed", 7), hit_method=c["hit"])
         wall = time.perf_counter() - t0
         out[name] = dict(img=img, segments=segs, seconds=wall, K1=int(mb.launches),
-                         K5=int(mg.launches), rank=mesh.rank)
+                         K5=int(mg.launches), walk=int(traverse.launches), rank=mesh.rank)
     return out

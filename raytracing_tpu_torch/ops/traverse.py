@@ -1,20 +1,26 @@
-"""Stackless lockstep BVH traversal in plain PyTorch, the counterpart of
-``raytracing_tpu.ops.traverse``.
+"""The integrator's closest hit by the scene's skip-link BVH, the
+counterpart of ``raytracing_tpu.ops.traverse``.
 
-Every ray of the batch walks the flattened skip-link BVH (ops/bvh.py) in
-lockstep: each iteration, every live ray fetches its current node (a
-gather), slab-tests the node's box against its ``(t_min, t_best)``
+Every ray walks the flattened skip-link BVH (ops/bvh.py) from node 0: at
+each node it slab-tests the node's box against its ``(t_min, t_best)``
 interval, intersects the leaf primitive if any, and advances through the
-hit/miss links. ``t_best`` shrinks monotonically, giving the closest-so-far
-pruning of the reference's recursive traversal
+hit/miss links, until its node is -1. ``t_best`` shrinks monotonically,
+giving the closest-so-far pruning of the reference's recursive traversal
 (src/accelerator/bvh_node.hpp:83-90) without recursion or stacks.
 
-The walk ends when every ray's node is -1; divergence costs iterations
-(the longest walk of the batch), not correctness. A dead ray's node stays
--1, so iterations past its end change nothing: on the card the walk asks
-the host whether any ray lives only every :data:`CHECK_EVERY` iterations
-(each ask is a host sync). The megakernels (K1, K5) carry their own walk
-of a chunked BVH; this one is the integrator's.
+:func:`walk` runs it. On CUDA tensors it launches ``rt_bvh_walk``
+(``csrc/bvh_walk.cu``), a hand-written kernel that walks one ray a thread
+in one launch with no host read, so a captured launch program
+(``render/graphs.py``) holds it; each launch adds one to
+:data:`launches`. On CPU tensors it runs the plain version,
+:func:`_traverse`, which steps every ray of the batch in lockstep, as the
+JAX package's ``lax.while_loop`` does: a ray's walk depends only on its
+own inputs and the BVH, and a dead ray's node stays -1, so both visit the
+same nodes in the same order and give the same winner and ``t``, bit for
+bit. Run on the card as the kernel's reference, the plain walk asks the
+host whether any ray lives every :data:`CHECK_EVERY` iterations (each ask
+is a host sync). The megakernels (K1, K5) carry their own walk of a
+chunked BVH; this one is the integrator's.
 
 Candidate roots use the brute-force sweep's arithmetic
 (``ops.intersect.sphere_ts``/``quad_ts``: the same sums, ``sqrt_rn`` and
@@ -26,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import _kernels
 from ..core import interval as iv
 from ..core import vecmath as vm
 from ..scene.types import Scene
@@ -33,9 +40,10 @@ from .intersect import (BIG, PARALLEL_EPS, T_MIN, HitBatch, hit_attributes, quad
                         safe_sqrt_rn)
 
 _DIR_EPS = 1e-20  # clamp for axis-parallel slab reciprocals
-CHECK_EVERY = 16  # walk iterations between two live-ray checks on the card
+CHECK_EVERY = 16  # the plain walk's iterations between two live-ray checks on the card
 
-# walk counters: calls of closest_hit_bvh, walk iterations, host syncs
+launches = _kernels.LaunchCount()  # rt_bvh_walk launches (plain-version calls excluded)
+# counters: calls of closest_hit_bvh, the plain walk's iterations and host syncs
 stats = dict(calls=0, iterations=0, syncs=0)
 
 
@@ -107,8 +115,10 @@ def _quad_t(scene: Scene, basis, qid, o, d, t_lo, t_hi):
     return torch.where(hit, t, BIG)
 
 
-def _traverse(scene: Scene, o, d, time, t_min, t_max):
-    """The lockstep skip-link walk; returns (best_prim (B,) i64, t_best (B,))."""
+def _traverse(scene: Scene, o, d, time, t_min, t_max, counts=None):
+    """The plain walk, every ray in lockstep: (best_prim (B,) i64, t_best
+    (B,) f32). ``counts``, a (3, B) int64 tensor, receives each ray's node
+    visits (slab tests), sphere tests and quad tests."""
     bvh = scene.bvh
     n_sph, n_quad = scene.n_spheres, scene.n_quads
     B, dev = o.shape[0], o.device
@@ -150,6 +160,11 @@ def _traverse(scene: Scene, o, d, time, t_min, t_max):
             t_q = _quad_t(scene, basis, torch.clamp(prim - n_sph, 0, n_quad - 1), o, d,
                           t_min, t_best)
             t_prim = torch.where(prim >= n_sph, t_q, t_prim) if has_sph else t_q
+        if counts is not None:
+            tested = is_leaf & box_hit
+            counts[0] += live
+            counts[1] += tested & (prim < n_sph)
+            counts[2] += tested & (prim >= n_sph)
         improve = is_leaf & box_hit & (t_prim < t_best)
         t_best = torch.where(improve, t_prim, t_best)
         best_prim = torch.where(improve, prim, best_prim)
@@ -159,11 +174,74 @@ def _traverse(scene: Scene, o, d, time, t_min, t_max):
     return best_prim, t_best
 
 
+def kernel_args(scene: Scene, o: torch.Tensor, d: torch.Tensor, time: torch.Tensor,
+                t_min: float, t_max: float):
+    """``rt_bvh_walk``'s inputs for these rays, on their device: ``(tensors,
+    args)``, where ``args`` are its arguments before the outputs and
+    ``tensors`` the contiguous tensors its pointers point into (the
+    caller keeps them alive until the launch)."""
+    bvh, sph, qd = scene.bvh, scene.spheres, scene.quads
+    B = o.shape[0]
+    if o.shape != (B, 3) or d.shape != (B, 3) or time.shape != (B,):
+        raise ValueError(f"the walk takes o, d (B, 3) and time (B,), got {tuple(o.shape)}, "
+                         f"{tuple(d.shape)}, {tuple(time.shape)}")
+    normal, dconst, w, degen = quad_plane_basis(qd)
+    floats = (o, d, time, bvh.bbox_min, bvh.bbox_max, sph.center, sph.velocity, sph.radius,
+              normal, dconst, w, qd.q, qd.u, qd.v)
+    if (any(x.dtype != torch.float32 for x in floats) or bvh.prim.dtype != torch.int32
+            or bvh.miss.dtype != torch.int32):
+        raise ValueError("the walk takes float32 rays and scene, and int32 BVH links")
+    if any(x.device != o.device for x in (*floats, bvh.prim, bvh.miss)):
+        raise ValueError("the rays and the scene must be on one device")
+    if B >= 2 ** 31 or bvh.prim.shape[0] >= 2 ** 31:
+        raise ValueError(f"a walk of {B} rays over {bvh.prim.shape[0]} nodes exceeds its "
+                         f"32-bit indexing")
+    o, d, time, bmin, bmax, c, v, r, n, dc, w, q, u, qv = (
+        x.detach().contiguous() for x in floats)
+    degen, prim, miss = degen.contiguous(), bvh.prim.contiguous(), bvh.miss.contiguous()
+    tensors = (o, d, time, bmin, bmax, prim, miss, c, v, r, n, dc, w, degen, q, u, qv)
+    args = (o.data_ptr(), d.data_ptr(), time.data_ptr(), B, bmin.data_ptr(), bmax.data_ptr(),
+            prim.data_ptr(), miss.data_ptr(), prim.shape[0], c.data_ptr(), v.data_ptr(),
+            r.data_ptr(), scene.n_spheres, n.data_ptr(), dc.data_ptr(), w.data_ptr(),
+            degen.data_ptr(), q.data_ptr(), u.data_ptr(), qv.data_ptr(), float(t_min),
+            float(t_max), int(scene.flags.has_moving))
+    return tensors, args
+
+
+def walk(scene: Scene, o: torch.Tensor, d: torch.Tensor, time: torch.Tensor,
+         t_min: float = T_MIN, t_max: float = BIG):
+    """The walk of ``scene.bvh`` for rays ``o, d (B, 3)`` f32 at ``time
+    (B,)``: (best_prim (B,) i64, -1 on a miss; t_best (B,) f32, ``t_max``
+    on a miss). CPU tensors run the plain version; CUDA tensors launch
+    ``rt_bvh_walk``, or raise. No gradient flows through it."""
+    dev = o.device
+    if dev.type == "cpu":
+        return _traverse(scene, o, d, time, t_min, t_max)
+    if dev.type != "cuda":
+        raise ValueError(f"the BVH walk runs on CUDA tensors (kernel) or CPU tensors (plain "
+                         f"version), not {dev}")
+    _alive, args = kernel_args(scene, o, d, time, t_min, t_max)  # kept until the launch
+    B = o.shape[0]
+    best_prim = torch.empty(B, dtype=torch.int64, device=dev)
+    t_best = torch.empty(B, dtype=torch.float32, device=dev)
+    if B == 0:
+        return best_prim, t_best
+    lib = _kernels.library().lib
+    with torch.cuda.device(dev):
+        err = lib.rt_bvh_walk(*args, best_prim.data_ptr(), t_best.data_ptr(),
+                              torch.cuda.current_stream(dev).cuda_stream)
+    launches.add(dev)
+    if err != 0:
+        raise RuntimeError(f"rt_bvh_walk launch failed: {lib.rt_error_string(err).decode()}")
+    return best_prim, t_best
+
+
 def closest_hit_bvh(scene: Scene, o: torch.Tensor, d: torch.Tensor, time: torch.Tensor,
                     t_min: float = T_MIN, t_max: float = BIG) -> HitBatch:
     """Closest hit by the lockstep skip-link walk of ``scene.bvh``.
 
-    The walk runs under ``torch.no_grad()`` on detached inputs: which
+    The walk (:func:`walk`: the kernel on the card, the plain version on
+    the CPU) runs under ``torch.no_grad()`` on detached inputs: which
     primitive wins is a discrete decision with no useful derivative. The
     winner's ``t`` and hit attributes are then recomputed with autograd,
     so gradients flow to geometry and material parameters as in the
@@ -172,7 +250,7 @@ def closest_hit_bvh(scene: Scene, o: torch.Tensor, d: torch.Tensor, time: torch.
         raise ValueError("scene was compiled without a BVH")
     stats["calls"] += 1
     with torch.no_grad():
-        best_prim, _ = _traverse(scene, o.detach(), d.detach(), time.detach(), t_min, t_max)
+        best_prim, _ = walk(scene, o.detach(), d.detach(), time.detach(), t_min, t_max)
     # the winner's t with autograd (the same nearest-valid-root selection;
     # the unclipped upper bound picks the identical root)
     n_sph = scene.n_spheres

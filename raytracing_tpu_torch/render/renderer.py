@@ -10,7 +10,8 @@
   (``mode="scan"``, no remat: the forward render records no autograd);
   it renders every scene, phased launches only;
 * ``"bvh"``: the same integrator with the closest hit of the scene's BVH
-  (``ops/traverse.py``); it raises on a scene compiled without one;
+  (``ops/traverse.py``: on the card one ``rt_bvh_walk`` launch a bounce);
+  it raises on a scene compiled without one;
 * ``"auto"`` (the default): ``"mega"`` when the scene can be expressed in
   the kernels' tables, else ``"bvh"`` when the scene has a BVH and more
   than 64 primitives, else ``"brute"``, decided from the scene alone.
@@ -24,9 +25,9 @@ The megakernel schedules:
   as a CUDA graph (``render/graphs.py``), keyed on (scene, seed, device),
   and replayed once a launch, the launch's offsets read from a device
   counter; the image, segments and ``ok`` cross to the host in one copy
-  at the end. ``fused=False``, ``progress``, ``checkpoint_cb`` and
-  ``hit_method="bvh"`` (whose walk reads the device every few
-  iterations) take the launch loop instead: a Python loop that never
+  at the end; the integrator's methods (``"brute"``, ``"bvh"``) replay
+  theirs the same way. ``fused=False``, ``progress`` and
+  ``checkpoint_cb`` take the launch loop instead: a Python loop that never
   waits on the device until the image is copied to the host at the end,
   unless ``checkpoint_cb`` asks for the state after every sample chunk.
   ``render(resume_state=)`` picks a render up from such a state, bit for
@@ -216,6 +217,7 @@ class Renderer:
         self._tail_programs = graphs.ProgramSlot()  # the pool's shorter last window
         self._mega = None
         self._mega_scene = None
+        self._cameras = {}  # device → (CameraParams, background), made once a device
 
     def _refuse_integrator(self, method: str):
         """The integrator has no pool schedule and no phase prefixes."""
@@ -225,6 +227,17 @@ class Renderer:
         if what is not None:
             raise ValueError(f"{what} belongs to the megakernel (hit_method='mega'); this "
                              f"renderer traces through the integrator (hit_method='{method}')")
+
+    def _camera(self, dev):
+        """The config's ``CameraParams`` and its background as an f32
+        tensor on ``dev``, copied from the host once a device, so that a
+        later render reads and copies nothing from the host until its
+        image comes back."""
+        dev = torch.device(dev)
+        if dev not in self._cameras:
+            self._cameras[dev] = (CameraParams.from_config(self.cfg, dev), torch.tensor(
+                self.cfg.background, dtype=torch.float32, device=dev))
+        return self._cameras[dev]
 
     def resolve_hit_method(self, scene: Scene) -> str:
         """``"mega"``, ``"bvh"`` or ``"brute"``: how :meth:`render` traces
@@ -391,9 +404,9 @@ class Renderer:
         another shape raises. The pool schedule has no sample chunks: it
         refuses both and prints no progress.
 
-        With ``fused`` the phased launches replay one launch program
-        unless ``progress`` or ``checkpoint_cb`` is given or the scene
-        traces through ``"bvh"``, which take the launch loop (as the JAX
+        With ``fused`` the phased launches replay one launch program,
+        whichever hit method traces them, unless ``progress`` or
+        ``checkpoint_cb`` is given, which take the launch loop (as the JAX
         ``Renderer`` keeps its loop for progress and checkpoints), and the
         pool runs each sample window as one launch of a WHILE program. The
         result is the loop's, bit for bit; ``seconds`` leaves out the
@@ -410,8 +423,8 @@ class Renderer:
             mega = self._get_mega(scene)
             dev = mega.sph_sweep.device
         if params is None:
-            params = CameraParams.from_config(cfg, dev)
-        if dev.type == "cuda" and mega is not None:
+            params = self._camera(dev)[0]
+        if dev.type == "cuda" and method != "brute":
             from .. import _kernels
 
             _kernels.library()  # build outside the timed region
@@ -433,7 +446,7 @@ class Renderer:
             return dict(derived=cam_mod.derive(cfg, params), accum=accum,
                         segments=torch.zeros((), dtype=torch.int64, device=dev),
                         ok=torch.ones((), dtype=torch.bool, device=dev),
-                        background=torch.tensor(cfg.background, dtype=torch.float32, device=dev))
+                        background=self._camera(dev)[1])
 
         def step(c, st):
             """Launch ``c``: its radiance added into its block of ``accum``
@@ -463,7 +476,7 @@ class Renderer:
 
         t0 = _time.perf_counter()
         first, total = start * n_blocks, (n_schunks - start) * n_blocks
-        if self.fused and checkpoint_cb is None and not progress and method != "bvh":
+        if self.fused and checkpoint_cb is None and not progress:
             st, capture_s = graphs.over_chunks(
                 self.programs, self._program_key("render", scene, seed, dev), make_state, step,
                 first, total, dev, True)

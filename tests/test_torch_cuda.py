@@ -6,7 +6,9 @@ gather) and the table fold against their plain PyTorch versions (the fold
 against a float64 sum), a render on the card against the same render on
 the CPU, the pool schedule against the phased one, and the fused single
 dispatch (renders, plans and the fwd+bwd sweep replayed as CUDA graphs,
-the pool's windows as WHILE graphs) against the launch loop. Marked
+the pool's windows as WHILE graphs) against the launch loop, and the
+integrator's BVH walk (``rt_bvh_walk``) against its plain version, the
+brute-force closest hit and the loop, renders and gradients. Marked
 ``cuda``; each test skips when no CUDA device is present. On a GPU
 machine:
 
@@ -29,8 +31,9 @@ from raytracing_tpu_torch.render import camera as cam
 from raytracing_tpu_torch.render import pool as pool_mod
 from raytracing_tpu_torch.render.camera import CameraConfig
 from raytracing_tpu_torch.scene.builder import SceneBuilder
-from torch_parity import (K5_EDGE_CASES, deep_scene, deep_scene_config, k5_edge_case,
-                          segments_close, sqrt_grads, sqrt_inputs)
+from torch_parity import (K5_EDGE_CASES, bilinear_grid, bvh_ray_sets, deep_scene,
+                          deep_scene_config, k5_edge_case, noise_row, noise_row_config,
+                          random_rays, random_scene, segments_close, sqrt_grads, sqrt_inputs)
 
 pytestmark = pytest.mark.cuda
 SEED = 7
@@ -572,3 +575,106 @@ def test_fused_sweep_equals_the_loop(dev):
     assert float(lf) == float(ll)
     for a, b in ((gcf, gcl), (grf, grl)):
         assert float((a - b).double().norm()) <= 1e-5 * max(float(b.double().norm()), 1e-30)
+
+
+@pytest.mark.parametrize("case", ["camera", "bounce 1", "random", "moving"])
+def test_bvh_walk_matches_plain_and_brute(dev, case):
+    """``rt_bvh_walk`` against the plain walk (winner and ``t`` bit for
+    bit, one launch a call) and ``closest_hit_bvh`` against the
+    brute-force closest hit (validity equal, ``t`` bit-equal where the
+    primitive is the same, ties at most B/1000)."""
+    from raytracing_tpu_torch.ops import traverse
+    from raytracing_tpu_torch.ops.intersect import BIG, T_MIN, closest_hit_brute
+
+    if case in ("camera", "bounce 1"):
+        scene, cfg = build("bouncing_spheres", device=dev, image_width=160,
+                           samples_per_pixel=2, max_depth=4)
+        o, d, t = bvh_ray_sets(scene, cfg, SEED)[case]
+    else:
+        seed = 7 if case == "moving" else 0
+        scene = random_scene(SceneBuilder(), seed, moving=case == "moving").compile(device=dev)
+        o, d, t = (torch.from_numpy(x).to(dev) for x in random_rays(100 + seed, 4096))
+    before = int(traverse.launches)
+    prim, tb = traverse.walk(scene, o, d, t)
+    assert int(traverse.launches) == before + 1
+    ref_prim, ref_t = traverse._traverse(scene, o, d, t, T_MIN, BIG)
+    assert torch.equal(prim, ref_prim) and torch.equal(tb, ref_t)
+    hv = traverse.closest_hit_bvh(scene, o, d, t)
+    hb = closest_hit_brute(scene, o, d, t)
+    same = hv.prim_id == hb.prim_id
+    assert torch.equal(hv.valid, hb.valid) and torch.equal(hv.t[same], hb.t[same])
+    assert int((~same).sum()) <= o.shape[0] // 1000
+    assert int(hv.valid.sum()) > o.shape[0] // 20
+
+
+def test_fused_bvh_render_equals_the_loop(dev):
+    """``Renderer(hit_method="bvh")`` replays its captured launch with the
+    walk kernel inside, with no host read until the image comes back
+    (``set_sync_debug_mode("error")``), bit-equal to the loop, one walk
+    launch a bounce of every launch; ``"auto"`` takes the same path on an
+    inexpressible scene of more than 64 primitives."""
+    import sys
+    from pathlib import Path
+
+    from raytracing_tpu_torch.ops import traverse
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    from time_fused import no_host_reads
+
+    scene, cfg = build("bouncing_spheres", device=dev, image_width=64, samples_per_pixel=4,
+                       max_depth=6)
+    kw = dict(max_rays_per_launch=2048)
+    fused = Renderer(cfg, hit_method="bvh", **kw)
+    fused.render(scene, seed=SEED)  # captures
+    assert fused.programs.program.graph is not None
+    traverse.launches.reset()
+    with no_host_reads(fused, "render"):
+        a = fused.render(scene, seed=SEED)
+    assert int(traverse.launches) == cfg.max_depth * a.launches
+    traverse.launches.reset()
+    b = Renderer(cfg, hit_method="bvh", fused=False, **kw).render(scene, seed=SEED)
+    assert int(traverse.launches) == cfg.max_depth * b.launches
+    assert (a.segments, a.launches) == (b.segments, b.launches)
+    np.testing.assert_array_equal(a.radiance, b.radiance)
+    c = Renderer(cfg, hit_method="brute", **kw).render(scene, seed=SEED)
+    assert np.abs(a.radiance - c.radiance).mean() < 2e-3
+    assert segments_close(c.segments, a.segments)
+
+    cfg2 = CameraConfig(aspect_ratio=1.0, image_width=48, samples_per_pixel=2, max_depth=3,
+                        vfov=30.0, lookfrom=(0.0, 1.5, 6.0), lookat=(0.0, 0.3, 0.0),
+                        background=(0.7, 0.8, 1.0))
+    s2 = bilinear_grid(SceneBuilder()).compile(device=dev, image_bilinear=True)
+    auto = Renderer(cfg2, **kw)
+    assert auto.resolve_hit_method(s2) == "bvh"
+    x = auto.render(s2, seed=SEED)
+    assert auto.programs.program.graph is not None
+    y = Renderer(cfg2, fused=False, **kw).render(s2, seed=SEED)
+    assert x.segments == y.segments
+    np.testing.assert_array_equal(x.radiance, y.radiance)
+
+
+def test_bvh_render_once_and_grads_equal_brute(dev):
+    """``render_once`` and ``scene_grad`` through ``closest_hit_bvh`` (the
+    kernel) equal those through the brute-force hit, as
+    tests/test_torch_traverse.py holds them on the CPU."""
+    from raytracing_tpu_torch.diff.gradients import render_once, scene_grad
+    from raytracing_tpu_torch.ops import traverse
+    from raytracing_tpu_torch.ops.intersect import closest_hit_brute
+
+    scene = noise_row(SceneBuilder()).compile(device=dev)
+    cfg = noise_row_config(CameraConfig)
+    before = int(traverse.launches)
+    img_bvh = render_once(scene, cfg, seed=4, hit_fn=traverse.closest_hit_bvh)
+    assert int(traverse.launches) == before + cfg.max_depth
+    img_brute = render_once(scene, cfg, seed=4, hit_fn=closest_hit_brute)
+    assert torch.equal(img_bvh, img_brute)
+    target = torch.full((cfg.image_height, cfg.image_width, 3), 0.3, device=dev)
+    g_bvh = scene_grad(scene, target, cfg, seed=4, hit_fn=traverse.closest_hit_bvh)
+    g_brute = scene_grad(scene, target, cfg, seed=4, hit_fn=closest_hit_brute)
+    for group, field in (("spheres", "center"), ("spheres", "radius"), ("textures", "rgb"),
+                         ("quads", "q"), ("materials", "fuzz")):
+        a = getattr(getattr(g_bvh, group), field)
+        r = getattr(getattr(g_brute, group), field)
+        np.testing.assert_allclose(a.cpu().numpy(), r.cpu().numpy(), rtol=1e-5, atol=1e-9,
+                                   err_msg=f"{group}.{field}")
+    assert float(g_brute.spheres.center.abs().sum()) > 0

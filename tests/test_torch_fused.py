@@ -10,6 +10,9 @@ import torch
 from raytracing_tpu_torch import Renderer, build
 from raytracing_tpu_torch import bench as pbench
 from raytracing_tpu_torch.render import graphs
+from raytracing_tpu_torch.render.camera import CameraConfig
+from raytracing_tpu_torch.scene.builder import SceneBuilder
+from torch_parity import bilinear_grid
 
 torch.set_num_threads(2)
 SEED = 5
@@ -38,7 +41,8 @@ def _both(cfg, scene, **kw):
 
 @pytest.mark.parametrize("name,method", [("three_spheres", "mega"), ("cornell_box", "mega"),
                                          ("bouncing_spheres", "mega"),
-                                         ("three_spheres", "brute")])
+                                         ("three_spheres", "brute"),
+                                         ("bouncing_spheres", "bvh")])
 def test_fused_render_equals_loop(name, method):
     """f32 radiance, u8 bytes, segments, ok and launches, bit for bit,
     without prefixes, with planned ones and with undersized ones (which
@@ -61,6 +65,20 @@ def test_fused_render_equals_loop(name, method):
     fused, loop, _ = _both(cfg, scene, phase_prefixes=small, strict_prefixes=False)
     _equal(fused, loop)
     assert fused.ok is False
+
+
+def test_fused_auto_bvh_equals_loop():
+    """``"auto"`` on a scene the megakernels cannot express, with a BVH
+    over more than 64 primitives, takes the BVH integrator and renders it
+    through the launch program, bit for bit with the loop."""
+    cfg = CameraConfig(aspect_ratio=1.0, image_width=48, samples_per_pixel=2, max_depth=3,
+                       vfov=30.0, lookfrom=(0.0, 1.5, 6.0), lookat=(0.0, 0.3, 0.0),
+                       background=(0.7, 0.8, 1.0))
+    scene = bilinear_grid(SceneBuilder()).compile(device="cpu", image_bilinear=True)
+    fused, loop, r = _both(cfg, scene)
+    assert r.resolve_hit_method(scene) == "bvh" and r.programs.program is not None
+    _equal(fused, loop)
+    assert fused.launches == 4 and 0.05 < float(fused.radiance.mean()) < 1.0
 
 
 def test_fused_resume_equals_whole_render_and_progress_takes_the_loop(capsys):

@@ -34,24 +34,11 @@ from raytracing_tpu_torch.ops.intersect import closest_hit_brute
 from raytracing_tpu_torch.render.camera import CameraConfig
 from raytracing_tpu_torch.scene.assets import read_ppm
 from raytracing_tpu_torch.scene.builder import SceneBuilder as PBuilder
-from torch_parity import jit_run, port_scene, segments_close, t
+from torch_parity import (AXIS_RAYS, bilinear_grid, box_scene, jit_run, port_scene, noise_row,
+                          noise_row_config, random_rays, random_scene, segments_close, t)
 
 torch.set_num_threads(2)
 BVH_FIELDS = ("bbox_min", "bbox_max", "prim", "miss")
-
-
-def _random_scene(b, seed, n_spheres=40, n_quads=10, moving=False):
-    """tests/test_bvh.py's random scene in a SceneBuilder of either package."""
-    rng = np.random.default_rng(seed)
-    m = b.lambertian((0.5, 0.5, 0.5))
-    for _ in range(n_spheres):
-        c = rng.uniform(-10, 10, 3)
-        c2 = c + rng.uniform(-0.5, 0.5, 3) if moving and rng.random() < 0.5 else None
-        b.sphere(tuple(c), rng.uniform(0.1, 2.0), m, center2=None if c2 is None else tuple(c2))
-    for _ in range(n_quads):
-        b.quad(tuple(rng.uniform(-10, 10, 3)), tuple(rng.uniform(-3, 3, 3)),
-               tuple(rng.uniform(-3, 3, 3)), m)
-    return b
 
 
 def _single(b):
@@ -60,9 +47,9 @@ def _single(b):
 
 
 BUILDS = {
-    "random": lambda b: _random_scene(b, 0),
-    "moving": lambda b: _random_scene(b, 7, moving=True),
-    "quads_only": lambda b: _random_scene(b, 4, n_spheres=0, n_quads=17),
+    "random": lambda b: random_scene(b, 0),
+    "moving": lambda b: random_scene(b, 7, moving=True),
+    "quads_only": lambda b: random_scene(b, 4, n_spheres=0, n_quads=17),
     "single": _single,
 }
 
@@ -153,21 +140,12 @@ def test_registry_bvh_equals_jax(name):
     assert (build(name, device="cpu")[0].bvh is None) == (name != "bouncing_spheres")
 
 
-def _rays(seed, n=512):
-    rng = np.random.default_rng(seed)
-    return (rng.uniform(-15, 15, (n, 3)).astype(np.float32),
-            rng.normal(size=(n, 3)).astype(np.float32), rng.random(n).astype(np.float32))
-
-
-AXIS_RAYS = (np.array([[0, 0, 20], [20, 0, 0], [0, 20, 0], [-20, 0, 0]], np.float32),
-             np.array([[0, 0, -1], [-1, 0, 0], [0, -1, 0], [1, 0, 0]], np.float32),
-             np.zeros(4, np.float32))
 WALK_CASES = {
-    "seed0": (lambda b: _random_scene(b, 0), lambda: _rays(100)),
-    "seed1": (lambda b: _random_scene(b, 1), lambda: _rays(101)),
-    "seed2": (lambda b: _random_scene(b, 2), lambda: _rays(102)),
-    "moving": (lambda b: _random_scene(b, 7, moving=True), lambda: _rays(200)),
-    "axis_parallel": (lambda b: _random_scene(b, 3), lambda: AXIS_RAYS),
+    "seed0": (lambda b: random_scene(b, 0), lambda: random_rays(100)),
+    "seed1": (lambda b: random_scene(b, 1), lambda: random_rays(101)),
+    "seed2": (lambda b: random_scene(b, 2), lambda: random_rays(102)),
+    "moving": (lambda b: random_scene(b, 7, moving=True), lambda: random_rays(200)),
+    "axis_parallel": (lambda b: random_scene(b, 3), lambda: AXIS_RAYS),
 }
 
 
@@ -215,15 +193,8 @@ def test_render_once_grads_bvh_equal_brute():
     the brute-force hit (the same winners; the sums over rays run in
     another order), on a scene with marble noise, whose geometry
     gradients are non-zero."""
-    b = PBuilder()
-    b.sphere((0.0, -1000.0, 0.0), 1000.0, b.lambertian(b.noise(4.0)))
-    for k in range(5):
-        b.sphere((1.2 * k - 2.4, 0.5, 0.0), 0.5, b.lambertian(b.noise(2.0 + k)))
-    b.quad((-3, 0, -2), (6, 0, 0), (0, 3, 0), b.metal((0.8, 0.7, 0.6), 0.2))
-    scene = b.compile(device="cpu")
-    cfg = CameraConfig(aspect_ratio=1.0, image_width=16, samples_per_pixel=2, max_depth=3,
-                       vfov=40.0, lookfrom=(0.0, 2.0, 7.0), lookat=(0.0, 0.5, 0.0),
-                       background=(0.7, 0.8, 1.0))
+    scene = noise_row(PBuilder()).compile(device="cpu")
+    cfg = noise_row_config(CameraConfig)
     target = torch.full((cfg.image_height, cfg.image_width, 3), 0.3)
     g_bvh = scene_grad(scene, target, cfg, seed=4, hit_fn=traverse.closest_hit_bvh)
     g_brute = scene_grad(scene, target, cfg, seed=4, hit_fn=closest_hit_brute)
@@ -236,31 +207,16 @@ def test_render_once_grads_bvh_equal_brute():
     assert float(g_brute.spheres.center.abs().sum()) > 0
 
 
-OFF = (130.0, 7.5, -65.25)
-
-
-def _box(b, translated):
-    white = b.lambertian((0.73, 0.73, 0.73))
-    if translated:
-        with b.translate(OFF):
-            b.box((0, 0, 0), (165, 165, 165), white)
-            b.sphere((10, 20, 30), 40.0, white)
-    else:
-        b.box(np.add((0, 0, 0), OFF), np.add((165, 165, 165), OFF), white)
-        b.sphere(np.add((10, 20, 30), OFF), 40.0, white)
-    return b
-
-
 def test_translate_tables_and_bvh():
     """tests/test_translate.py's case: a box built inside ``translate``
     compiles to the tables and BVH of the same box baked at the offset, bit
     for bit, and to the JAX package's BVH."""
-    baked = _box(PBuilder(), False).compile(device="cpu")
-    moved = _box(PBuilder(), True).compile(device="cpu")
+    baked = box_scene(PBuilder(), False).compile(device="cpu")
+    moved = box_scene(PBuilder(), True).compile(device="cpu")
     for a, m in ((baked.quads.q, moved.quads.q), (baked.quads.u, moved.quads.u),
                  (baked.spheres.center, moved.spheres.center)):
         assert bool(torch.equal(a, m))
-    ref = _bvh_arrays(_box(JBuilder(), True).compile())
+    ref = _bvh_arrays(box_scene(JBuilder(), True).compile())
     for f in BVH_FIELDS:
         assert bool(torch.equal(getattr(baked.bvh, f), getattr(moved.bvh, f))), f
         np.testing.assert_array_equal(getattr(moved.bvh, f).numpy(), ref[f], err_msg=f)
@@ -303,19 +259,6 @@ def test_renderer_bvh_matches_jax():
             build("bouncing_spheres", device="cpu", use_bvh=False, **CAMERA)[0], seed=5)
 
 
-def _bilinear_grid(b):
-    """A bilinear-filtered image on a sphere among 80 small spheres: more
-    than 64 primitives that the megakernels' tables cannot express."""
-    img = np.random.default_rng(5).random((6, 9, 3)).astype(np.float32)
-    b.sphere((0.0, -100.0, 0.0), 99.5, b.lambertian((0.5, 0.5, 0.5)))
-    b.sphere((0.0, 0.3, 0.0), 0.8, b.lambertian(b.image(img)))
-    rng = np.random.default_rng(6)
-    for k in range(80):
-        b.sphere((rng.uniform(-4, 4), -0.35, rng.uniform(-4, 1)), 0.15,
-                 b.lambertian(tuple(rng.random(3))))
-    return b
-
-
 def test_auto_resolves_bvh():
     """``"auto"`` takes the BVH on an inexpressible scene with a BVH and
     more than 64 primitives (the JAX ``Renderer`` off the CPU), and the
@@ -323,10 +266,10 @@ def test_auto_resolves_bvh():
     cfg = CameraConfig(aspect_ratio=1.0, image_width=16, samples_per_pixel=2, max_depth=3,
                        vfov=30.0, lookfrom=(0.0, 1.5, 6.0), lookat=(0.0, 0.3, 0.0),
                        background=(0.7, 0.8, 1.0))
-    scene = _bilinear_grid(PBuilder()).compile(device="cpu", image_bilinear=True)
+    scene = bilinear_grid(PBuilder()).compile(device="cpu", image_bilinear=True)
     assert scene.n_primitives > 64
     assert Renderer(cfg).resolve_hit_method(scene) == "bvh"
-    no_bvh = _bilinear_grid(PBuilder()).compile(device="cpu", image_bilinear=True,
+    no_bvh = bilinear_grid(PBuilder()).compile(device="cpu", image_bilinear=True,
                                                 use_bvh=False)
     assert Renderer(cfg).resolve_hit_method(no_bvh) == "brute"
     traverse.reset_stats()

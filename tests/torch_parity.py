@@ -216,3 +216,99 @@ def k5_edge_case(case: str, device="cpu"):
     idx = torch.arange(n, dtype=torch.int32, device=device)
     ray_f, ray_i = pack_rays(o, d, torch.zeros(n, device=device), idx, torch.zeros_like(idx))
     return build_mega_scene(scene), ray_f, ray_i
+
+
+def random_scene(b, seed: int, n_spheres: int = 40, n_quads: int = 10, moving: bool = False):
+    """tests/test_bvh.py's random scene in a SceneBuilder of either package."""
+    rng = np.random.default_rng(seed)
+    m = b.lambertian((0.5, 0.5, 0.5))
+    for _ in range(n_spheres):
+        c = rng.uniform(-10, 10, 3)
+        c2 = c + rng.uniform(-0.5, 0.5, 3) if moving and rng.random() < 0.5 else None
+        b.sphere(tuple(c), rng.uniform(0.1, 2.0), m, center2=None if c2 is None else tuple(c2))
+    for _ in range(n_quads):
+        b.quad(tuple(rng.uniform(-10, 10, 3)), tuple(rng.uniform(-3, 3, 3)),
+               tuple(rng.uniform(-3, 3, 3)), m)
+    return b
+
+
+def random_rays(seed: int, n: int = 512):
+    """(o, d, time) numpy f32 rays through :func:`random_scene`'s volume."""
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(-15, 15, (n, 3)).astype(np.float32),
+            rng.normal(size=(n, 3)).astype(np.float32), rng.random(n).astype(np.float32))
+
+
+# rays along the axes: two direction components are 0 (the walk's 1e-20 clamp)
+AXIS_RAYS = (np.array([[0, 0, 20], [20, 0, 0], [0, 20, 0], [-20, 0, 0]], np.float32),
+             np.array([[0, 0, -1], [-1, 0, 0], [0, -1, 0], [1, 0, 0]], np.float32),
+             np.zeros(4, np.float32))
+BOX_OFFSET = (130.0, 7.5, -65.25)
+
+
+def box_scene(b, translated: bool):
+    """tests/test_translate.py's box and sphere at BOX_OFFSET: built inside
+    ``translate`` or baked at the offset."""
+    white = b.lambertian((0.73, 0.73, 0.73))
+    if translated:
+        with b.translate(BOX_OFFSET):
+            b.box((0, 0, 0), (165, 165, 165), white)
+            b.sphere((10, 20, 30), 40.0, white)
+    else:
+        b.box(np.add((0, 0, 0), BOX_OFFSET), np.add((165, 165, 165), BOX_OFFSET), white)
+        b.sphere(np.add((10, 20, 30), BOX_OFFSET), 40.0, white)
+    return b
+
+
+def bilinear_grid(b):
+    """A bilinear-filtered image on a sphere among 80 small spheres: more
+    than 64 primitives that the megakernels' tables cannot express."""
+    img = np.random.default_rng(5).random((6, 9, 3)).astype(np.float32)
+    b.sphere((0.0, -100.0, 0.0), 99.5, b.lambertian((0.5, 0.5, 0.5)))
+    b.sphere((0.0, 0.3, 0.0), 0.8, b.lambertian(b.image(img)))
+    rng = np.random.default_rng(6)
+    for k in range(80):
+        b.sphere((rng.uniform(-4, 4), -0.35, rng.uniform(-4, 1)), 0.15,
+                 b.lambertian(tuple(rng.random(3))))
+    return b
+
+
+def bvh_ray_sets(scene, cfg, seed: int = 7) -> dict:
+    """Ray sets for the integrator's BVH walk, as (o, d, time) on the
+    scene's device: ``"camera"``, the camera rays of a ``Renderer``'s
+    first launch, and ``"bounce 1"``, the rays leaving their first bounce
+    (the live ones after one brute-force bounce)."""
+    from raytracing_tpu_torch.ops.intersect import closest_hit_brute
+    from raytracing_tpu_torch.render import camera as cam
+    from raytracing_tpu_torch.render import integrator
+    from raytracing_tpu_torch.render.renderer import Renderer, chunk_rays
+
+    dev = scene.spheres.radius.device
+    r = Renderer(cfg, hit_method="bvh")
+    o, d, t, pix, smp, _, alive = chunk_rays(
+        cfg, cam.derive(cfg, cam.CameraParams.from_config(cfg, dev)), 0, 0, seed,
+        n_block=r.n_block, spp_chunk=r.spp_chunk, has_moving=scene.flags.has_moving,
+        device=dev)
+    background = torch.tensor(cfg.background, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        st = integrator._bounce_once(scene, background, seed, closest_hit_brute,
+                                     integrator.initial_state(o, d, t, pix, smp, alive), 0)
+    live = st[7]
+    return {"camera": (o, d, t), "bounce 1": tuple(x[live].contiguous() for x in st[:3])}
+
+
+def noise_row(b):
+    """tests/test_torch_traverse.py's gradient scene: marble spheres on a
+    marble ground and a metal quad, whose geometry gradients are
+    non-zero."""
+    b.sphere((0.0, -1000.0, 0.0), 1000.0, b.lambertian(b.noise(4.0)))
+    for k in range(5):
+        b.sphere((1.2 * k - 2.4, 0.5, 0.0), 0.5, b.lambertian(b.noise(2.0 + k)))
+    b.quad((-3, 0, -2), (6, 0, 0), (0, 3, 0), b.metal((0.8, 0.7, 0.6), 0.2))
+    return b
+
+
+def noise_row_config(config_cls):
+    return config_cls(aspect_ratio=1.0, image_width=16, samples_per_pixel=2, max_depth=3,
+                      vfov=40.0, lookfrom=(0.0, 2.0, 7.0), lookat=(0.0, 0.5, 0.0),
+                      background=(0.7, 0.8, 1.0))

@@ -1,25 +1,39 @@
-"""The integrator's BVH walk (``ops/traverse.closest_hit_bvh``, plain
-PyTorch) against the brute-force closest hit on the card.
+"""The integrator's BVH walk on the card: the kernel (``rt_bvh_walk``,
+``ops/traverse.walk``) beside the plain lockstep walk and the brute-force
+closest hit, and whole renders through ``hit_method="bvh"``.
 
-    python3 tools/time_bvh_walk.py [--reps N] [--checks 1,4,16,64]
+    python3 tools/time_bvh_walk.py [--reps N] [--checks 1,16] [--full]
 
 On bouncing_spheres at 400x225, 4 spp, depth 8 (``chip_smoke.py`` phase
-26's configuration) it prints the card's name and power limit, then one
-JSON line per ray set and check interval: the camera rays of the first
-launch (B = 180,224) and the rays leaving their first bounce (the live
-ones, after one brute-force bounce), each walked with the live-ray check
-every ``k`` iterations (``traverse.CHECK_EVERY``) for each ``k`` of
-``--checks``, in mirrored turns: wall ms through a synchronize (mean over
-``--reps``), walk iterations and host syncs, and the brute-force hit on
-the same rays. One profiled walk a ray set (at the default ``k``) gives
-the device kernels a walk iteration launches and the device's busy share.
-Then whole renders through ``hit_method="bvh"`` at each ``k`` and
-``"brute"``, in turns, with their walls. Every walk's winners are held
-equal to the brute force's (ties counted).
+26's cut configuration) it prints the card's name and power limit, then
+one JSON line per ray set (``tests/torch_parity.bvh_ray_sets``): the
+camera rays of the first launch (B = 180,224) and the rays leaving their
+first bounce (the live ones, after one brute-force bounce). Each line
+has the kernel's device ms (its launch alone, queued behind a spin
+kernel: ``chip_smoke.device_ms``), its
+winners and ``t`` against the plain walk's (bit for bit), its bound
+(``chip_smoke.bound``: operations counted from the plain walk's visits,
+sphere tests and quad tests on the same rays, bytes as o, d, time in and
+t, prim out); the plain walk's wall ms with its live-ray check every
+``k`` iterations for each ``k`` of ``--checks`` (``traverse.CHECK_EVERY``:
+the plain walk's only; the kernel reads nothing back), its iterations and
+host syncs; and the brute-force hit's wall ms, with
+``closest_hit_bvh`` (the kernel) against it: validity equal, ``t``
+bit-equal where the primitive is the same, ties counted. Then whole
+renders, in turns: ``"bvh"`` fused (the default; after its capture each
+render runs under ``torch.cuda.set_sync_debug_mode("error")`` until its
+copy to the host: ``time_fused.no_host_reads``), ``"bvh"`` looped
+(``fused=False``) and ``"brute"`` fused, with walls, segments and the
+walk's launches, fused and looped held bit-equal. ``--full`` adds the
+bench configuration (400x225, 100 spp, depth 20) through ``"bvh"``
+fused: walls and, from one render under torch.profiler, the device's
+busy share and the walk's device time. ``chip_smoke.py`` phase 26 runs
+the same functions.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -29,8 +43,24 @@ from pathlib import Path
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tests"))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+from time_fused import no_host_reads  # noqa: E402
 
 SEED = 7
+# FP32 operations, counted from csrc/bvh_walk.cu (each add, multiply,
+# compare, min, max, select, sqrt or divide as one; about ±20%)
+OPS_PER_VISIT = 27      # 6 sub, 6 mul, 6 min/max a pair, 4 to reduce, 2 clamps, test, link
+OPS_PER_SPHERE = 40     # moving centre 6, oc 3, b 5, c 6, disc 3, sqrt, roots 5, tests 8, best 2
+OPS_PER_QUAD = 62       # denom 5, plane t 7, point 6, alpha 14, beta 14, tests 14, best 2
+BYTES_PER_RAY = 40      # o, d, time in (28); t, best_prim out (12)
+
+
+def card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def wall_ms(fn, reps):
@@ -44,101 +74,169 @@ def wall_ms(fn, reps):
     return out, (time.perf_counter() - t0) * 1e3 / reps
 
 
+def walk_row(scene, o, d, t, reps: int = 20, checks=(16,)) -> dict:
+    """The kernel against the plain walk and brute force on one ray set."""
+    import chip_smoke
+    from raytracing_tpu_torch import _kernels
+    from raytracing_tpu_torch.ops import traverse
+    from raytracing_tpu_torch.ops.intersect import BIG, T_MIN, closest_hit_brute
+
+    B = o.shape[0]
+    lib = _kernels.library().lib
+    _alive, args = traverse.kernel_args(scene, o, d, t, T_MIN, BIG)  # kept while timed
+    prim = torch.empty(B, dtype=torch.int64, device=o.device)
+    tb = torch.empty(B, dtype=torch.float32, device=o.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        err = lib.rt_bvh_walk(*args, prim.data_ptr(), tb.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"rt_bvh_walk: {lib.rt_error_string(err).decode()}")
+
+    kernel_ms = chip_smoke.device_ms(torch, launch, reps)
+    with torch.no_grad():
+        k_prim, k_t = traverse.walk(scene, o, d, t)
+        counts = torch.zeros((3, B), dtype=torch.int64, device=o.device)
+        default_k = traverse.CHECK_EVERY
+        plain = {}
+        try:
+            for k in [*checks, *checks[::-1]]:
+                traverse.CHECK_EVERY = k
+                traverse.reset_stats()
+                (p_prim, p_t), ms = wall_ms(lambda: traverse._traverse(scene, o, d, t, T_MIN,
+                                                                       BIG), 1)
+                row = plain.setdefault(k, dict(ms=[], iterations=traverse.stats["iterations"] // 2,
+                                               syncs=traverse.stats["syncs"] // 2))
+                row["ms"].append(round(ms, 3))
+        finally:
+            traverse.CHECK_EVERY = default_k
+        traverse._traverse(scene, o, d, t, T_MIN, BIG, counts=counts)
+        hb, brute_ms = wall_ms(lambda: closest_hit_brute(scene, o, d, t, T_MIN), 3)
+        before = int(traverse.launches)
+        hv = traverse.closest_hit_bvh(scene, o, d, t, T_MIN)
+        hit_launches = int(traverse.launches) - before
+    visits, spheres, quads = (int(x) for x in counts.sum(dim=1))
+    ops = visits * OPS_PER_VISIT + spheres * OPS_PER_SPHERE + quads * OPS_PER_QUAD
+    bound_ms, bound_by = chip_smoke.bound(ops, B * BYTES_PER_RAY)
+    same = hv.prim_id == hb.prim_id
+    return dict(
+        B=B, kernel_ms=kernel_ms, plain_ms_by_check=plain, brute_ms=brute_ms,
+        bit_equal=bool(torch.equal(k_prim, p_prim) and torch.equal(k_t, p_t)),
+        max_abs_err=float((k_t - p_t).abs().nan_to_num(0.0).max()) if B else 0.0,
+        valid_equal=bool(torch.equal(hv.valid, hb.valid)),
+        t_equal_where_same=bool(torch.equal(hv.t[same], hb.t[same])),
+        ties=int((~same).sum()), hit_launches=hit_launches, visits=visits,
+        sphere_tests=spheres, quad_tests=quads, visits_per_ray=visits / max(B, 1),
+        bound_ms=bound_ms, bound_by=bound_by)
+
+
+def render_rows(scene, cfg) -> dict:
+    """``"bvh"`` fused (strict after its capture), ``"bvh"`` looped and
+    ``"brute"`` fused, two renders each in mirrored turns after a warm-up
+    each: walls, segments, the walk's launches a render, and whether
+    fused and looped agree bit for bit."""
+    from raytracing_tpu_torch import Renderer
+    from raytracing_tpu_torch.ops import traverse
+
+    r = {"bvh fused": Renderer(cfg, hit_method="bvh"),
+         "bvh loop": Renderer(cfg, hit_method="bvh", fused=False),
+         "brute fused": Renderer(cfg, hit_method="brute")}
+    for x in r.values():
+        x.render(scene, seed=SEED)  # warm-up; the fused ones capture
+    rows = {k: dict(walls=[], walk_launches=[]) for k in r}
+    res = {}
+    order = list(r)
+    for name in order + order[::-1]:
+        ctx = (no_host_reads(r[name], "render") if name == "bvh fused"
+               else contextlib.nullcontext())
+        traverse.launches.reset()
+        with ctx:
+            out = r[name].render(scene, seed=SEED)
+        rows[name]["walls"].append(out.seconds)
+        rows[name]["walk_launches"].append(int(traverse.launches))
+        res.setdefault(name, out)
+    f, lp, br = res["bvh fused"], res["bvh loop"], res["brute fused"]
+    for name, out in res.items():
+        rows[name].update(segments=out.segments, launches=out.launches)
+    rows["bvh fused"]["capture_s"] = r["bvh fused"].programs.program.capture_seconds
+    return dict(rows=rows, fused_equals_loop=bool(
+        (f.radiance == lp.radiance).all() and f.segments == lp.segments
+        and f.launches == lp.launches), mean_abs_err_vs_brute=float(
+        abs(f.radiance - br.radiance).mean()), radiance=f.radiance)
+
+
+def full_width(scene, cfg, reps: int = 2) -> dict:
+    """``"bvh"`` fused at ``cfg``: walls after the capture, the walk's
+    launches a render, and one render under torch.profiler: the device's
+    busy share (kernel time over the render's wall) and the walk's
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracing_tpu_torch import Renderer
+    from raytracing_tpu_torch.ops import traverse
+
+    r = Renderer(cfg, hit_method="bvh")
+    r.render(scene, seed=SEED)  # captures
+    walls = []
+    for _ in range(reps):
+        traverse.launches.reset()
+        with no_host_reads(r, "render"):
+            out = r.render(scene, seed=SEED)
+        walls.append(out.seconds)
+    launches = int(traverse.launches)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        r.render(scene, seed=SEED)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    kernels = [e for e in p.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    walk = [e for e in kernels if "bvh_walk" in e.key]
+    return dict(walls=walls, segments=out.segments, launches=out.launches,
+                walk_launches=launches, capture_s=r.programs.program.capture_seconds,
+                profiled_wall_s=prof_s, device_busy_ms=busy_ms,
+                busy_share=busy_ms / (prof_s * 1e3),
+                walk_device_ms=sum(e.self_device_time_total for e in walk) / 1e3,
+                walk_kernels_profiled=sum(e.count for e in walk), radiance=out.radiance)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--checks", default="1,4,16,64")
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--checks", default="1,16")
+    ap.add_argument("--full", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
-    from raytracing_tpu_torch import Renderer, build
-    from raytracing_tpu_torch.ops import traverse
-    from raytracing_tpu_torch.ops.intersect import T_MIN, closest_hit_brute
-    from raytracing_tpu_torch.render import camera as cam
-    from raytracing_tpu_torch.render import integrator
-    from raytracing_tpu_torch.render.renderer import chunk_rays
+    from raytracing_tpu_torch import _kernels, build
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
-    print(f"card: {card}")
+    c = card()
+    print(f"card: {c}")
+    _kernels.library()
     dev = torch.device("cuda", 0)
-    checks = [int(x) for x in args.checks.split(",")]
-    default_k = traverse.CHECK_EVERY
     scene, cfg = build("bouncing_spheres", device=dev, image_width=400, samples_per_pixel=4,
                        max_depth=8)
-    r = Renderer(cfg, hit_method="bvh")
-    derived = cam.derive(cfg, cam.CameraParams.from_config(cfg, dev))
-    o, d, t, pix, smp, _, alive = chunk_rays(cfg, derived, 0, 0, SEED, n_block=r.n_block,
-                                             spp_chunk=r.spp_chunk,
-                                             has_moving=scene.flags.has_moving, device=dev)
-    background = torch.tensor(cfg.background, dtype=torch.float32, device=dev)
-    with torch.no_grad():
-        st = integrator._bounce_once(scene, background, SEED, closest_hit_brute,
-                                     integrator.initial_state(o, d, t, pix, smp, alive), 0)
-    live = st[7]
-    ray_sets = {"camera": (o, d, t), "bounce 1": (st[0][live], st[1][live], st[2][live])}
-
+    checks = tuple(int(x) for x in args.checks.split(","))
     ok = True
-    with torch.no_grad():
-        for name, (ro, rd, rt) in ray_sets.items():
-            hb, brute_ms = wall_ms(lambda: closest_hit_brute(scene, ro, rd, rt, T_MIN),
-                                   args.reps)
-            turns = checks + checks[::-1]
-            rows = {k: [] for k in checks}
-            for k in turns:
-                traverse.CHECK_EVERY = k
-                traverse.reset_stats()
-                hv, ms = wall_ms(lambda: traverse.closest_hit_bvh(scene, ro, rd, rt, T_MIN),
-                                 args.reps)
-                calls = traverse.stats["calls"]
-                rows[k].append(dict(ms=round(ms, 3),
-                                    iterations=traverse.stats["iterations"] // calls,
-                                    syncs=traverse.stats["syncs"] // calls))
-                same = hv.prim_id == hb.prim_id
-                ok &= bool(torch.equal(hv.valid, hb.valid)) and bool(
-                    torch.equal(hv.t[same], hb.t[same]))
-            traverse.CHECK_EVERY = default_k
-            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                    torch.profiler.ProfilerActivity.CUDA]) as p:
-                traverse.reset_stats()
-                t0 = time.perf_counter()
-                hv = traverse.closest_hit_bvh(scene, ro, rd, rt, T_MIN)
-                torch.cuda.synchronize()
-                prof_ms = (time.perf_counter() - t0) * 1e3
-            kernels = [e for e in p.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA]
-            n_kernels = sum(e.count for e in kernels)
-            busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-            ties = int((hv.prim_id != hb.prim_id).sum())
-            print(json.dumps({
-                "rays": name, "B": int(ro.shape[0]), "brute_ms": round(brute_ms, 3),
-                "walk_by_check_every": rows, "ties": ties,
-                "profiled_walk": dict(check_every=default_k, wall_ms=round(prof_ms, 3),
-                                      device_kernels=n_kernels,
-                                      kernels_per_iteration=round(
-                                          n_kernels / traverse.stats["iterations"], 1),
-                                      device_busy_ms=round(busy_ms, 3),
-                                      busy_share=round(busy_ms / prof_ms, 3)),
-                "card": card}))
+    from torch_parity import bvh_ray_sets
 
-    renders = {}
-    order = [("bvh", k) for k in checks] + [("brute", None)]
-    for method, k in order + order[::-1]:
-        if k is not None:
-            traverse.CHECK_EVERY = k
-        traverse.reset_stats()
-        x = Renderer(cfg, hit_method=method).render(scene, seed=SEED)
-        renders.setdefault(f"{method} k={k}" if k else method, []).append(
-            dict(seconds=round(x.seconds, 4), segments=x.segments,
-                 iterations_per_bounce=round(traverse.stats["iterations"]
-                                             / max(traverse.stats["calls"], 1), 1),
-                 syncs=traverse.stats["syncs"]))
-    traverse.CHECK_EVERY = default_k
-    segs = {v["segments"] for runs in renders.values() for v in runs}
-    ok &= len(segs) == 1
-    print(json.dumps({"renders": renders, "card": card}))
+    for name, rays in bvh_ray_sets(scene, cfg, SEED).items():
+        row = walk_row(scene, *rays, reps=args.reps, checks=checks)
+        ok &= (row["bit_equal"] and row["valid_equal"] and row["t_equal_where_same"]
+               and row["ties"] <= row["B"] // 1000)
+        print(json.dumps({"rays": name, **row, "card": c}))
+    rr = render_rows(scene, cfg)
+    rr.pop("radiance")
+    ok &= rr["fused_equals_loop"] and rr["mean_abs_err_vs_brute"] < 2e-3
+    print(json.dumps({"renders": rr, "card": c}))
+    if args.full:
+        scene, cfg = build("bouncing_spheres", device=dev, image_width=400,
+                           samples_per_pixel=100, max_depth=20)
+        fw = full_width(scene, cfg)
+        fw.pop("radiance")
+        print(json.dumps({"full_width": fw, "card": c}))
     print(json.dumps({"ok": ok}))
     return 0 if ok else 1
 

@@ -64,9 +64,10 @@ def _counters() -> dict:
     from raytracing_tpu_torch.ops import megakernel_block as mb
     from raytracing_tpu_torch.ops import megakernel_group as mg
     from raytracing_tpu_torch.ops import table_gather as tg
+    from raytracing_tpu_torch.ops import traverse
 
     return dict(K1=mb.launches, K5=mg.launches, K3=rk.fwd_launches, K2=rk.bwd_launches,
-                K4=tg.launches, fold=tg.fold_launches)
+                K4=tg.launches, fold=tg.fold_launches, walk=traverse.launches)
 
 
 def k_counts() -> dict:
@@ -102,20 +103,21 @@ def _host_ms_per_replay(prog, n: int) -> float:
 
 
 @contextlib.contextmanager
-def no_host_reads(renderer):
-    """Inside: ``renderer``'s pool renders (every window's set-up and
-    launch, the image's sums on the device) run under
+def no_host_reads(renderer, method: str = "_render_pool"):
+    """Inside: ``renderer``'s ``method`` (by default its pool renders:
+    every window's set-up and launch, the image's sums on the device; or
+    ``"render"``, a whole render) runs under
     ``torch.cuda.set_sync_debug_mode("error")``, so any host read there
     raises; only the final copy to the host (``graphs.to_host``) may
     synchronize."""
     from raytracing_tpu_torch.render import graphs
 
-    real_pool, real_to_host = renderer._render_pool, graphs.to_host
+    real, real_to_host = getattr(renderer, method), graphs.to_host
 
-    def render_pool(*args, **kwargs):
+    def strict(*args, **kwargs):
         torch.cuda.set_sync_debug_mode("error")
         try:
-            return real_pool(*args, **kwargs)
+            return real(*args, **kwargs)
         finally:
             torch.cuda.set_sync_debug_mode(0)
 
@@ -123,12 +125,12 @@ def no_host_reads(renderer):
         torch.cuda.set_sync_debug_mode(0)
         return real_to_host(*tensors)
 
-    renderer._render_pool = render_pool
+    setattr(renderer, method, strict)
     graphs.to_host = to_host
     try:
         yield
     finally:
-        del renderer._render_pool
+        delattr(renderer, method)
         graphs.to_host = real_to_host
 
 
