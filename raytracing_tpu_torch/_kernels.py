@@ -115,6 +115,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rt_while_launch.restype = ctypes.c_int
     lib.rt_while_destroy.argtypes = [P]
     lib.rt_while_destroy.restype = ctypes.c_int
+    lib.rt_stage_mark_launch.argtypes = [P, I, I, I, P]
+    lib.rt_stage_mark_launch.restype = ctypes.c_int
+    lib.rt_globaltimer_probe_launch.argtypes = [P, I, P]
+    lib.rt_globaltimer_probe_launch.restype = ctypes.c_int
+    lib.rt_graph_kernel_nodes.argtypes = [P, ctypes.POINTER(I), ctypes.POINTER(I)]
+    lib.rt_graph_kernel_nodes.restype = ctypes.c_int
     lib.rt_error_string.argtypes = [ctypes.c_int]
     lib.rt_error_string.restype = ctypes.c_char_p
 

@@ -35,6 +35,7 @@ from .ops.megakernel import BLOCK, build_mega_scene, trace_megakernel
 from .render import camera as cam_mod
 from .render import graphs
 from .render.renderer import Renderer, rays_past
+from .utils.profiling import annotate, stage
 
 BASELINE_RAYS_PER_S = 5e8
 
@@ -85,7 +86,14 @@ def _fwd_bwd_setup(width=400, spp=100, max_depth=20, seed=7, spp_chunk=4, phases
     on the CPU, the same gradients bit for bit (on a card the fold adds
     in a run-dependent order). ``programs`` keeps the last program (its
     graph and ``capture_seconds``); a sweep after a new plan captures
-    anew."""
+    anew.
+
+    With the port's tracing switch on (``utils.profiling``) a sweep is the
+    span ``rt.sweep`` (its chunks ``rt.sweep.replay``, its sums' copies
+    ``rt.sweep.finish``), a plan ``rt.plan``, and a chunk's stages are
+    ``camera``, the decision pass's own, ``loss``, ``vjp`` (the table's
+    build), the replay's (``sort``, ``camera``, ``k2``, ``fold``), ``vjp``
+    (autograd) and ``accumulate``."""
     dev = resolve(device)
     scene, cfg = build("bouncing_spheres", device=dev, image_width=width,
                        samples_per_pixel=spp, max_depth=max_depth)
@@ -115,8 +123,9 @@ def _fwd_bwd_setup(width=400, spp=100, max_depth=20, seed=7, spp_chunk=4, phases
           "decide_prefixes": None}   # decision pass per-phase prefixes
 
     def make_rays(sample0):
-        smp = sample0 + torch.arange(spp_chunk, device=dev).repeat_interleave(npix_pad)
-        o, d, t = cam_mod.generate_rays(cfg, derived, pix, smp, seed, motion_blur=moving)
+        with stage("camera", dev):
+            smp = sample0 + torch.arange(spp_chunk, device=dev).repeat_interleave(npix_pad)
+            o, d, t = cam_mod.generate_rays(cfg, derived, pix, smp, seed, motion_blur=moving)
         return o, d, t, smp
 
     def decide(sample0):
@@ -142,38 +151,42 @@ def _fwd_bwd_setup(width=400, spp=100, max_depth=20, seed=7, spp_chunk=4, phases
 
     def plan_step(c, st):
         cnt = decide(c * spp_chunk)[2]
-        torch.maximum(st["nb_max"], rays_past(cnt, max_depth), out=st["nb_max"])
+        with stage("accumulate", dev):
+            torch.maximum(st["nb_max"], rays_past(cnt, max_depth), out=st["nb_max"])
 
     def plan(fused=True):
         """The untimed planning sweep: per-bounce live-ray maxima over the
         chunks (bounce b touches the rays with recorded length > b)."""
-        nb_max = over_chunks("plan", lambda: dict(nb_max=torch.zeros(
-            max_depth + 1, dtype=torch.int64, device=dev)), plan_step, fused)["nb_max"]
-        nb = nb_max.cpu().tolist()
-        # the length histogram whose suffix sums are those maxima
-        hist = [nb[k] - (nb[k + 1] if k < max_depth else 0) for k in range(max_depth + 1)]
-        ns["prefixes"] = plan_prefixes(hist, B, max_depth, margin=1.0)
-        if phases is not None:
-            # the phase starting after s bounces touches only the rays alive then
-            starts = [0]
-            for pdep in phases[:-1]:
-                starts.append(starts[-1] + pdep)
-            ns["decide_prefixes"] = tuple(
-                [None] + [max(BLOCK, min(B, -(-nb[min(s + 1, max_depth)] // BLOCK) * BLOCK))
-                          for s in starts[1:]])
-        return ns["prefixes"]
+        with annotate("rt.plan"):
+            nb_max = over_chunks("plan", lambda: dict(nb_max=torch.zeros(
+                max_depth + 1, dtype=torch.int64, device=dev)), plan_step, fused)["nb_max"]
+            nb = nb_max.cpu().tolist()
+            # the length histogram whose suffix sums are those maxima
+            hist = [nb[k] - (nb[k + 1] if k < max_depth else 0) for k in range(max_depth + 1)]
+            ns["prefixes"] = plan_prefixes(hist, B, max_depth, margin=1.0)
+            if phases is not None:
+                # the phase starting after s bounces touches only the rays alive then
+                starts = [0]
+                for pdep in phases[:-1]:
+                    starts.append(starts[-1] + pdep)
+                ns["decide_prefixes"] = tuple(
+                    [None] + [max(BLOCK, min(B, -(-nb[min(s + 1, max_depth)] // BLOCK) * BLOCK))
+                              for s in starts[1:]])
+            return ns["prefixes"]
 
     def grads_chunk(center, rgb, sample0):
         rad_pre, bundle, cnt, ok_d, (o, d, t, smp) = decide(sample0)
-        img = (rad_pre * act0[:, None]).reshape(spp_chunk, npix_pad, 3).mean(dim=0)
-        img = img[:n_pix].reshape(cfg.image_height, cfg.image_width, 3)
-        loss = torch.mean((img - target) ** 2)
-        # analytic per-ray radiance cotangent: the rays of pixel p share
-        # dL/dimg[p] / spp_chunk; padding rays contribute nothing
-        gimg = (2.0 / (n_pix * 3)) * (img - target)
-        gpad = torch.cat([gimg.reshape(n_pix, 3),
-                          torch.zeros((npix_pad - n_pix, 3), dtype=torch.float32, device=dev)])
-        rad_bar = gpad.repeat(spp_chunk, 1) * act0[:, None] / spp_chunk
+        with stage("loss", dev):
+            img = (rad_pre * act0[:, None]).reshape(spp_chunk, npix_pad, 3).mean(dim=0)
+            img = img[:n_pix].reshape(cfg.image_height, cfg.image_width, 3)
+            loss = torch.mean((img - target) ** 2)
+            # analytic per-ray radiance cotangent: the rays of pixel p share
+            # dL/dimg[p] / spp_chunk; padding rays contribute nothing
+            gimg = (2.0 / (n_pix * 3)) * (img - target)
+            gpad = torch.cat([gimg.reshape(n_pix, 3),
+                              torch.zeros((npix_pad - n_pix, 3), dtype=torch.float32,
+                                          device=dev)])
+            rad_bar = gpad.repeat(spp_chunk, 1) * act0[:, None] / spp_chunk
 
         def ray_regen(orig):
             # camera rays are pure functions of the original ray index
@@ -182,16 +195,19 @@ def _fwd_bwd_setup(width=400, spp=100, max_depth=20, seed=7, spp_chunk=4, phases
             ro, rd, rt = cam_mod.generate_rays(cfg, derived, p, s, seed, motion_blur=moving)
             return ro, rd, rt, p, s
 
-        c = center.detach().requires_grad_(True)
-        r = rgb.detach().requires_grad_(True)
-        table = build_replay_table(dataclasses.replace(
-            scene, spheres=dataclasses.replace(scene.spheres, center=c),
-            textures=dataclasses.replace(scene.textures, rgb=r)))
+        with stage("vjp", dev):
+            c = center.detach().requires_grad_(True)
+            r = rgb.detach().requires_grad_(True)
+            table = build_replay_table(dataclasses.replace(
+                scene, spheres=dataclasses.replace(scene.spheres, center=c),
+                textures=dataclasses.replace(scene.textures, rgb=r)))
         tbar, ok = replay_grads_sorted(
             scene, table, None, o, d, t, pix, smp, cfg.background, max_depth, seed, rad_bar,
             cnt, prefixes=ns["prefixes"], ray_regen=ray_regen, compacted=bundle)
-        gc, gr = torch.autograd.grad(table, (c, r), tbar)
-        return loss.detach(), gc, gr, ok & ok_d, cnt.to(torch.int64).sum()
+        with stage("vjp", dev):
+            gc, gr = torch.autograd.grad(table, (c, r), tbar)
+        with stage("accumulate", dev):
+            return loss.detach(), gc, gr, ok & ok_d, cnt.to(torch.int64).sum()
 
     args = (scene.spheres.center, scene.textures.rgb)
 
@@ -203,15 +219,19 @@ def _fwd_bwd_setup(width=400, spp=100, max_depth=20, seed=7, spp_chunk=4, phases
 
     def sweep_step(c, st):
         loss, g1, g2, ok_c, seg = grads_chunk(*args, c * spp_chunk)
-        st["loss"].add_(loss)
-        st["gc"].add_(g1)
-        st["gr"].add_(g2)
-        st["segs"].add_(seg)
-        st["ok"].logical_and_(ok_c)
+        with stage("accumulate", dev):
+            st["loss"].add_(loss)
+            st["gc"].add_(g1)
+            st["gr"].add_(g2)
+            st["segs"].add_(seg)
+            st["ok"].logical_and_(ok_c)
 
     def sweep(fused=True):
-        st = over_chunks("sweep", sums, sweep_step, fused)
-        return tuple(st[k].clone() for k in ("loss", "gc", "gr", "segs", "ok"))
+        with annotate("rt.sweep"):
+            with annotate("rt.sweep.replay"):
+                st = over_chunks("sweep", sums, sweep_step, fused)
+            with annotate("rt.sweep.finish"):
+                return tuple(st[k].clone() for k in ("loss", "gc", "gr", "segs", "ok"))
 
     return dict(grads_chunk=grads_chunk, plan=plan, sweep=sweep, args=args, n_chunks=n_chunks,
                 spp_chunk=spp_chunk, B=B, ns=ns, device=dev, programs=programs)

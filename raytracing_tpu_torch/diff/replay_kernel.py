@@ -50,6 +50,7 @@ from ..core.vecmath import NEAR_ZERO_EPS
 from ..ops.intersect import PARALLEL_EPS, T_MIN
 from ..ops.table_gather import fold
 from ..scene.types import MAT_DIELECTRIC, MAT_DIFFUSE_LIGHT, MAT_METAL
+from ..utils.profiling import stage
 from . import replay_fast as rf
 
 TILE = 1024      # rays per gating tile, in the kernels' ray order
@@ -573,51 +574,63 @@ def replay_grads_sorted(scene, table, ids, o, d, time, pixel_ids, sample_ids, ba
     Returns ``(tbar (L, N_FIELDS), ok)``: the cotangent of ``table`` (feed
     it to autograd through ``build_replay_table``) and a 0-d bool tensor,
     False when a bounce's live rays exceeded its planned prefix (a
-    contribution was dropped: replan)."""
+    contribution was dropped: replan).
+
+    Stages (``utils.profiling``): ``sort`` (the key, the sorts, the
+    gathers and the prefix checks), ``camera`` (``ray_regen``), ``sort``
+    (the packed rays and K2's inputs), ``k2`` and ``fold``."""
     B = o.shape[0]
     D = max_depth
     if B % TILE:
         raise ValueError(f"replay batch must be a multiple of {TILE}, got {B}")
-    dev = o.device
-    lengths = lengths.detach().to(torch.int64)
-    rad_bar = rad_bar.detach()
-    key = (D - lengths) * B + torch.arange(B, device=dev)
     if compacted is not None:
         if ray_regen is None:
             raise ValueError("compacted ids require ray_regen")
         pdep = tuple(compacted["phase_depths"])
         if sum(pdep) != D or compacted["ids0"].shape[0] != pdep[0]:
             raise ValueError(f"compacted bundle phases {pdep} do not match depth {D}")
-        key_c = (D - compacted["counts_c"].to(torch.int64)) * B + compacted["perm"].to(torch.int64)
-        order_c = torch.argsort(key_c)
-        order = torch.argsort(key)
-        key_s = key[order]
-        ids_s = torch.cat([compacted["ids0"][:, order], compacted["later"][:, order_c]])
-    else:
-        order = torch.argsort(key)
-        key_s = key[order]
-        ids_s = ids[:, order]
-    rad_bar_s = rad_bar[order]
-    len_s = D - torch.div(key_s, B, rounding_mode="floor")
-    if ray_regen is not None:
-        o_s, d_s, t_s, pix_s, smp_s = ray_regen(key_s % B)
-    else:
-        o_s, d_s, t_s, pix_s, smp_s = (x[order] for x in (o, d, time, pixel_ids, sample_ids))
-
-    ray_f = pack_replay_rays(o_s.detach(), d_s.detach(), t_s.detach(), len_s > 0)
-    ray_i = torch.stack([pix_s, smp_s]).to(torch.int32)
-    g = replay_bwd(table.detach().contiguous(), ids_s.to(torch.int32).contiguous(), ray_f, ray_i,
-                   rad_bar_s.T.contiguous(), tile_maxlen(len_s, D), seed=int(seed),
-                   n_sph=scene.n_spheres, has_moving=scene.flags.has_moving,
-                   background=tuple(float(x) for x in background))
-
-    ok = torch.ones((), dtype=torch.bool, device=dev)
     if prefixes is not None:
         if len(prefixes) != D:
             raise ValueError(f"prefixes: one per bounce ({D}), got {len(prefixes)}")
         prefixes = [min(B, -(-int(p) // TILE) * TILE) for p in prefixes]
-        for b, P in enumerate(prefixes):
+    dev = o.device
+    with stage("sort", dev):
+        lengths = lengths.detach().to(torch.int64)
+        rad_bar = rad_bar.detach()
+        key = (D - lengths) * B + torch.arange(B, device=dev)
+        if compacted is not None:
+            key_c = ((D - compacted["counts_c"].to(torch.int64)) * B
+                     + compacted["perm"].to(torch.int64))
+            order_c = torch.argsort(key_c)
+            order = torch.argsort(key)
+            key_s = key[order]
+            ids_s = torch.cat([compacted["ids0"][:, order], compacted["later"][:, order_c]])
+        else:
+            order = torch.argsort(key)
+            key_s = key[order]
+            ids_s = ids[:, order]
+        rad_bar_s = rad_bar[order]
+        len_s = D - torch.div(key_s, B, rounding_mode="floor")
+        ok = torch.ones((), dtype=torch.bool, device=dev)
+        for b, P in enumerate(prefixes or ()):
             # sorted by descending length: the first excluded ray must be dead at b
             if P < B:
                 ok = ok & (len_s[P] <= b)
-    return reduce_table_grads(g, ids_s, table.shape[0], prefixes), ok
+        if ray_regen is None:
+            o_s, d_s, t_s, pix_s, smp_s = (x[order] for x in (o, d, time, pixel_ids, sample_ids))
+        else:
+            orig = key_s % B
+    if ray_regen is not None:
+        with stage("camera", dev):
+            o_s, d_s, t_s, pix_s, smp_s = ray_regen(orig)
+    with stage("sort", dev):
+        ray_f = pack_replay_rays(o_s.detach(), d_s.detach(), t_s.detach(), len_s > 0)
+        ray_i = torch.stack([pix_s, smp_s]).to(torch.int32)
+        args = (table.detach().contiguous(), ids_s.to(torch.int32).contiguous(), ray_f, ray_i,
+                rad_bar_s.T.contiguous(), tile_maxlen(len_s, D))
+    with stage("k2", dev):
+        g = replay_bwd(*args, seed=int(seed), n_sph=scene.n_spheres,
+                       has_moving=scene.flags.has_moving,
+                       background=tuple(float(x) for x in background))
+    with stage("fold", dev):
+        return reduce_table_grads(g, ids_s, table.shape[0], prefixes), ok

@@ -22,6 +22,7 @@ every live ray was inside its prefix.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -29,6 +30,7 @@ import torch
 
 from ..scene import flatten as fl
 from ..scene.types import Scene
+from ..utils.profiling import stage
 from . import mega_bvh
 from . import megakernel_block as mb
 from . import megakernel_group as mg
@@ -201,7 +203,14 @@ def trace_megakernel(mega: MegaScene, o: torch.Tensor, d: torch.Tensor,
       entry per phase: None, or a BLOCK multiple up to B; the first must
       be None.
 
-    ``plain=True`` runs the kernels' plain PyTorch versions on any device."""
+    ``plain=True`` runs the kernels' plain PyTorch versions on any device.
+
+    Stages (``utils.profiling``): ``camera`` (the packed rays and the
+    trace's start state), then per phase ``k1`` (the launch alone) and
+    ``compact`` (its segments, counts and ids, and before a later phase
+    the alive-first sort, its gathers and that phase's prefix check and
+    inputs), then ``accumulate`` (the radiance in camera order) and, with
+    ids or counts, ``compact`` (their camera-order outputs)."""
     B = o.shape[0]
     if B % BLOCK:
         raise ValueError(f"megakernel batch must be a multiple of {BLOCK}, got {B}")
@@ -226,73 +235,79 @@ def trace_megakernel(mega: MegaScene, o: torch.Tensor, d: torch.Tensor,
             if p is not None and not (0 < p <= B and p % BLOCK == 0):
                 raise ValueError(f"prefix must be a {BLOCK}-multiple in (0, {B}], got {p}")
 
-    ray_f, ray_i = pack_rays(o, d, time, pixel_ids, sample_ids, active0)
-    perm = torch.arange(B, device=dev)  # camera index of each current lane
-    counts = torch.zeros(B, dtype=torch.int32, device=dev) if want_counts else None
-    segments = torch.zeros((), dtype=torch.int64, device=dev)
-    ok = torch.ones((), dtype=torch.bool, device=dev)
+    if layout == "group":
+        kw = dict(use_bvh=use_bvh)
+    else:
+        kw = dict(want_ids=bool(want_ids)) if plain else dict(want_ids=bool(want_ids), cull=cull)
+    with stage("camera", dev):
+        ray_f, ray_i = pack_rays(o, d, time, pixel_ids, sample_ids, active0)
+        perm = torch.arange(B, device=dev)  # camera index of each current lane
+        counts = torch.zeros(B, dtype=torch.int32, device=dev) if want_counts else None
+        segments = torch.zeros((), dtype=torch.int64, device=dev)
+        ok = torch.ones((), dtype=torch.bool, device=dev)
     ids_cam = []    # (pd, B) id blocks in camera order
     ids_later = []  # "compacted": later phases' blocks, kept in the current lane order
 
     offset = 0
+    n, ray_f_n, ray_i_n = B, ray_f, ray_i  # the first phase traces every lane
     for pi, pd in enumerate(phases):
         last = pi == len(phases) - 1
-        n = B
-        if phase_prefixes is not None and phase_prefixes[pi] is not None:
-            n = phase_prefixes[pi]
-            # exact iff every ray past the prefix is already dead
-            ok = ok & ~torch.any(ray_f[mb.ACT, n:] > 0.0)
-        if layout == "group":
-            kw = dict(use_bvh=use_bvh)
-        else:
-            kw = dict(want_ids=bool(want_ids)) if plain else dict(want_ids=bool(want_ids),
-                                                                  cull=cull)
-        rad, bc, state, *ids = phase_fn(
-            mega, ray_f[:, :n].contiguous(), ray_i[:, :n].contiguous(), seed, offset,
-            max_depth=pd, background=background, want_state=not last, **kw)
-        segments = segments + bc.sum()
-        if counts is not None:
-            counts[:n] += bc
-        if want_ids:
-            blk = torch.full((pd, B), -1, dtype=torch.int32, device=dev)
-            blk[:, :n] = ids[0]
-            if pi == 0:
-                ids_cam.append(blk)  # the first phase runs in camera order
-            elif want_ids == "compacted":
-                ids_later.append(blk)
-            else:
-                cam = torch.empty_like(blk)
-                cam[:, perm] = blk
-                ids_cam.append(cam)
-        if last:
-            ray_f[mb.RR:mb.RB + 1, :n] = rad
-            break
-        ray_f[:, :n] = state
-        offset += pd
-        # alive-first stable compaction
-        order = torch.argsort((ray_f[mb.ACT] <= 0.0).to(torch.uint8), stable=True)
-        ray_f = ray_f[:, order]
-        ray_i = ray_i[:, order]
-        perm = perm[order]
-        if counts is not None:
-            counts = counts[order]
-        ids_later = [x[:, order] for x in ids_later]
+        with stage("k1", dev):
+            rad, bc, state, *ids = phase_fn(
+                mega, ray_f_n, ray_i_n, seed, offset,
+                max_depth=pd, background=background, want_state=not last, **kw)
+        with stage("compact", dev):
+            segments = segments + bc.sum()
+            if counts is not None:
+                counts[:n] += bc
+            if want_ids:
+                blk = torch.full((pd, B), -1, dtype=torch.int32, device=dev)
+                blk[:, :n] = ids[0]
+                if pi == 0:
+                    ids_cam.append(blk)  # the first phase runs in camera order
+                elif want_ids == "compacted":
+                    ids_later.append(blk)
+                else:
+                    cam = torch.empty_like(blk)
+                    cam[:, perm] = blk
+                    ids_cam.append(cam)
+            if last:
+                ray_f[mb.RR:mb.RB + 1, :n] = rad
+                break
+            ray_f[:, :n] = state
+            offset += pd
+            # alive-first stable compaction
+            order = torch.argsort((ray_f[mb.ACT] <= 0.0).to(torch.uint8), stable=True)
+            ray_f = ray_f[:, order]
+            ray_i = ray_i[:, order]
+            perm = perm[order]
+            if counts is not None:
+                counts = counts[order]
+            ids_later = [x[:, order] for x in ids_later]
+            n = B
+            if phase_prefixes is not None and phase_prefixes[pi + 1] is not None:
+                n = phase_prefixes[pi + 1]
+                # exact iff every ray past the prefix is already dead
+                ok = ok & ~torch.any(ray_f[mb.ACT, n:] > 0.0)
+            ray_f_n, ray_i_n = ray_f[:, :n].contiguous(), ray_i[:, :n].contiguous()
 
-    radiance = torch.empty((B, 3), dtype=torch.float32, device=dev)
-    radiance[perm] = ray_f[mb.RR:mb.RB + 1].T
+    with stage("accumulate", dev):
+        radiance = torch.empty((B, 3), dtype=torch.float32, device=dev)
+        radiance[perm] = ray_f[mb.RR:mb.RB + 1].T
     out = [radiance, segments]
-    if want_ids == "compacted":
-        later = (torch.cat(ids_later) if ids_later
-                 else torch.zeros((0, B), dtype=torch.int32, device=dev))
-        out += [ids_cam[0], later, perm]
-    elif want_ids:
-        out.append(torch.cat(ids_cam))
-    if counts is not None:
-        cam_counts = torch.empty_like(counts)
-        cam_counts[perm] = counts
-        out.append(cam_counts)
+    with stage("compact", dev) if want_ids or counts is not None else contextlib.nullcontext():
         if want_ids == "compacted":
-            out.append(counts)
+            later = (torch.cat(ids_later) if ids_later
+                     else torch.zeros((0, B), dtype=torch.int32, device=dev))
+            out += [ids_cam[0], later, perm]
+        elif want_ids:
+            out.append(torch.cat(ids_cam))
+        if counts is not None:
+            cam_counts = torch.empty_like(counts)
+            cam_counts[perm] = counts
+            out.append(cam_counts)
+            if want_ids == "compacted":
+                out.append(counts)
     if phase_prefixes is not None:
         out.append(ok)
     return tuple(out)

@@ -24,7 +24,8 @@ on a card one captured step sits inside a CUDA graph WHILE node
 
 The kernels' launch counts (``_kernels.LaunchCount``) are device counters
 that each wrapper adds to on its launch stream, so a replay adds the
-launches it runs, as an eager launch does.
+launches it runs, as an eager launch does; the stage clock's marks
+(``utils/profiling.py``) are captured and add up the same way.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ from typing import Callable, Optional
 import torch
 
 from .. import _kernels
+from ..utils.profiling import annotate, enabled
 
 
 def _capture(warm_up: Callable[[], None], body: Callable[[], None], device,
@@ -44,27 +46,29 @@ def _capture(warm_up: Callable[[], None], body: Callable[[], None], device,
     """A CUDA graph of one ``body()``, captured after ``warm_up()`` has
     run on a side stream (as ``torch.cuda.graph`` requires). Capture
     errors propagate."""
-    current = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(current)
-    with torch.cuda.stream(side):
-        warm_up()
-    current.wait_stream(side)
-    # A dead program in a reference cycle (its step holds its owner) that
-    # Python's cycle collector frees mid-capture destroys its graph then,
-    # and that invalidates this capture: collect now, and keep the
-    # collector off until the capture has ended.
-    gc.collect()
-    enabled = gc.isenabled()
-    gc.disable()
-    try:
-        graph = torch.cuda.CUDAGraph(keep_graph=True) if keep_graph else torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            body()
-    finally:
-        if enabled:
-            gc.enable()
-    return graph
+    with annotate("rt.program.capture"):
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            warm_up()
+        current.wait_stream(side)
+        # A dead program in a reference cycle (its step holds its owner)
+        # that Python's cycle collector frees mid-capture destroys its
+        # graph then, and that invalidates this capture: collect now, and
+        # keep the collector off until the capture has ended.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            graph = (torch.cuda.CUDAGraph(keep_graph=True) if keep_graph
+                     else torch.cuda.CUDAGraph())
+            with torch.cuda.graph(graph):
+                body()
+        finally:
+            if collecting:
+                gc.enable()
+        return graph
 
 
 class ChunkProgram:
@@ -101,7 +105,8 @@ class ChunkProgram:
         spent = 0.0
         if self.device.type == "cuda" and self.graph is None and n > 0:
             spent = self._capture(start)
-        start()
+        with annotate("rt.program.init"):
+            start()
         self.replay(n)
         return spent
 
@@ -174,7 +179,8 @@ class WhileProgram:
         otherwise). A graph that cannot be captured, built or launched
         raises: there is no eager fallback."""
         spent = self._prepare(init) if self.fused and not self.prepared else 0.0
-        init()
+        with annotate("rt.program.init"):
+            init()
         self.replay(1)
         return spent
 
@@ -231,13 +237,17 @@ class WhileProgram:
 class ProgramSlot:
     """One program (a :class:`ChunkProgram` or a :class:`WhileProgram`) at
     a time: a new key drops the old program (and its graph's memory pool)
-    before the new one is built."""
+    before the new one is built. The key holds whether the port's tracing
+    switch is on (``utils.profiling.enabled``): a program captured with
+    the stage clock's marks is never replayed with the switch off, nor the
+    reverse."""
 
     def __init__(self):
         self.key = None
         self.program = None
 
     def get(self, key, make: Callable[[], object]):
+        key = (key, enabled())
         if self.program is None or self.key != key:
             self.key = self.program = None
             self.program = make()
@@ -311,11 +321,12 @@ def histogram(x: torch.Tensor, n_bins: int) -> torch.Tensor:
 def to_host(*tensors: torch.Tensor) -> list:
     """The tensors as numpy arrays through one device-to-host copy: their
     bytes concatenated on the device, copied once, split on the host."""
-    flat = [t.detach().contiguous().reshape(-1).view(torch.uint8) for t in tensors]
-    raw = torch.cat(flat).cpu().numpy() if len(flat) > 1 else flat[0].cpu().numpy()
-    out, off = [], 0
-    for t, f in zip(tensors, flat):
-        dtype = torch.empty((), dtype=t.dtype).numpy().dtype
-        out.append(raw[off:off + f.numel()].copy().view(dtype).reshape(t.shape))
-        off += f.numel()
-    return out
+    with annotate("rt.to_host"):
+        flat = [t.detach().contiguous().reshape(-1).view(torch.uint8) for t in tensors]
+        raw = torch.cat(flat).cpu().numpy() if len(flat) > 1 else flat[0].cpu().numpy()
+        out, off = [], 0
+        for t, f in zip(tensors, flat):
+            dtype = torch.empty((), dtype=t.dtype).numpy().dtype
+            out.append(raw[off:off + f.numel()].copy().view(dtype).reshape(t.shape))
+            off += f.numel()
+        return out

@@ -45,6 +45,7 @@ import torch
 
 from ..ops import megakernel_block as mb
 from ..ops.megakernel import BLOCK, pack_rays
+from ..utils.profiling import stage
 from . import camera as cam_mod
 from . import graphs
 from .camera import CameraConfig, CameraParams
@@ -117,7 +118,8 @@ class Pool:
         n_fill = min(self.P, self.total)
         self.ray_f.zero_()
         self.ray_i.zero_()
-        self.ray_f[:, :n_fill], self.ray_i[:, :n_fill] = self._fresh(self.lane[:n_fill])
+        with stage("camera", self.device):
+            self.ray_f[:, :n_fill], self.ray_i[:, :n_fill] = self._fresh(self.lane[:n_fill])
         # empty lanes hold the sentinel total
         torch.clamp(self.lane, max=self.total, out=self.gid)
         self.dep.zero_()
@@ -129,46 +131,51 @@ class Pool:
     def step(self) -> None:
         """One iteration: K1 for ``K_BOUNCES`` bounces, the partition, the
         dead rays banked, the freed lanes refilled, the flag set. Static
-        shapes, no host read."""
-        P, total, lane = self.P, self.total, self.lane
-        _, bc, state = mb.trace_block(self.mega, self.ray_f, self.ray_i, self.seed, 0,
-                                      max_depth=K_BOUNCES, background=self.cfg.background,
-                                      depth_cap=self.cfg.max_depth, dep=self.dep,
-                                      cull=self.cull)
-        self.segments.add_(bc.sum())
-        alive = state[mb.ACT] > 0.0
-        key = torch.where(alive, (1 << 25) + lane,
-                          torch.where(self.gid >= total, (1 << 24) + lane, self.gid))
-        packed = (self.dep + bc) * (1 << GID_BITS) + self.gid
-        n_dead = (key < (1 << 24)).sum()
-        n_not_alive = (key < (1 << 25)).sum()
-        order = torch.argsort(key)
-        ray_f = state[:, order]  # its RR..RB rows are the radiance
-        ray_i = self.ray_i[:, order]
-        packed = packed[order]
-        gid = packed & ((1 << GID_BITS) - 1)
-        dep = packed >> GID_BITS
+        shapes, no host read. Stages (``utils.profiling``): ``k1``,
+        ``compact`` (the partition and the flag), ``bank`` and ``camera``
+        (the refill)."""
+        P, total, lane, dev = self.P, self.total, self.lane, self.device
+        with stage("k1", dev):
+            _, bc, state = mb.trace_block(self.mega, self.ray_f, self.ray_i, self.seed, 0,
+                                          max_depth=K_BOUNCES, background=self.cfg.background,
+                                          depth_cap=self.cfg.max_depth, dep=self.dep,
+                                          cull=self.cull)
+        with stage("compact", dev):
+            self.segments.add_(bc.sum())
+            alive = state[mb.ACT] > 0.0
+            key = torch.where(alive, (1 << 25) + lane,
+                              torch.where(self.gid >= total, (1 << 24) + lane, self.gid))
+            packed = (self.dep + bc) * (1 << GID_BITS) + self.gid
+            n_dead = (key < (1 << 24)).sum()
+            n_not_alive = (key < (1 << 25)).sum()
+            order = torch.argsort(key)
+            ray_f = state[:, order]  # its RR..RB rows are the radiance
+            ray_i = self.ray_i[:, order]
+            packed = packed[order]
+            gid = packed & ((1 << GID_BITS) - 1)
+            dep = packed >> GID_BITS
+            # the loop goes on while the stream has gids left or a ray is alive
+            self.flag.copy_((self.next_gid < total) | (n_not_alive < P))
 
-        # bank the dead prefix at its gids, every other lane past the stream
-        idx = torch.where(lane < n_dead, gid, total + lane)
-        self.acc.index_copy_(0, idx.long(), ray_f[mb.RR:mb.RB + 1].T)
-        self.banked.add_(n_dead)
+        with stage("bank", dev):
+            # bank the dead prefix at its gids, every other lane past the stream
+            idx = torch.where(lane < n_dead, gid, total + lane)
+            self.acc.index_copy_(0, idx.long(), ray_f[mb.RR:mb.RB + 1].T)
+            self.banked.add_(n_dead)
 
-        # the loop goes on while the stream has gids left or a ray is alive
-        self.flag.copy_((self.next_gid < total) | (n_not_alive < P))
-
-        # refill the freed prefix with the next gids; the rest stays empty
-        n_refill = torch.minimum(n_not_alive, total - self.next_gid)
-        fresh = lane < n_refill
-        gid2 = torch.where(fresh, self.next_gid + lane,
-                           torch.where(lane < n_not_alive, total, gid))
-        new_f, new_i = self._fresh(torch.clamp(gid2, max=total - 1))
-        torch.where(fresh, new_f, ray_f, out=self.ray_f)
-        torch.where(fresh, new_i, ray_i, out=self.ray_i)
-        self.gid.copy_(gid2)
-        self.dep.copy_(dep.masked_fill(fresh, 0))
-        self.next_gid.add_(n_refill)
-        self.iterations.add_(1)
+        with stage("camera", dev):
+            # refill the freed prefix with the next gids; the rest stays empty
+            n_refill = torch.minimum(n_not_alive, total - self.next_gid)
+            fresh = lane < n_refill
+            gid2 = torch.where(fresh, self.next_gid + lane,
+                               torch.where(lane < n_not_alive, total, gid))
+            new_f, new_i = self._fresh(torch.clamp(gid2, max=total - 1))
+            torch.where(fresh, new_f, ray_f, out=self.ray_f)
+            torch.where(fresh, new_i, ray_i, out=self.ray_i)
+            self.gid.copy_(gid2)
+            self.dep.copy_(dep.masked_fill(fresh, 0))
+            self.next_gid.add_(n_refill)
+            self.iterations.add_(1)
 
     def radiance(self) -> torch.Tensor:
         """The window's radiance summed over its samples, (n_pix, 3) f32:

@@ -59,6 +59,7 @@ from ..ops.intersect import closest_hit_brute
 from ..ops.traverse import closest_hit_bvh
 from ..ops.megakernel import build_mega_scene, expressible, select_layout, trace_megakernel
 from ..scene.types import Scene
+from ..utils.profiling import annotate, stage
 from . import camera as cam_mod
 from . import graphs
 from . import integrator
@@ -129,17 +130,22 @@ def _render_chunk(mega, cfg: CameraConfig, derived, pixel_start, sample_start,
                   want_counts: bool = False, cull=None):
     """One launch. Returns (radiance summed over the chunk's samples
     (n_block, 3), segments, ok or None); with ``want_counts`` only the
-    per-ray bounce counts. ``cull`` is K1's search (``trace_megakernel``)."""
-    o, d, t, pixel_ids, sample_ids, valid, alive = chunk_rays(
-        cfg, derived, pixel_start, sample_start, seed, n_block=n_block,
-        spp_chunk=spp_chunk, has_moving=has_moving, device=mega.sph_sweep.device)
+    per-ray bounce counts. ``cull`` is K1's search (``trace_megakernel``).
+    Stages (``utils.profiling``): ``camera``, then the trace's own, then
+    ``accumulate``."""
+    dev = mega.sph_sweep.device
+    with stage("camera", dev):
+        o, d, t, pixel_ids, sample_ids, valid, alive = chunk_rays(
+            cfg, derived, pixel_start, sample_start, seed, n_block=n_block,
+            spp_chunk=spp_chunk, has_moving=has_moving, device=dev)
     out = trace_megakernel(mega, o, d, t, pixel_ids, sample_ids, cfg.background,
                            cfg.max_depth, seed, phase_depths=phases, active0=alive,
                            want_counts=want_counts, phase_prefixes=phase_prefixes, cull=cull)
     if want_counts:
         return out[2]
-    radiance = torch.where(valid[:, None], out[0], 0.0)
-    rad = radiance.reshape(spp_chunk, n_block, 3).sum(dim=0)
+    with stage("accumulate", dev):
+        radiance = torch.where(valid[:, None], out[0], 0.0)
+        rad = radiance.reshape(spp_chunk, n_block, 3).sum(dim=0)
     return rad, out[1], (out[2] if phase_prefixes is not None else None)
 
 
@@ -316,7 +322,8 @@ class Renderer:
         def step(c, st):
             pixel_start, sample_start, _ = self._launch_starts(c)
             cnt = _render_chunk(mega, cfg, st["derived"], pixel_start, sample_start, seed, **kw)
-            torch.maximum(st["nb_max"], rays_past(cnt, d), out=st["nb_max"])
+            with stage("accumulate", dev):
+                torch.maximum(st["nb_max"], rays_past(cnt, d), out=st["nb_max"])
 
         st, _ = graphs.over_chunks(self.programs, self._program_key("plan", scene, seed, dev),
                                    make_state, step, 0, math.prod(self._grid()), dev,
@@ -364,25 +371,28 @@ class Renderer:
         t0 = _time.perf_counter()
         capture_s = 0.0
         acc = seg = banked = None
-        for start, n in windows:
-            kw = dict(pool_size=min(pool_mod.POOL_SIZE, -(-cfg.n_pixels * n // 1024) * 1024),
-                      n_samples=n, motion_blur=scene.flags.has_moving, cull=self.cull)
-            if self.fused:
-                slot = self.programs if n == spp_w else self._tail_programs
-                key = ("pool", id(scene), int(seed), str(dev), n, kw["pool_size"], self.cull)
-                prog = slot.get(key, lambda: pool_mod.program(mega, cfg, seed, fused=True, **kw))
-            else:
-                prog = pool_mod.program(mega, cfg, seed, fused=False, **kw)
-            pool = prog.state
-            capture_s += prog.run(lambda: pool.init(params, start))
-            # new tensors: the next window of this size rewrites the pool's
-            rad = pool.radiance()
-            acc = rad if acc is None else acc + rad
-            seg = pool.segments.clone() if seg is None else seg + pool.segments
-            banked = pool.banked.clone() if banked is None else banked + pool.banked
-        mean = (acc / spp).reshape(cfg.image_height, cfg.image_width, 3)
-        img_h, seg_h, banked_h = graphs.to_host(to_u8_image(mean) if u8_mode else mean, seg,
-                                                banked)
+        with annotate("rt.render.replay"):
+            for start, n in windows:
+                kw = dict(pool_size=min(pool_mod.POOL_SIZE, -(-cfg.n_pixels * n // 1024) * 1024),
+                          n_samples=n, motion_blur=scene.flags.has_moving, cull=self.cull)
+                if self.fused:
+                    slot = self.programs if n == spp_w else self._tail_programs
+                    key = ("pool", id(scene), int(seed), str(dev), n, kw["pool_size"], self.cull)
+                    prog = slot.get(key, lambda: pool_mod.program(mega, cfg, seed, fused=True,
+                                                                  **kw))
+                else:
+                    prog = pool_mod.program(mega, cfg, seed, fused=False, **kw)
+                pool = prog.state
+                capture_s += prog.run(lambda: pool.init(params, start))
+                # new tensors: the next window of this size rewrites the pool's
+                rad = pool.radiance()
+                acc = rad if acc is None else acc + rad
+                seg = pool.segments.clone() if seg is None else seg + pool.segments
+                banked = pool.banked.clone() if banked is None else banked + pool.banked
+        with annotate("rt.render.finish"):
+            mean = (acc / spp).reshape(cfg.image_height, cfg.image_width, 3)
+            img_h, seg_h, banked_h = graphs.to_host(to_u8_image(mean) if u8_mode else mean,
+                                                    seg, banked)
         seconds = _time.perf_counter() - t0 - capture_s
         if int(banked_h) != cfg.n_pixels * spp:
             raise RuntimeError(f"pool banked {int(banked_h)} paths of {cfg.n_pixels * spp}")
@@ -410,7 +420,13 @@ class Renderer:
         ``Renderer`` keeps its loop for progress and checkpoints), and the
         pool runs each sample window as one launch of a WHILE program. The
         result is the loop's, bit for bit; ``seconds`` leaves out the
-        programs' one-time capture."""
+        programs' one-time capture. With the port's tracing switch on
+        (``utils.profiling``) the render is the span ``rt.render``, its
+        launches ``rt.render.replay`` and its copy ``rt.render.finish``."""
+        with annotate("rt.render"):
+            return self._render(scene, params, seed, progress, resume_state, checkpoint_cb)
+
+    def _render(self, scene: Scene, params, seed, progress, resume_state, checkpoint_cb):
         cfg = self.cfg
         method = self.resolve_hit_method(scene)
         if method in INTEGRATOR_HIT_FNS:
@@ -453,6 +469,7 @@ class Renderer:
             (one addend an element, so an int's slice and a replay's device
             index give the same bits), its segments and ``ok`` into theirs."""
             pixel_start, sample_start, b = self._launch_starts(c)
+            ok_c = None
             if hit_fn is not None:
                 with torch.no_grad():
                     rad, seg = _integrator_chunk(
@@ -464,37 +481,41 @@ class Renderer:
                     mega, cfg, st["derived"], pixel_start, sample_start, seed,
                     **self._chunk_kwargs(scene), phase_prefixes=self.phase_prefixes,
                     cull=self.cull)
+            with stage("accumulate", dev):
                 if ok_c is not None:
                     st["ok"].logical_and_(ok_c)
-            acc3 = st["accum"].view(n_blocks, n_block, 3)
-            if isinstance(b, torch.Tensor):
-                b = b.reshape(1)
-                acc3.index_copy_(0, b, acc3.index_select(0, b) + rad[None])
-            else:
-                acc3[b] += rad
-            st["segments"].add_(seg)
+                acc3 = st["accum"].view(n_blocks, n_block, 3)
+                if isinstance(b, torch.Tensor):
+                    b = b.reshape(1)
+                    acc3.index_copy_(0, b, acc3.index_select(0, b) + rad[None])
+                else:
+                    acc3[b] += rad
+                st["segments"].add_(seg)
 
         t0 = _time.perf_counter()
         first, total = start * n_blocks, (n_schunks - start) * n_blocks
-        if self.fused and checkpoint_cb is None and not progress:
-            st, capture_s = graphs.over_chunks(
-                self.programs, self._program_key("render", scene, seed, dev), make_state, step,
-                first, total, dev, True)
-        else:
-            st, capture_s = make_state(), 0.0
-            for s in range(start, n_schunks):
-                for c in range(s * n_blocks, (s + 1) * n_blocks):
-                    step(c, st)
-                if progress:
-                    print(f"\rsample chunks remaining: {n_schunks - s - 1} ", end="", flush=True)
-                if checkpoint_cb is not None:
-                    checkpoint_cb({"accum": st["accum"].to("cpu", copy=True).numpy(),
-                                   "segments": seg_base + int(st["segments"]),
-                                   "schunk": s + 1})
-        mean = (st["accum"][:cfg.n_pixels] / cfg.samples_per_pixel).reshape(
-            cfg.image_height, cfg.image_width, 3)
-        img = to_u8_image(mean) if self.transfer == "u8" else mean
-        img_h, seg_h, ok_h = graphs.to_host(img, st["segments"], st["ok"])
+        with annotate("rt.render.replay"):
+            if self.fused and checkpoint_cb is None and not progress:
+                st, capture_s = graphs.over_chunks(
+                    self.programs, self._program_key("render", scene, seed, dev), make_state,
+                    step, first, total, dev, True)
+            else:
+                st, capture_s = make_state(), 0.0
+                for s in range(start, n_schunks):
+                    for c in range(s * n_blocks, (s + 1) * n_blocks):
+                        step(c, st)
+                    if progress:
+                        print(f"\rsample chunks remaining: {n_schunks - s - 1} ", end="",
+                              flush=True)
+                    if checkpoint_cb is not None:
+                        checkpoint_cb({"accum": st["accum"].to("cpu", copy=True).numpy(),
+                                       "segments": seg_base + int(st["segments"]),
+                                       "schunk": s + 1})
+        with annotate("rt.render.finish"):
+            mean = (st["accum"][:cfg.n_pixels] / cfg.samples_per_pixel).reshape(
+                cfg.image_height, cfg.image_width, 3)
+            img = to_u8_image(mean) if self.transfer == "u8" else mean
+            img_h, seg_h, ok_h = graphs.to_host(img, st["segments"], st["ok"])
         seconds = _time.perf_counter() - t0 - capture_s
         if progress:
             print("\rDone.                        ", flush=True)

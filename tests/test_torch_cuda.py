@@ -8,12 +8,16 @@ the CPU, the pool schedule against the phased one, and the fused single
 dispatch (renders, plans and the fwd+bwd sweep replayed as CUDA graphs,
 the pool's windows as WHILE graphs) against the launch loop, and the
 integrator's BVH walk (``rt_bvh_walk``) against its plain version, the
-brute-force closest hit and the loop, renders and gradients. Marked
+brute-force closest hit and the loop, renders and gradients, and the
+stage clock (``csrc/stage_clock.cu``) in replays and WHILE loops, against
+K1's launch count and CUDA events, and absent from graphs captured with
+the tracing switch off. Marked
 ``cuda``; each test skips when no CUDA device is present. On a GPU
 machine:
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 """
+import contextlib
 import gc
 
 import numpy as np
@@ -678,3 +682,141 @@ def test_bvh_render_once_and_grads_equal_brute(dev):
         np.testing.assert_allclose(a.cpu().numpy(), r.cpu().numpy(), rtol=1e-5, atol=1e-9,
                                    err_msg=f"{group}.{field}")
     assert float(g_brute.spheres.center.abs().sum()) > 0
+
+
+@pytest.fixture
+def tracing():
+    """The port's tracing switch on (``utils.profiling``), off again and
+    the stage clock zeroed after the test."""
+    from raytracing_tpu_torch.utils import profiling as pf
+
+    pf.enable(True)
+    pf.reset_stages()
+    try:
+        yield pf
+    finally:
+        pf.enable(False)
+        pf.reset_stages()
+
+
+@pytest.mark.parametrize("schedule", ["phased", "pool"])
+def test_stage_clock_counts_k1_in_replays_and_while_loops(dev, tracing, monkeypatch, schedule):
+    """The ``k1`` stage's calls in a replayed launch program (phased) and
+    in a WHILE graph (the pool, where the profiler sees no kernel) equal
+    K1's launch count; every stage of the step records device time."""
+    pf = tracing
+    monkeypatch.setattr(pool_mod, "POOL_SIZE", 4096)  # the pool's lanes refill
+    scene, cfg = build("bouncing_spheres", device=dev, image_width=64, samples_per_pixel=4,
+                       max_depth=8)
+    r = Renderer(cfg, schedule=schedule)
+    r.render(scene, seed=SEED)  # captures
+    pf.reset_stages()
+    before = int(mb.launches)
+    r.render(scene, seed=SEED)
+    totals = pf.stage_totals(dev)
+    assert totals["clock"] == "globaltimer"
+    assert totals["device"] == torch.cuda.get_device_name(dev)
+    stages = totals["stages"]
+    expect = ({"camera", "k1", "compact", "accumulate"} if schedule == "phased"
+              else {"camera", "k1", "compact", "bank"})
+    assert set(stages) == expect
+    assert stages["k1"][1] == int(mb.launches) - before > 0
+    assert all(s > 0.0 for s, _ in stages.values())
+
+
+def test_k1_stage_time_matches_cuda_events(dev, tracing):
+    """The ``k1`` stage's device seconds over 20 bench-sized K1 launches,
+    queued behind a spin kernel so the host adds no gap, within 6% of CUDA
+    events recorded around the same launches inside the stage."""
+    pf = tracing
+    scene, cfg = build("bouncing_spheres", device=dev, image_width=400, samples_per_pixel=1,
+                       max_depth=20)
+    mega = build_mega_scene(scene)
+    B = -(-cfg.n_pixels // 1024) * 1024
+    pix = torch.clamp(torch.arange(B, device=dev), max=cfg.n_pixels - 1)
+    smp = torch.zeros_like(pix)
+    o, d, t = cam.generate_rays(cfg, cam.derive(cfg, cam.CameraParams.from_config(cfg, dev)),
+                                pix, smp, SEED, motion_blur=scene.flags.has_moving)
+    ray_f, ray_i = pack_rays(o, d, t, pix, smp)
+    kw = dict(max_depth=20, background=cfg.background)
+    mb.trace_block(mega, ray_f, ray_i, SEED, 0, **kw)  # warm-up
+    with pf.stage("k1", dev):
+        pass
+    torch.cuda.synchronize()
+    pf.reset_stages()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(20)]
+    torch.cuda._sleep(100_000_000)
+    for e0, e1 in events:
+        with pf.stage("k1", dev):
+            e0.record()
+            mb.trace_block(mega, ray_f, ray_i, SEED, 0, **kw)
+            e1.record()
+    torch.cuda.synchronize()
+    seconds, calls = pf.stage_totals(dev)["stages"]["k1"]
+    event_s = sum(e0.elapsed_time(e1) for e0, e1 in events) * 1e-3
+    assert calls == 20
+    assert abs(seconds - event_s) <= 0.06 * event_s, (seconds, event_s)
+
+
+def _graph_nodes(graph):
+    """(kernel nodes, rt_stage_mark nodes) of a captured graph."""
+    import ctypes
+
+    from raytracing_tpu_torch import _kernels
+
+    lib = _kernels.library().lib
+    n_k, n_m = ctypes.c_int(), ctypes.c_int()
+    err = lib.rt_graph_kernel_nodes(graph.raw_cuda_graph(), ctypes.byref(n_k), ctypes.byref(n_m))
+    assert err == 0, lib.rt_error_string(err).decode()
+    return n_k.value, n_m.value
+
+
+@pytest.mark.parametrize("what", ["trace", "pool"])
+def test_a_graph_captured_with_the_switch_off_has_no_mark(dev, monkeypatch, what):
+    """A phased trace and a pool iteration captured (``keep_graph``) three
+    ways: with the stage calls taken out of the code, with the switch off
+    and with it on. Off holds the very kernel nodes of the code without
+    stages and no mark; on holds two marks more a stage call."""
+    from raytracing_tpu_torch.ops import megakernel as mk
+    from raytracing_tpu_torch.render import graphs
+    from raytracing_tpu_torch.utils import profiling as pf
+
+    scene, cfg = build("bouncing_spheres", device=dev, image_width=64, samples_per_pixel=1,
+                       max_depth=8)
+    mega = build_mega_scene(scene)
+    B = -(-cfg.n_pixels // 1024) * 1024
+    pix = torch.clamp(torch.arange(B, device=dev), max=cfg.n_pixels - 1)
+    smp = torch.zeros_like(pix)
+    o, d, t = cam.generate_rays(cfg, cam.derive(cfg, cam.CameraParams.from_config(cfg, dev)),
+                                pix, smp, SEED, motion_blur=scene.flags.has_moving)
+    monkeypatch.setattr(pool_mod, "POOL_SIZE", 4096)
+
+    def capture():
+        if what == "trace":
+            def body():
+                trace_megakernel(mega, o, d, t, pix, smp, cfg.background, cfg.max_depth, SEED,
+                                 phase_depths=[2, 3, 3])
+
+            return graphs._capture(body, body, dev, keep_graph=True)
+        prog = pool_mod.program(mega, cfg, SEED, fused=True, pool_size=4096)
+        prog.run(lambda: prog.state.init(cam.CameraParams.from_config(cfg, dev), 0))
+        return prog.graph
+
+    counts = {}
+    try:
+        for mode in ("none", "off", "on"):
+            pf.enable(mode == "on")
+            with monkeypatch.context() as m:
+                if mode == "none":
+                    for mod in (mk, pool_mod):
+                        m.setattr(mod, "stage", lambda name, device: contextlib.nullcontext())
+                counts[mode] = _graph_nodes(capture())
+    finally:
+        pf.enable(False)
+        pf.reset_stages()
+    # the trace: camera, k1 and compact a phase, accumulate; the pool: k1,
+    # compact, bank, camera
+    pairs = 8 if what == "trace" else 4
+    assert counts["off"] == counts["none"] and counts["off"][1] == 0
+    assert counts["on"] == (counts["off"][0] + 2 * pairs, 2 * pairs)
