@@ -195,6 +195,22 @@ torch.cuda.set_sync_debug_mode("error") until its copy to the host, so
 a host read in a window's set-up or launch fails the phase. Phases 19,
 20 and 22 render the pool fused (the default) and keep their checks
 against the phased render.
+Phase 34 holds the camera rays computed where they are used
+(csrc/rt_camera.cuh) at the benchmark cells' launch shapes
+(bouncing_spheres 1200x675 500 spp, cornell_box 600x600 100 spp;
+Renderer's first launch, its last, padded and clamped, and a last block
+one sample past spp) and three seeds (one past 2^31, one past 2^32): K1's start state
+(a depth-0 launch started from the camera) against pack_rays of the
+int64 camera rays on the card, K1's first phase started from the camera
+against K1 fed those rays and against its plain version started from
+the camera, and rt_camera_rays on a permuted (sorted-order) id list
+against pack_replay_rays of the same rays, all bit for bit, with both
+camera counters (K1_camera, camera_rays); then it times rt_camera_rays
+against the int64 path and K1's first phase from the camera against K1
+fed packed rays. Phase 4 also traces its phased launch started from the
+camera, bit-equal to the rays' trace; phases 3, 6, 24, 25, 28, 31 and 32
+count the camera starts (one a launch or chunk) and the replay's camera
+launches (one a sweep chunk).
 
 Kernels shorter than their wrappers' host time (K3, K4, the fold, the
 BVH walk and the PyTorch calls beside them) are timed with their launches
@@ -243,6 +259,15 @@ K5_OPS_SHADE = K1_OPS_SHADE  # the shared shading (rt_shade.cuh)
 # then 6 for the octave's sum and doubling; then sin and 4 more
 K1_OPS_MARBLE = 7 * (21 + 8 * 20 + 6) + 5
 K1_OPS_IMAGE = 40            # rxz 4, two atan2f, u v 4, clamps 6, texel index 8, 3 reads
+# per camera ray (csrc/rt_camera.cuh): two PCG4D hashes of 28 integer
+# operations, 4 draws of 3, the pixel's i and j 4, 3 axes of 4 for the
+# pixel sample, the disk's sqrt, sin, cos and 4, its 3 axes of 4, the
+# direction 3, the alive flag 2
+CAMERA_OPS_PER_RAY = 2 * 28 + 4 * 3 + 4 + 12 + 7 + 12 + 3 + 2
+# the benchmark cells' camera scenes at their sizes (benchmark/configs, traffic)
+CAMERA_CELLS = {"bouncing_spheres": dict(image_width=1200, samples_per_pixel=500, max_depth=50),
+                "cornell_box": dict(image_width=600, samples_per_pixel=100, max_depth=50)}
+CAMERA_SEEDS = (SEED, 2**31 + 12345, 2**33 + 2**31 + 7)  # the last wraps to u32 as the RNG does
 
 
 def segments_close(ref: int, s: int) -> bool:
@@ -522,6 +547,173 @@ def bound(ops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def launch_counts():
+    """``(zero_counts, counts, only)`` over the kernels' launch counters
+    (device-side, the wrappers' own): ``counts()`` the launches since
+    ``zero_counts()`` by kernel, ``only(**kw)`` the counts of a run that
+    launched only the kernels named. K1_camera counts the K1 launches
+    started from the camera (among K1's), camera_rays the rt_camera_rays
+    launches (the replay's rays)."""
+    from raytracing_tpu_torch.diff import replay_kernel as rk
+    from raytracing_tpu_torch.ops import megakernel_block as mb
+    from raytracing_tpu_torch.ops import megakernel_group as mg
+    from raytracing_tpu_torch.ops import table_gather as tg
+    from raytracing_tpu_torch.ops import traverse
+
+    counters = (("K1", mb.launches), ("K3", rk.fwd_launches), ("K2", rk.bwd_launches),
+                ("K5", mg.launches), ("K4", tg.launches), ("fold", tg.fold_launches),
+                ("walk", traverse.launches), ("K1_camera", mb.camera_launches),
+                ("camera_rays", rk.camera_launches))
+
+    def zero_counts():
+        for _, count in counters:
+            count.reset()
+
+    def counts():
+        return {k: int(count) for k, count in counters}
+
+    def only(**kw):
+        return {**{k: 0 for k, _ in counters}, **kw}
+
+    return zero_counts, counts, only
+
+
+def camera_launches(torch, dev):
+    """Three launches of each camera cell (CAMERA_CELLS) at Renderer's
+    launch shape: the render's first and its last (the last block, padded,
+    its last pixels clamped and dead, of the last sample chunk), and the
+    last block of a chunk that runs one sample past spp (all dead where a
+    chunk holds one sample). Yields (name, launch, scene, cfg, mega,
+    start, pix, smp, alive), ``start`` the cell's ``CameraStart``."""
+    from raytracing_tpu_torch import Renderer, build
+    from raytracing_tpu_torch.ops.megakernel import build_mega_scene
+    from raytracing_tpu_torch.render import camera as cam
+    from raytracing_tpu_torch.render.renderer import chunk_ids
+
+    for name, shape in CAMERA_CELLS.items():
+        scene, cfg = build(name, device=dev, **shape)
+        r = Renderer(cfg)
+        mega = build_mega_scene(scene)
+        start = cam.CameraStart.of(cfg, cam.pack_camera(cam.derive(
+            cfg, cam.CameraParams.from_config(cfg, dev))), scene.flags.has_moving)
+        n_blocks, n_schunks = r._grid()
+        p_last = (n_blocks - 1) * r.n_block
+        for launch, p0, s0 in (("first", 0, 0),
+                               ("last", p_last, (n_schunks - 1) * r.spp_chunk),
+                               ("past spp", p_last, cfg.samples_per_pixel - r.spp_chunk + 1)):
+            pix, smp, _, alive = chunk_ids(cfg, p0, s0, n_block=r.n_block,
+                                           spp_chunk=r.spp_chunk, device=dev)
+            yield name, launch, scene, cfg, mega, start, pix, smp, alive
+
+
+def camera_rows(torch, dev):
+    """Camera rays computed where they are used, against their plain
+    versions on the same inputs, at each camera cell's two launches
+    (:func:`camera_launches`) and CAMERA_SEEDS: K1's start state (a
+    depth-0 launch started from the camera) against ``pack_rays`` of
+    ``camera.rays`` (the int64 path, on the card); K1's first phase (2
+    bounces, ids) started from the camera against K1 fed those packed
+    rays and against ``trace_block_torch`` started from the camera; and
+    ``rt_camera_rays`` on the ids in a permuted (sorted-order) list
+    against ``pack_replay_rays`` of the same rays, all with
+    ``torch.equal``. Per launch and seed: K1 3 launches (2 from the
+    camera), ``rt_camera_rays`` 1. Returns one row per launch and seed."""
+    from raytracing_tpu_torch.diff import replay_kernel as rk
+    from raytracing_tpu_torch.ops import megakernel_block as mb
+
+    rows = []
+    for name, launch, scene, cfg, mega, start, pix, smp, alive in camera_launches(torch, dev):
+        n = pix.numel()
+        ray_i = torch.stack([pix, smp]).to(torch.int32)
+        order = torch.randperm(n, device=dev, generator=torch.Generator(device=dev).manual_seed(5))
+        ids_s, alive_s = ray_i[:, order].contiguous(), alive[order]
+        kw = dict(max_depth=2, background=cfg.background, want_ids=True)
+        for seed in CAMERA_SEEDS:
+            o, d, t = start.rays(pix, smp, seed)
+            ray_f = mb.pack_rays(o, d, t, pix, smp, alive)[0]
+            _, bc0, st0 = mb.trace_block(mega, None, ray_i, seed, 0, max_depth=0,
+                                         background=cfg.background, camera=start, alive=alive)
+            k_cam = mb.trace_block(mega, None, ray_i, seed, 0, camera=start, alive=alive, **kw)
+            k_rays = mb.trace_block(mega, ray_f, ray_i, seed, 0, **kw)
+            plain = mb.trace_block_torch(mega, None, ray_i, seed, 0, camera=start, alive=alive,
+                                         **kw)
+            got = rk.replay_rays(start, ids_s, alive_s, seed)
+            want = rk.pack_replay_rays(o[order], d[order], t[order], alive_s)
+            rows.append(dict(
+                scene=name, launch=launch, seed=seed, B=n, alive=int(alive.sum()),
+                pixels=cfg.n_pixels, pixel_max=int(pix.max()), spp=cfg.samples_per_pixel,
+                samples=[int(smp.min()), int(smp.max())],
+                start_state_equal=bool(torch.equal(st0, ray_f)) and int(bc0.sum()) == 0,
+                k1_equal_packed=bit_equal(torch, k_cam, k_rays),
+                k1_equal_plain=bit_equal(torch, k_cam, plain),
+                replay_rays_equal=bool(torch.equal(got, want)),
+                segments=int(k_cam[1].sum())))
+    return rows
+
+
+def camera_phase(torch, dev, card):
+    """Phase 34: K1's start from the camera and rt_camera_rays against
+    their plain versions on the same inputs, bit for bit
+    (:func:`camera_rows`), with the launches counted; then timed against
+    the int64 path they replace (:func:`camera_times`). Prints a line a
+    row and one for the phase; returns ``(ok, rows, times)``."""
+    zero_counts, counts, only = launch_counts()
+    zero_counts()
+    rows = camera_rows(torch, dev)
+    torch.cuda.synchronize()
+    c = counts()
+    ok_all = c == only(K1=3 * len(rows), K1_camera=2 * len(rows), camera_rays=len(rows))
+    for row in rows:
+        ok = (row["start_state_equal"] and row["k1_equal_packed"] and row["k1_equal_plain"]
+              and row["replay_rays_equal"] and (row["segments"] > 0) == (row["alive"] > 0))
+        if row["launch"] == "last":  # padded, its last pixels clamped and dead
+            ok &= row["pixel_max"] == row["pixels"] - 1 and 0 < row["alive"] < row["B"]
+        if row["launch"] == "past spp":
+            ok &= row["samples"][1] >= row["spp"]
+        print(f"phase 34 camera rays {row['scene']} {row['launch']} launch seed {row['seed']}: "
+              f"{'ok' if ok else 'FAIL'} {json.dumps(row)} [{card}]")
+        ok_all &= ok
+    times = camera_times(torch, dev)
+    print(f"phase 34 camera rays: {'ok' if ok_all else 'FAIL'} kernel launches {c} (expected "
+          f"K1 {3 * len(rows)}, K1_camera {2 * len(rows)}, camera_rays {len(rows)}) "
+          f"times {json.dumps(times)} [{card}]")
+    return bool(ok_all), rows, times
+
+
+def camera_times(torch, dev, reps=20):
+    """Device ms of the camera rays on the first launch of each camera
+    cell at SEED: ``rt_camera_rays`` on the sorted-order ids (queued
+    behind a spin kernel, :func:`device_ms`) against its plain version
+    (``pack_replay_rays`` of ``camera.rays``, about 250 int64 kernels,
+    back to back), with its bound; and K1's first phase (2 bounces, the
+    walk or sweep its scene takes) started from the camera against K1 fed
+    the packed rays, back to back."""
+    from raytracing_tpu_torch.diff import replay_kernel as rk
+    from raytracing_tpu_torch.ops import megakernel_block as mb
+
+    rows = {}
+    for name, launch, scene, cfg, mega, start, pix, smp, alive in camera_launches(torch, dev):
+        if launch != "first":
+            continue
+        n = pix.numel()
+        ray_i = torch.stack([pix, smp]).to(torch.int32)
+        order = torch.randperm(n, device=dev, generator=torch.Generator(device=dev).manual_seed(5))
+        ids_s, alive_s = ray_i[:, order].contiguous(), alive[order]
+        ray_f = mb.pack_rays(*start.rays(pix, smp, SEED), pix, smp, alive)[0]
+        kw = dict(max_depth=2, background=cfg.background)
+        b = bound(n * CAMERA_OPS_PER_RAY, n * (2 * 4 + 1 + rk.N_RAY_F * 4) + 4 * 18)
+        rows[name] = dict(
+            B=n, ms=device_ms(torch, lambda: rk.replay_rays(start, ids_s, alive_s, SEED), reps),
+            plain_ms=cuda_ms(torch, lambda: rk.pack_replay_rays(
+                *start.rays(ids_s[0], ids_s[1], SEED), alive_s), 5),
+            bound_ms=b[0], bound_by=b[1],
+            k1_camera_ms=cuda_ms(torch, lambda: mb.trace_block(
+                mega, None, ray_i, SEED, 0, camera=start, alive=alive, **kw), 5),
+            k1_packed_ms=cuda_ms(torch, lambda: mb.trace_block(mega, ray_f, ray_i, SEED, 0, **kw),
+                                 5))
+    return rows
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -557,20 +749,7 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    def zero_counts():
-        for count in (mb.launches, rk.fwd_launches, rk.bwd_launches, mg.launches, tg.launches,
-                      tg.fold_launches, traverse.launches):
-            count.reset()
-
-    def counts():
-        return {k: int(count) for k, count in (
-            ("K1", mb.launches), ("K3", rk.fwd_launches), ("K2", rk.bwd_launches),
-            ("K5", mg.launches), ("K4", tg.launches), ("fold", tg.fold_launches),
-            ("walk", traverse.launches))}
-
-    def only(**kw):
-        """The counts of a run that launched only the kernels named."""
-        return {**dict(K1=0, K3=0, K2=0, K5=0, K4=0, fold=0, walk=0), **kw}
+    zero_counts, counts, only = launch_counts()
 
     # ---- phase 1: build ----
     t0 = time.perf_counter()
@@ -620,9 +799,10 @@ def main() -> int:
     runs = [res] + [r.render(scene, seed=SEED) for _ in range(2)]
     best = min(runs, key=lambda x: x.seconds)
     img = res.u8
-    # one K1 launch per phase of every chunk: 5 × 50 = 250
+    # one K1 launch per phase of every chunk: 5 × 50 = 250, the first
+    # phase of each started from the camera
     render_ok = (res.ok is True
-                 and render_counts == only(K1=5 * res.launches)
+                 and render_counts == only(K1=5 * res.launches, K1_camera=res.launches)
                  and segments_close(BENCH_SEGMENTS, res.segments)
                  and res.segments == PORT_BENCH_SEGMENTS
                  and all(x.segments == res.segments for x in runs)
@@ -678,16 +858,35 @@ def main() -> int:
 
     phased = dict(phase_depths=kw["phase_depths"], active0=alive)
     trace_args = (mega, o, d, t, pix, smp, cfg.background, cfg.max_depth, SEED)
+    zero_counts()
     rad_k, seg_k = trace_megakernel(*trace_args, **phased)
+    torch.cuda.synchronize()
+    rays4_counts = counts()
     rad_p, seg_p = trace_megakernel(*trace_args, **phased, plain=True)
     err = float((rad_k - rad_p).abs().mean())
-    ph_ok = err < 2e-3 and segments_close(int(seg_p), int(seg_k))
+    # the same trace started from the camera (the renders' and the
+    # sweeps' start): bit-equal, its first phase's launch counted
+    start4 = cam.CameraStart.of(cfg, cam.pack_camera(cam.derive(
+        cfg, cam.CameraParams.from_config(cfg, dev))), scene.flags.has_moving)
+    zero_counts()
+    rad_c, seg_c = trace_megakernel(mega, None, None, None, *trace_args[4:], **phased,
+                                    camera=start4)
+    torch.cuda.synchronize()
+    cam4_counts = counts()
+    n_ph = len(kw["phase_depths"])
+    ph_ok = (err < 2e-3 and segments_close(int(seg_p), int(seg_k))
+             and bool(torch.equal(rad_c, rad_k)) and bool(torch.equal(seg_c, seg_k))
+             and rays4_counts == only(K1=n_ph) and cam4_counts == only(K1=n_ph, K1_camera=1))
     ph_ms = cuda_ms(torch, lambda: trace_megakernel(*trace_args, **phased), 5)
+    ph_cam_ms = cuda_ms(torch, lambda: trace_megakernel(
+        mega, None, None, None, *trace_args[4:], **phased, camera=start4), 5)
     ph_plain_ms = cuda_ms(torch, lambda: trace_megakernel(
         *trace_args, **phased, plain=True), 2)
     print(f"phase 4 phased launch {kw['phase_depths']} B={B}: {'ok' if ph_ok else 'FAIL'} "
           f"mean_abs_err {err:.3g} segments {int(seg_k)} plain {int(seg_p)} "
-          f"kernel {ph_ms:.3f} ms plain {ph_plain_ms:.3f} ms [{card}]")
+          f"from the camera bit-equal {bool(torch.equal(rad_c, rad_k))} kernel launches "
+          f"{rays4_counts}, from the camera {cam4_counts} kernel {ph_ms:.3f} ms, from the "
+          f"camera {ph_cam_ms:.3f} ms, plain {ph_plain_ms:.3f} ms [{card}]")
     if not ph_ok:
         failures.append("phase 4 phased launch")
 
@@ -862,14 +1061,16 @@ def main() -> int:
     fb = pbench.time_fwd_bwd(fbs, reps=3)
     fb_wall = time.perf_counter() - t0
     n_chunks = fbs["n_chunks"]
-    fb_ok = (fb_counts == only(K1=5 * n_chunks, K2=n_chunks, fold=n_chunks) and bool(sweep_ok)
+    fb_ok = (fb_counts == only(K1=5 * n_chunks, K2=n_chunks, fold=n_chunks, K1_camera=n_chunks,
+                               camera_rays=n_chunks) and bool(sweep_ok)
              and int(sweep_segs) == fb["segments"]
              and fb["segments"] == res.segments and segments_close(BENCH_SEGMENTS, fb["segments"])
              and fb["grads_finite"] and float(fb["grad_rgb"].abs().sum()) > 0)
     print(f"phase 6 fwd+bwd bench: {'ok' if fb_ok else 'FAIL'} segments {fb['segments']} "
           f"(forward render {res.segments}, reference {BENCH_SEGMENTS}) best {fb['seconds']:.4f} s "
           f"{fb['rays_per_s']:.4g} rays/s loss {fb['loss']:.6g} kernel launches in one sweep "
-          f"{fb_counts} (expected K1 {5 * n_chunks}, K2 and fold {n_chunks}) (call "
+          f"{fb_counts} (expected K1 {5 * n_chunks}, K2, fold, K1_camera and camera_rays "
+          f"{n_chunks}) (call "
           f"{fb_wall:.1f} s) [{card}]")
     if not fb_ok:
         failures.append("phase 6 fwd+bwd bench")
@@ -1715,7 +1916,9 @@ def main() -> int:
     ok24 = (rc24 == 0 and ppm_equal and done24["event"] == "render_done"
             and done24["segments"] == PORT_BENCH_SEGMENTS == res24.segments
             and done24["hit_method"] == "mega"
-            and cli_counts == only(K1=plan_counts["K1"] + render_counts["K1"])
+            and cli_counts == only(K1=plan_counts["K1"] + render_counts["K1"],
+                                   K1_camera=plan_counts["K1_camera"]
+                                   + render_counts["K1_camera"])
             and "Done." in shown.getvalue())
     print(f"phase 24 cli render bouncing_spheres 400x225 spp 100 depth 20 --auto-prefix: "
           f"{'ok' if ok24 else 'FAIL'} rc {rc24} PPM byte-equal to Renderer + write_ppm "
@@ -1754,7 +1957,7 @@ def main() -> int:
             and bool(np.array_equal(whole.radiance, res24.radiance))
             and resumed.segments == ck_run.segments == whole.segments == PORT_BENCH_SEGMENTS
             and mid["schunk"] == n_mid and resumed.launches == whole.launches - n_mid
-            and resumed_counts == only(K1=5 * resumed.launches)
+            and resumed_counts == only(K1=5 * resumed.launches, K1_camera=resumed.launches)
             and all(c == render_counts for _, c in walls25["none"] + walls25["every chunk"]))
     print(f"phase 25 checkpoint every sample chunk and resume at chunk {n_mid}: "
           f"{'ok' if ok25 else 'FAIL'} radiance bit-equal {bool(np.array_equal(resumed.radiance, whole.radiance))} "
@@ -1880,7 +2083,10 @@ def main() -> int:
         ok = (segments_close(ref["segments"], row["segments"])
               and abs(row["nonblack_frac"] - ref["nonblack_frac"]) <= 0.01
               and (n == 4 or mean_dev <= 1.0) and row["hit_method"] == "mega"
-              and accept_counts[n] == only(K1=accept_counts[n]["K1"]) and accept_counts[n]["K1"] > 0
+              and accept_counts[n] == only(K1=accept_counts[n]["K1"],
+                                           K1_camera=accept_counts[n]["K1_camera"])
+              and accept_counts[n]["K1"] > 0 and accept_counts[n]["K1_camera"] > 0
+              and accept_counts[n]["K1"] % accept_counts[n]["K1_camera"] == 0
               and (n != 3 or row["segments"] == PORT_BENCH_SEGMENTS))
         accept_rows[n] = row
         print(f"phase 28 config {n} {c['scene']} {c['width']} px {c['spp']} spp depth "
@@ -1991,7 +2197,7 @@ def main() -> int:
     ok28g = (bool(ok5) and int(seg5) == accept_rows[5]["segments"]
              and bool(torch.isfinite(gc5).all() and torch.isfinite(gr5).all())
              and float(gr5.abs().sum()) > 0
-             and sweep5_counts == only(K1=5 * n5, K2=n5, fold=n5))
+             and sweep5_counts == only(K1=5 * n5, K2=n5, fold=n5, K1_camera=n5, camera_rays=n5))
     print(f"phase 28 config 5 fwd+bwd ({n5} chunks of {fb5['B']} rays, spp_chunk 4): "
           f"{'ok' if ok28g else 'FAIL'} decision-pass segments {int(seg5)} (forward render "
           f"{accept_rows[5]['segments']}) plan {plan5_s:.3f} s sweep {sweep5_s:.3f} s "
@@ -2301,7 +2507,8 @@ def main() -> int:
                    grads_finite=bool(torch.isfinite(gc31).all() and torch.isfinite(gr31).all()),
                    grad_rgb_norm=float(gr31.norm()))
         ok = (row["plan_ok"] and row["grads_finite"] and row["grad_rgb_norm"] > 0
-              and c31s == only(K1=5 * n_ch, K2=n_ch, fold=windows * n_ch)
+              and c31s == only(K1=5 * n_ch, K2=n_ch, fold=windows * n_ch, K1_camera=n_ch,
+                               camera_rays=n_ch)
               and windows == (2 if D31 > 64 else 1))
         if D31 == 100:
             s100, c100 = build("bouncing_spheres", device=dev, image_width=400,
@@ -2370,7 +2577,8 @@ def main() -> int:
                                  grad_norms=dict(center=float(kern[1].norm()),
                                                  rgb=float(kern[2].norm())))
             ok &= (fwd100.segments == row["segments"] and bool(kern[3]) and k2_eq0 and f_ok
-                   and f_rel < 1e-4 and c0 == only(K1=5, K2=1, fold=2))
+                   and f_rel < 1e-4
+                   and c0 == only(K1=5, K2=1, fold=2, K1_camera=1, camera_rays=1))
             del kern, g64, g32, g_w1
         ok31 &= ok
         sweeps31[D31] = row
@@ -2403,7 +2611,8 @@ def main() -> int:
     ok32 = ok
     r32 = rows32["bench_render"] = tf.compare_renders(s32, c32, dict(kw32, phase_prefixes=pref))
     ok = (r32["equal"] and r32["f32_equal"] and r32["segments"] == PORT_BENCH_SEGMENTS
-          and r32["ok"] is True and r32["counts_fused"] == r32["counts_loop"] == only(K1=250))
+          and r32["ok"] is True
+          and r32["counts_fused"] == r32["counts_loop"] == only(K1=250, K1_camera=50))
     print(f"phase 32 bench render fused against the loop: {'ok' if ok else 'FAIL'} "
           f"{json.dumps(r32)} [{card}]")
     ok32 &= ok
@@ -2460,7 +2669,8 @@ def main() -> int:
     rel_l, rows_l = grads_close(loop_g[1], loop_g[2])
     sw.update(grad_rgb_rel_l2_vs_float64_fused=rel_f, grad_rgb_rel_l2_vs_float64_loop=rel_l,
               rows_within_bar_fused=rows_f, rows_within_bar_loop=rows_l)
-    expect = only(K1=5 * fbs["n_chunks"], K2=fbs["n_chunks"], fold=fbs["n_chunks"])
+    expect = only(K1=5 * fbs["n_chunks"], K2=fbs["n_chunks"], fold=fbs["n_chunks"],
+                  K1_camera=fbs["n_chunks"], camera_rays=fbs["n_chunks"])
     ok = (sw["loss"] == sw["loss_loop"] and sw["segments"] == sw["segments_loop"]
           == PORT_BENCH_SEGMENTS == int(seg64) and sw["ok"] and sw["ok_loop"]
           and sw["counts_fused"] == sw["counts_loop"] == expect
@@ -2479,7 +2689,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     r5 = rows32["config5_render"] = tf.compare_renders(s5r, c5r, {}, reps=1)
     ok = (r5["equal"] and r5["segments"] == accept_rows[5]["segments"]
-          and r5["counts_fused"] == r5["counts_loop"] == only(K1=r5["counts_loop"]["K1"]))
+          and r5["counts_fused"] == r5["counts_loop"]
+          == only(K1=r5["counts_loop"]["K1"], K1_camera=r5["counts_loop"]["K1_camera"])
+          and r5["counts_loop"]["K1_camera"] > 0
+          and r5["counts_loop"]["K1"] % r5["counts_loop"]["K1_camera"] == 0)
     print(f"phase 32 config 5 render fused against the loop: {'ok' if ok else 'FAIL'} "
           f"{json.dumps(r5)} [{card}]")
     ok32 &= ok
@@ -2523,6 +2736,12 @@ def main() -> int:
     ok33 &= rows33["config5_pool"]["launches"] == 25
     if not ok33:
         failures.append("phase 33 the pool's single dispatch")
+
+    # ---- phase 34: camera rays where they are used, at the cells' launch shapes ----
+    torch.cuda.empty_cache()
+    ok34, rows34, times34 = camera_phase(torch, dev, card)
+    if not ok34:
+        failures.append("phase 34 camera rays")
 
     print(f"card: {card}")  # again near the end, inside a tail of the output
     print(json.dumps({"kernels": [
@@ -2623,6 +2842,23 @@ def main() -> int:
                                                         "bound_by", "brute_ms")},
          "brute_ms": walk26["camera"]["brute_ms"],
          "render_busy_share": full26["busy_share"]},
+        {"name": "rt_camera_rays (the gradient replay's camera rays, one thread a ray; "
+                 "rt::camera_ray also starts K1's first phase)", "route": "cuda",
+         "source": "raytracing_tpu_torch/csrc/camera_rays.cu, csrc/rt_camera.cuh",
+         "replaces": "raytracing_tpu/render/camera.py generate_rays (XLA elementwise ops; "
+                     "no Pallas kernel)",
+         "launches": fb_counts["camera_rays"], "path": "one fwd+bwd bench sweep (phase 6)",
+         "launches_fused_bench_sweep": rows32["bench_sweep"]["counts_fused"]["camera_rays"],
+         "launches_acceptance_config5_sweep": sweep5_counts["camera_rays"],
+         "k1_camera_starts": {"bench_render": render_counts["K1_camera"],
+                              "fwd_bwd_sweep": fb_counts["K1_camera"],
+                              "fused_bench_render": r32["counts_fused"]["K1_camera"]},
+         "bit_equal": all(r["replay_rays_equal"] and r["start_state_equal"] for r in rows34),
+         **{k: times34["bouncing_spheres"][k] for k in ("B", "ms", "plain_ms", "bound_ms",
+                                                         "bound_by")},
+         "library_ms": None, "cornell_box": times34["cornell_box"],
+         "k1_first_phase_ms": {k: {"camera": v["k1_camera_ms"], "packed": v["k1_packed_ms"]}
+                               for k, v in times34.items()}},
     ]}))
     if failures:
         print(f"chip_smoke: FAILED {failures}", file=sys.stderr)

@@ -87,7 +87,8 @@ def _nvcc() -> str:
 def _declare(lib: ctypes.CDLL) -> None:
     P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
     lib.rt_trace_block.argtypes = [P, I, P, I, P, I, P, P, I, P, P, P, P, P, U, U, I, I,
-                                   F, F, F, I, I, I, P, P, P, P, I, P, I, P, I, P, F, F, F, F, F, I, P]
+                                   F, F, F, I, I, I, P, P, P, P, I, P, I, P, I, P, F, F, F, F, F, I,
+                                   P, P, U, I, P]
     lib.rt_trace_block.restype = ctypes.c_int
     lib.rt_trace_group.argtypes = [P, I, I, P, I, P, P, I, P, P, P, P, I, P, P, P, U, U, I,
                                    F, F, F, I, I, I, P, P, P, P]
@@ -109,6 +110,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rt_bvh_walk.argtypes = [P, P, P, I, P, P, P, P, I, P, P, P, I, P, P, P, P, P, P, P, F,
                                 F, I, P, P, P]
     lib.rt_bvh_walk.restype = ctypes.c_int
+    lib.rt_camera_rays.argtypes = [P, P, I, P, U, I, U, P, P]
+    lib.rt_camera_rays.restype = ctypes.c_int
     lib.rt_while_build.argtypes = [P, P, ctypes.POINTER(P)]
     lib.rt_while_build.restype = ctypes.c_int
     lib.rt_while_launch.argtypes = [P, P]

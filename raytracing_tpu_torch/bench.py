@@ -29,7 +29,7 @@ import torch
 
 from .core.device import DEFAULT_DEVICE, resolve
 from .diff.replay_fast import build_replay_table, supported_fast
-from .diff.replay_kernel import TILE, plan_prefixes, replay_grads_sorted
+from .diff.replay_kernel import TILE, plan_prefixes, replay_grads_sorted, replay_rays
 from .models.scenes import build
 from .ops.megakernel import BLOCK, build_mega_scene, trace_megakernel
 from .render import camera as cam_mod
@@ -109,8 +109,10 @@ def _fwd_bwd_setup(width=400, spp=100, max_depth=20, seed=7, spp_chunk=4, phases
     target = torch.zeros((cfg.image_height, cfg.image_width, 3), dtype=torch.float32, device=dev)
     pix = torch.clamp(torch.arange(npix_pad, device=dev), max=n_pix - 1).repeat(spp_chunk)
     act0 = (torch.arange(npix_pad, device=dev) < n_pix).repeat(spp_chunk)
+    # the camera on the device: K1's first phase and the replay's rays
+    # compute each ray from it where they use it
     derived = cam_mod.derive(cfg, cam_mod.CameraParams.from_config(cfg, dev))
-    moving = scene.flags.has_moving
+    camera = cam_mod.CameraStart.of(cfg, cam_mod.pack_camera(derived), scene.flags.has_moving)
     if phases == "default":
         if max_depth >= 12:
             phases = [2, 2, 3, 4, max_depth - 11]
@@ -122,23 +124,18 @@ def _fwd_bwd_setup(width=400, spp=100, max_depth=20, seed=7, spp_chunk=4, phases
     ns = {"prefixes": None,          # replay per-bounce prefixes
           "decide_prefixes": None}   # decision pass per-phase prefixes
 
-    def make_rays(sample0):
+    def decide(sample0):
         with stage("camera", dev):
             smp = sample0 + torch.arange(spp_chunk, device=dev).repeat_interleave(npix_pad)
-            o, d, t = cam_mod.generate_rays(cfg, derived, pix, smp, seed, motion_blur=moving)
-        return o, d, t, smp
-
-    def decide(sample0):
-        o, d, t, smp = make_rays(sample0)
-        out = trace_megakernel(mega, o, d, t, pix, smp, cfg.background, max_depth, seed,
+        out = trace_megakernel(mega, None, None, None, pix, smp, cfg.background, max_depth, seed,
                                phase_depths=phases, active0=act0, want_ids="compacted",
                                want_counts=True, phase_prefixes=ns["decide_prefixes"],
-                               cull=cull)
+                               cull=cull, camera=camera)
         rad, _, ids0, later, perm, cnt, cnt_c, *ok = out
         bundle = dict(ids0=ids0, later=later, perm=perm, counts_c=cnt_c,
                       phase_depths=tuple(phases) if phases is not None else (max_depth,))
         ok = ok[0] if ok else torch.ones((), dtype=torch.bool, device=dev)
-        return rad, bundle, cnt, ok, (o, d, t, smp)
+        return rad, bundle, cnt, ok
 
     programs = graphs.ProgramSlot()
 
@@ -175,7 +172,7 @@ def _fwd_bwd_setup(width=400, spp=100, max_depth=20, seed=7, spp_chunk=4, phases
             return ns["prefixes"]
 
     def grads_chunk(center, rgb, sample0):
-        rad_pre, bundle, cnt, ok_d, (o, d, t, smp) = decide(sample0)
+        rad_pre, bundle, cnt, ok_d = decide(sample0)
         with stage("loss", dev):
             img = (rad_pre * act0[:, None]).reshape(spp_chunk, npix_pad, 3).mean(dim=0)
             img = img[:n_pix].reshape(cfg.image_height, cfg.image_width, 3)
@@ -188,12 +185,12 @@ def _fwd_bwd_setup(width=400, spp=100, max_depth=20, seed=7, spp_chunk=4, phases
                                           device=dev)])
             rad_bar = gpad.repeat(spp_chunk, 1) * act0[:, None] / spp_chunk
 
-        def ray_regen(orig):
+        def ray_regen(orig, alive):
             # camera rays are pure functions of the original ray index
             p = torch.clamp(orig % npix_pad, max=n_pix - 1)
             s = sample0 + torch.div(orig, npix_pad, rounding_mode="floor")
-            ro, rd, rt = cam_mod.generate_rays(cfg, derived, p, s, seed, motion_blur=moving)
-            return ro, rd, rt, p, s
+            ray_i = torch.stack([p, s]).to(torch.int32)
+            return replay_rays(camera, ray_i, alive, seed), ray_i
 
         with stage("vjp", dev):
             c = center.detach().requires_grad_(True)
@@ -201,9 +198,9 @@ def _fwd_bwd_setup(width=400, spp=100, max_depth=20, seed=7, spp_chunk=4, phases
             table = build_replay_table(dataclasses.replace(
                 scene, spheres=dataclasses.replace(scene.spheres, center=c),
                 textures=dataclasses.replace(scene.textures, rgb=r)))
-        tbar, ok = replay_grads_sorted(
-            scene, table, None, o, d, t, pix, smp, cfg.background, max_depth, seed, rad_bar,
-            cnt, prefixes=ns["prefixes"], ray_regen=ray_regen, compacted=bundle)
+        tbar, ok = replay_grads_sorted(scene, table, cfg.background, max_depth, seed, rad_bar,
+                                       cnt, prefixes=ns["prefixes"], ray_regen=ray_regen,
+                                       compacted=bundle)
         with stage("vjp", dev):
             gc, gr = torch.autograd.grad(table, (c, r), tbar)
         with stage("accumulate", dev):

@@ -37,6 +37,16 @@
 // * one thread traces one ray through the whole phase with its state in
 //   registers, so nothing but the phase's inputs and outputs touches
 //   device memory;
+// * a render's first phase starts from the camera (TraceParams::camera):
+//   each thread computes its ray from its (pix, smp) ids with
+//   rt::camera_ray (rt_camera.cuh), bit-equal to the rays the trace glue
+//   built before, so no camera ray crosses device memory. It is a runtime
+//   branch at the load, not a template switch: no instantiation is added.
+//   The start goes through the thread's own 56-byte stack slot and is
+//   loaded back as a ray_f start is, so the bounce loop keeps its
+//   registers (MIN_BLOCKS holds the one instantiation that did not):
+//   computed into the loop's registers directly, the start raised 14 of
+//   the 32 instantiations by up to 8 registers and gave one a spill;
 // * the guarded root: a sphere whose discriminant is negative (most rows
 //   of a sweep) never reaches sqrtf. Without fast math sqrtf is the
 //   correctly rounded sequence MUFU.RSQ + Newton step, which calls a
@@ -81,6 +91,7 @@
 // math also compiles as plain C++ (without __CUDACC__), so its arithmetic
 // can be exercised on a host.
 
+#include "rt_camera.cuh"
 #include "rt_shade.cuh"
 
 namespace {
@@ -131,6 +142,10 @@ struct TraceParams {
   const int* quad_gid;   // walk: (n_quad_chunks, 8) unified columns of each quad chunk
   float ball_x, ball_y, ball_z, ball_r2;  // walk: origins the padded boxes hold for
   float band_k;          // walk: a wide ray's sphere band over |box far point|^2
+  const float* camera;   // (rt::CAMERA_F,) packed camera, or null: the lanes start from ray_f
+  const unsigned char* alive;  // camera start: (n,) flags of the lanes that start alive, or null
+  uint32_t cam_width;    // camera start: the image width
+  int cam_flags;         // camera start: rt::CAMERA_DEFOCUS | rt::CAMERA_MOTION
 };
 
 // One segment's ray, with the terms both searches share.
@@ -329,6 +344,25 @@ RT_DEVICE void walk_hit(const TraceParams& p, const float4* nodes, const HitRay&
   }
 }
 
+// Lane i's start state from the camera (TraceParams::camera) in ray_f's
+// row order: the camera ray of its (pix, smp) ids, unit throughput, zero
+// radiance, alive unless its alive flag is 0, as ops/megakernel_block.py
+// pack_rays packs generate_rays' rays.
+RT_DEVICE void camera_state(const TraceParams& p, int i, float* st) {
+  const rt::CameraRay c = rt::camera_ray((uint32_t)p.ray_i[i], (uint32_t)p.ray_i[p.n + i],
+                                         p.seed, p.camera, p.cam_width, p.cam_flags);
+  st[rt::OX] = c.ox;
+  st[rt::OY] = c.oy;
+  st[rt::OZ] = c.oz;
+  st[rt::DX] = c.dx;
+  st[rt::DY] = c.dy;
+  st[rt::DZ] = c.dz;
+  st[rt::TM] = c.tm;
+  st[rt::TR] = st[rt::TG] = st[rt::TB] = 1.0f;
+  st[rt::RR] = st[rt::RG] = st[rt::RB] = 0.0f;
+  st[rt::ACT] = (!p.alive || p.alive[i] != 0) ? 1.0f : 0.0f;
+}
+
 // Trace ray i through one phase. The sweep reads the staged sweep tables
 // sph/quad (float4 rows: 2 per sphere, 4 per quad), the walk the node
 // table `nodes`; perm/grad point at the noise tables.
@@ -336,7 +370,18 @@ template <bool MOVING, bool NOISE, bool IMAGE, bool CAP, bool WALK>
 RT_DEVICE void trace_ray(const TraceParams& p, const float4* sph, const float4* quad,
                          const float4* nodes, const int* perm, const float* grad, int i) {
   const int n = p.n;
-  rt::Ray r = rt::load_ray(p.ray_f, p.ray_i, n, i);
+  // a camera start goes through the thread's stack and is loaded back as
+  // a ray_f start is (see the note at the top)
+  float start[rt::N_F];
+  const float* rf = p.ray_f;
+  int stride = n, at = i;
+  if (p.camera) {
+    camera_state(p, i, start);
+    rf = start;
+    stride = 1;
+    at = 0;
+  }
+  rt::Ray r = rt::load_ray(rf, stride, at, p.ray_i, n, i);
   if (CAP) r.dep = p.dep[i];
   const rt::ShadeParams sp{p.table,   p.n_res_cols, p.ns_pad, p.seed, p.b_off, p.bg_r, p.bg_g,
                            p.bg_b,    perm,         grad,     p.atlas, p.depth_cap};
@@ -368,11 +413,20 @@ constexpr size_t DEFAULT_SHARED = 48 * 1024;
 // nodes, ~6k primitives) and reads larger ones through the caches
 constexpr size_t NODE_SMEM_BYTES = 48 * 1024;
 
+// The blocks of THREADS an SM an instantiation's registers must leave room
+// for; 0 leaves ptxas free, as no bound does. Free, ptxas gives the marble
+// pool's sweep (NOISE and CAP, not WALK) 71 registers since the camera
+// start; held to 8 blocks (64 registers, its count before) it needs no
+// spill. Bounds on the others cost K1 time in the benchmark cells (PERF.md).
+template <bool NOISE, bool WALK, bool CAP>
+constexpr int MIN_BLOCKS = NOISE && CAP && !WALK ? 8 : 0;
+
 // Shared memory of one block: the sweep tables (or, walking, the node
 // table when it is staged), then with NOISE the permutations (3 x 256 int)
 // and gradients (256 x 3 float), 6 KB.
 template <bool MOVING, bool NOISE, bool IMAGE, bool CAP, bool WALK>
-__global__ void __launch_bounds__(THREADS) k1_trace_block(const TraceParams p, int staged4) {
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS<NOISE, WALK, CAP>)
+    k1_trace_block(const TraceParams p, int staged4) {
   extern __shared__ float4 smem[];
   const float4* sph = smem;
   const float4* quad = smem + 2 * p.n_sph_rows;
@@ -444,7 +498,9 @@ cudaError_t launch_textures(const TraceParams& p, bool noise, bool image, bool w
 // C entry point (loaded with ctypes). Launches on `stream`, allocates
 // nothing and does not synchronize. Returns a cudaError_t. `dep` null:
 // no depth cap. `walk` nonzero: the BVH walk (nodes, sph_gid, quad_gid,
-// the ball and band of mega_bvh.cull_ball), else the sweep.
+// the ball and band of mega_bvh.cull_ball), else the sweep. `camera` not
+// null: every lane starts from its camera ray (ray_f is not read) and
+// `alive` (null: every lane) says which start alive.
 extern "C" int rt_trace_block(const float* sph, int n_sph_rows, const float* quad,
                               int n_quad_rows, const float* table, int n_res_cols,
                               const float* ray_f, const int* ray_i, int n, float* out_rad,
@@ -456,14 +512,16 @@ extern "C" int rt_trace_block(const float* sph, int n_sph_rows, const float* qua
                               const float* nodes, int n_nodes, const int* sph_gid,
                               int n_sph_chunks, const int* quad_gid, float ball_x,
                               float ball_y, float ball_z, float ball_r2, float band_k,
-                              int walk, void* stream) {
+                              int walk, const float* camera, const unsigned char* alive,
+                              uint32_t cam_width, int cam_flags, void* stream) {
   if (n <= 0) return 0;
   const TraceParams p{sph,     n_sph_rows, quad,    n_quad_rows, table,     n_res_cols,
                       ray_f,   ray_i,      n,       out_rad,     out_bc,    out_state,
                       kid_map, out_ids,    seed,    b_off,       max_depth, ns_pad,
                       bg_r,    bg_g,       bg_b,    perm,        grad,      atlas,
                       dep,     depth_cap,  nodes,   n_nodes,     sph_gid,   n_sph_chunks,
-                      quad_gid, ball_x,    ball_y,  ball_z,      ball_r2,   band_k};
+                      quad_gid, ball_x,    ball_y,  ball_z,      ball_r2,   band_k,
+                      camera,  alive,      cam_width, cam_flags};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool w = walk != 0;
   return (int)(moving ? launch_textures<true>(p, noise, image, w, s)

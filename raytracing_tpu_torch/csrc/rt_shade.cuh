@@ -42,26 +42,32 @@ struct Ray {
   int dep;  // segments traced before this phase (the pool's depth cap); else 0
 };
 
-RT_DEVICE Ray load_ray(const float* rf, const int* ri, int n, int i) {
+// ray i of ri (2, n), its float rows at rf[k * stride + at]
+RT_DEVICE Ray load_ray(const float* rf, int stride, int at, const int* ri, int n, int i) {
   Ray r;
-  r.ox = rf[OX * n + i];
-  r.oy = rf[OY * n + i];
-  r.oz = rf[OZ * n + i];
-  r.dx = rf[DX * n + i];
-  r.dy = rf[DY * n + i];
-  r.dz = rf[DZ * n + i];
-  r.tm = rf[TM * n + i];
-  r.tr = rf[TR * n + i];
-  r.tg = rf[TG * n + i];
-  r.tb = rf[TB * n + i];
-  r.rr = rf[RR * n + i];
-  r.rg = rf[RG * n + i];
-  r.rb = rf[RB * n + i];
-  r.active = rf[ACT * n + i] > 0.5f;
+  r.ox = rf[OX * stride + at];
+  r.oy = rf[OY * stride + at];
+  r.oz = rf[OZ * stride + at];
+  r.dx = rf[DX * stride + at];
+  r.dy = rf[DY * stride + at];
+  r.dz = rf[DZ * stride + at];
+  r.tm = rf[TM * stride + at];
+  r.tr = rf[TR * stride + at];
+  r.tg = rf[TG * stride + at];
+  r.tb = rf[TB * stride + at];
+  r.rr = rf[RR * stride + at];
+  r.rg = rf[RG * stride + at];
+  r.rb = rf[RB * stride + at];
+  r.active = rf[ACT * stride + at] > 0.5f;
   r.pix = (uint32_t)ri[i];
   r.smp = (uint32_t)ri[n + i];
   r.dep = 0;
   return r;
+}
+
+// ray i of rf (N_F, n) and ri (2, n)
+RT_DEVICE Ray load_ray(const float* rf, const int* ri, int n, int i) {
+  return load_ray(rf, n, i, ri, n, i);
 }
 
 // rad (3, n), bounces (n,) and, when st is not null, the state (N_F, n)

@@ -103,6 +103,7 @@ _COPY_RUNS = _copy_runs(_TABLE_GRAD_COLS)
 
 fwd_launches = _kernels.LaunchCount()  # K3 kernel launches (plain-version calls excluded)
 bwd_launches = _kernels.LaunchCount()  # K2 kernel launches (plain-version calls excluded)
+camera_launches = _kernels.LaunchCount()  # rt_camera_rays launches (plain-version calls excluded)
 
 
 def plan_prefixes(length_hist, B, max_depth, margin=1.15):
@@ -137,6 +138,45 @@ def pack_replay_rays(o, d, time, active0=None):
     ray_f[RTM] = time
     ray_f[RACT] = 1.0 if active0 is None else active0.to(torch.float32)
     return ray_f
+
+
+def replay_rays(camera, ray_i: torch.Tensor, alive: torch.Tensor, seed: int) -> torch.Tensor:
+    """The replay kernels' ``ray_f (N_RAY_F, n)`` of the camera rays of
+    ``ray_i (2, n) i32`` (rows pix, smp), alive where ``alive (n,) bool``
+    is, from ``camera`` (a ``render.camera.CameraStart``): bit for bit
+    ``pack_replay_rays(*camera.rays(pix, smp, seed), alive)``, which CPU
+    tensors run. On CUDA tensors it is one launch of ``rt_camera_rays``
+    (``csrc/camera_rays.cu``), which adds one to :data:`camera_launches`."""
+    if ray_i.dim() != 2 or ray_i.shape[0] != 2 or ray_i.dtype != torch.int32:
+        raise ValueError(f"ray_i must be (2, n) int32, got {tuple(ray_i.shape)} {ray_i.dtype}")
+    n = ray_i.shape[1]
+    if alive.shape != (n,) or alive.dtype != torch.bool:
+        raise ValueError(f"alive must be ({n},) bool, got {tuple(alive.shape)} {alive.dtype}")
+    dev = ray_i.device
+    camera.check(dev)
+    if alive.device != dev:
+        raise ValueError("ray_i and alive must be on one device")
+    if dev.type == "cpu":
+        return pack_replay_rays(*camera.rays(ray_i[0], ray_i[1], seed), alive)
+    if dev.type != "cuda":
+        raise ValueError(f"rt_camera_rays runs on CUDA tensors (kernel) or CPU tensors (plain "
+                         f"version), not {dev}")
+    if not (ray_i.is_contiguous() and alive.is_contiguous()):
+        raise ValueError("rt_camera_rays needs contiguous tensors")
+    if n * N_RAY_F >= 2 ** 31:
+        raise ValueError(f"rt_camera_rays launch of {n} rays exceeds its 32-bit indexing")
+    out = torch.empty((N_RAY_F, n), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    lib = _kernels.library().lib
+    with torch.cuda.device(dev):
+        err = lib.rt_camera_rays(ray_i.data_ptr(), alive.data_ptr(), n, camera.camera.data_ptr(),
+                                 camera.width, camera.flags, ctypes.c_uint32(seed),
+                                 out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    camera_launches.add(dev)
+    if err != 0:
+        raise RuntimeError(f"rt_camera_rays launch failed: {lib.rt_error_string(err).decode()}")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -545,9 +585,8 @@ def replay_trace_kernel(scene, ids, o, d, time, pixel_ids, sample_ids, backgroun
                               rad_pre, seg_pre)
 
 
-def replay_grads_sorted(scene, table, ids, o, d, time, pixel_ids, sample_ids, background,
-                        max_depth: int, seed: int, rad_bar, lengths, prefixes=None,
-                        ray_regen=None, compacted=None):
+def replay_grads_sorted(scene, table, background, max_depth: int, seed: int, rad_bar, lengths,
+                        *, ids=None, rays=None, ray_regen=None, prefixes=None, compacted=None):
     """The scene-gradient pass over recorded decisions with the rays
     sorted by recorded path length (the fwd+bwd bench's path): K2 on the
     sorted rays, then the per-bounce table-gradient reduction.
@@ -559,17 +598,22 @@ def replay_grads_sorted(scene, table, ids, o, d, time, pixel_ids, sample_ids, ba
     nearly everything past each ray's death, and bounce ``b``'s gradient
     rows all lie in the prefix of rays with length > b, which a static
     plan (``prefixes``, from :func:`plan_prefixes`) cuts the reduction
-    to. Three ways to move the columns, with the same result:
+    to. The rays come one of two ways, with the same result:
 
-    * by default every per-ray column is gathered into the sorted order;
-    * ``ray_regen(orig) -> (o, d, t, pix, smp)`` recomputes the rays from
-      their original index (camera rays are pure functions of it), so
-      only the key, ``rad_bar`` and the ids move;
-    * ``compacted`` (requires ``ray_regen``): the bundle of
-      ``trace_megakernel(want_ids="compacted")``, ``dict(ids0, later,
-      perm, counts_c, phase_depths)``; the later phases' ids move
-      straight from the compacted order to the length order by a second
-      sort over the same key set, and ``ids`` is ignored.
+    * ``rays=(o, d, time, pixel_ids, sample_ids)``: every per-ray column
+      is gathered into the sorted order;
+    * ``ray_regen(orig, alive) -> (ray_f, ray_i)`` recomputes the rays
+      from their original index (camera rays are pure functions of it) as
+      K2's packed inputs, ``ray_f (N_RAY_F, B)`` alive where ``alive``
+      is (e.g. :func:`replay_rays`) and ``ray_i (2, B) i32``, so only
+      the key, ``rad_bar`` and the ids move.
+
+    The ids come as ``ids (D, B)`` in camera order or as ``compacted``
+    (requires ``ray_regen``): the bundle of
+    ``trace_megakernel(want_ids="compacted")``, ``dict(ids0, later, perm,
+    counts_c, phase_depths)``; the later phases' ids move straight from
+    the compacted order to the length order by a second sort over the
+    same key set.
 
     Returns ``(tbar (L, N_FIELDS), ok)``: the cotangent of ``table`` (feed
     it to autograd through ``build_replay_table``) and a 0-d bool tensor,
@@ -577,12 +621,17 @@ def replay_grads_sorted(scene, table, ids, o, d, time, pixel_ids, sample_ids, ba
     contribution was dropped: replan).
 
     Stages (``utils.profiling``): ``sort`` (the key, the sorts, the
-    gathers and the prefix checks), ``camera`` (``ray_regen``), ``sort``
-    (the packed rays and K2's inputs), ``k2`` and ``fold``."""
-    B = o.shape[0]
+    gathers and the prefix checks), ``camera`` (``ray_regen``: the packed
+    rays), ``sort`` (K2's inputs, and without ``ray_regen`` the packed
+    rays), ``k2`` and ``fold``."""
+    B = lengths.shape[0]
     D = max_depth
     if B % TILE:
         raise ValueError(f"replay batch must be a multiple of {TILE}, got {B}")
+    if (rays is None) == (ray_regen is None):
+        raise ValueError("pass the rays (rays=) or their regeneration (ray_regen=), not both")
+    if (ids is None) == (compacted is None):
+        raise ValueError("pass the ids (ids=) or the compacted bundle (compacted=), not both")
     if compacted is not None:
         if ray_regen is None:
             raise ValueError("compacted ids require ray_regen")
@@ -593,7 +642,7 @@ def replay_grads_sorted(scene, table, ids, o, d, time, pixel_ids, sample_ids, ba
         if len(prefixes) != D:
             raise ValueError(f"prefixes: one per bounce ({D}), got {len(prefixes)}")
         prefixes = [min(B, -(-int(p) // TILE) * TILE) for p in prefixes]
-    dev = o.device
+    dev = lengths.device
     with stage("sort", dev):
         lengths = lengths.detach().to(torch.int64)
         rad_bar = rad_bar.detach()
@@ -611,21 +660,23 @@ def replay_grads_sorted(scene, table, ids, o, d, time, pixel_ids, sample_ids, ba
             ids_s = ids[:, order]
         rad_bar_s = rad_bar[order]
         len_s = D - torch.div(key_s, B, rounding_mode="floor")
+        alive_s = len_s > 0
         ok = torch.ones((), dtype=torch.bool, device=dev)
         for b, P in enumerate(prefixes or ()):
             # sorted by descending length: the first excluded ray must be dead at b
             if P < B:
                 ok = ok & (len_s[P] <= b)
         if ray_regen is None:
-            o_s, d_s, t_s, pix_s, smp_s = (x[order] for x in (o, d, time, pixel_ids, sample_ids))
+            o_s, d_s, t_s, pix_s, smp_s = (x[order] for x in rays)
         else:
             orig = key_s % B
     if ray_regen is not None:
         with stage("camera", dev):
-            o_s, d_s, t_s, pix_s, smp_s = ray_regen(orig)
+            ray_f, ray_i = ray_regen(orig, alive_s)
     with stage("sort", dev):
-        ray_f = pack_replay_rays(o_s.detach(), d_s.detach(), t_s.detach(), len_s > 0)
-        ray_i = torch.stack([pix_s, smp_s]).to(torch.int32)
+        if ray_regen is None:
+            ray_f = pack_replay_rays(o_s.detach(), d_s.detach(), t_s.detach(), alive_s)
+            ray_i = torch.stack([pix_s, smp_s]).to(torch.int32)
         args = (table.detach().contiguous(), ids_s.to(torch.int32).contiguous(), ray_f, ray_i,
                 rad_bar_s.T.contiguous(), tile_maxlen(len_s, D))
     with stage("k2", dev):

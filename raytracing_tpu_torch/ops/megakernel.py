@@ -34,6 +34,7 @@ from ..utils.profiling import stage
 from . import mega_bvh
 from . import megakernel_block as mb
 from . import megakernel_group as mg
+from .megakernel_block import pack_rays
 
 BLOCK = 1024  # launches are multiples of this many rays
 CHUNK = mega_bvh.LEAF_SIZE  # primitives per chunk
@@ -153,26 +154,22 @@ def select_layout(mega: MegaScene, layout=None, use_bvh=None):
     return layout, bool(resolved)
 
 
-def pack_rays(o, d, time, pixel_ids, sample_ids, active0=None):
-    """Camera rays → K1's ray state: ``ray_f (N_F, B)`` with unit
-    throughput, zero radiance and the alive flag, and ``ray_i (2, B)``."""
-    ray_f = torch.empty((mb.N_F, o.shape[0]), dtype=torch.float32, device=o.device)
-    ray_f[mb.OX:mb.OZ + 1] = o.T
-    ray_f[mb.DX:mb.DZ + 1] = d.T
-    ray_f[mb.TM] = time
-    ray_f[mb.TR:mb.TB + 1] = 1.0
-    ray_f[mb.RR:mb.RB + 1] = 0.0
-    ray_f[mb.ACT] = 1.0 if active0 is None else active0.to(torch.float32)
-    return ray_f, torch.stack([pixel_ids, sample_ids]).to(torch.int32)
-
-
-def trace_megakernel(mega: MegaScene, o: torch.Tensor, d: torch.Tensor,
-                     time: torch.Tensor, pixel_ids: torch.Tensor,
+def trace_megakernel(mega: MegaScene, o, d, time, pixel_ids: torch.Tensor,
                      sample_ids: torch.Tensor, background, max_depth: int, seed: int,
                      phase_depths=None, active0=None, want_counts: bool = False,
                      phase_prefixes=None, want_ids=False, layout=None, use_bvh=None,
-                     plain: bool = False, cull=None):
+                     plain: bool = False, cull=None, camera=None):
     """Trace B rays (a multiple of BLOCK) through K1 or K5.
+
+    ``camera`` (a ``render.camera.CameraStart``) takes the place of ``o``,
+    ``d`` and ``time``, which must then be None: the rays are the camera
+    rays of ``(pixel_ids, sample_ids)`` at ``seed``, and in the block
+    layout K1's first phase computes them itself
+    (``megakernel_block.trace_block(camera=...)``), so no ray tensor is
+    made; the group layout (K5) takes its rays from ``camera.rays``, and
+    K1's plain version packs them itself. ``active0`` (a bool tensor) says
+    which rays start alive either way. The results are those of the
+    same trace fed ``camera.rays``, bit for bit.
 
     ``layout`` is ``"block"`` (K1), ``"group"`` (K5) or None, and
     ``use_bvh`` a bool or None: see :func:`select_layout`. The group layout
@@ -205,13 +202,16 @@ def trace_megakernel(mega: MegaScene, o: torch.Tensor, d: torch.Tensor,
 
     ``plain=True`` runs the kernels' plain PyTorch versions on any device.
 
-    Stages (``utils.profiling``): ``camera`` (the packed rays and the
-    trace's start state), then per phase ``k1`` (the launch alone) and
-    ``compact`` (its segments, counts and ids, and before a later phase
-    the alive-first sort, its gathers and that phase's prefix check and
-    inputs), then ``accumulate`` (the radiance in camera order) and, with
-    ids or counts, ``compact`` (their camera-order outputs)."""
-    B = o.shape[0]
+    Stages (``utils.profiling``): ``camera`` (the packed rays or, with
+    ``camera``, the ids, and the trace's start state), then per phase
+    ``k1`` (the launch alone) and ``compact`` (its segments, counts and
+    ids, and before a later phase the alive-first sort, its gathers and
+    that phase's prefix check and inputs), then ``accumulate`` (the
+    radiance in camera order) and, with ids or counts, ``compact`` (their
+    camera-order outputs)."""
+    if (camera is None) == (o is None):
+        raise ValueError("pass the rays (o, d, time) or a camera start (camera=), not both")
+    B = pixel_ids.shape[0]
     if B % BLOCK:
         raise ValueError(f"megakernel batch must be a multiple of {BLOCK}, got {B}")
     if want_ids not in (False, True, "compacted"):
@@ -226,7 +226,7 @@ def trace_megakernel(mega: MegaScene, o: torch.Tensor, d: torch.Tensor,
         phase_fn = mg.trace_group_torch if plain else mg.trace_group
     else:
         phase_fn = mb.trace_block_torch if plain else mb.trace_block
-    dev = o.device
+    dev = pixel_ids.device
     phases = list(phase_depths) if phase_depths is not None else [max_depth]
     if phase_prefixes is not None:
         if len(phase_prefixes) != len(phases) or phase_prefixes[0] is not None:
@@ -239,8 +239,15 @@ def trace_megakernel(mega: MegaScene, o: torch.Tensor, d: torch.Tensor,
         kw = dict(use_bvh=use_bvh)
     else:
         kw = dict(want_ids=bool(want_ids)) if plain else dict(want_ids=bool(want_ids), cull=cull)
+    start = {}  # the first phase's camera start (K1 computes its rays)
     with stage("camera", dev):
-        ray_f, ray_i = pack_rays(o, d, time, pixel_ids, sample_ids, active0)
+        if camera is not None and layout == "group":
+            o, d, time = camera.rays(pixel_ids, sample_ids, seed)
+        if camera is None or layout == "group":
+            ray_f, ray_i = pack_rays(o, d, time, pixel_ids, sample_ids, active0)
+        else:
+            ray_f, ray_i = None, torch.stack([pixel_ids, sample_ids]).to(torch.int32)
+            start = dict(camera=camera, alive=active0)
         perm = torch.arange(B, device=dev)  # camera index of each current lane
         counts = torch.zeros(B, dtype=torch.int32, device=dev) if want_counts else None
         segments = torch.zeros((), dtype=torch.int64, device=dev)
@@ -255,7 +262,8 @@ def trace_megakernel(mega: MegaScene, o: torch.Tensor, d: torch.Tensor,
         with stage("k1", dev):
             rad, bc, state, *ids = phase_fn(
                 mega, ray_f_n, ray_i_n, seed, offset,
-                max_depth=pd, background=background, want_state=not last, **kw)
+                max_depth=pd, background=background, want_state=not last,
+                **kw, **(start if pi == 0 else {}))
         with stage("compact", dev):
             segments = segments + bc.sum()
             if counts is not None:
@@ -272,9 +280,16 @@ def trace_megakernel(mega: MegaScene, o: torch.Tensor, d: torch.Tensor,
                     cam[:, perm] = blk
                     ids_cam.append(cam)
             if last:
-                ray_f[mb.RR:mb.RB + 1, :n] = rad
+                if ray_f is None:  # a camera start traced in one phase
+                    rad_lanes = rad
+                else:
+                    ray_f[mb.RR:mb.RB + 1, :n] = rad
+                    rad_lanes = ray_f[mb.RR:mb.RB + 1]
                 break
-            ray_f[:, :n] = state
+            if ray_f is None:  # the first phase traced every lane
+                ray_f = state
+            else:
+                ray_f[:, :n] = state
             offset += pd
             # alive-first stable compaction
             order = torch.argsort((ray_f[mb.ACT] <= 0.0).to(torch.uint8), stable=True)
@@ -293,7 +308,7 @@ def trace_megakernel(mega: MegaScene, o: torch.Tensor, d: torch.Tensor,
 
     with stage("accumulate", dev):
         radiance = torch.empty((B, 3), dtype=torch.float32, device=dev)
-        radiance[perm] = ray_f[mb.RR:mb.RB + 1].T
+        radiance[perm] = rad_lanes.T
     out = [radiance, segments]
     with stage("compact", dev) if want_ids or counts is not None else contextlib.nullcontext():
         if want_ids == "compacted":

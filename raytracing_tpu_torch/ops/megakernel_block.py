@@ -76,6 +76,21 @@ CULL_MIN_PRIMS = 64
 PLAIN_CHUNK = 128
 
 launches = _kernels.LaunchCount()  # K1 kernel launches (plain-version calls excluded)
+# K1 launches whose lanes start from the camera (``camera=``), among ``launches``
+camera_launches = _kernels.LaunchCount()
+
+
+def pack_rays(o, d, time, pixel_ids, sample_ids, active0=None):
+    """Camera rays → K1's ray state: ``ray_f (N_F, B)`` with unit
+    throughput, zero radiance and the alive flag, and ``ray_i (2, B)``."""
+    ray_f = torch.empty((N_F, o.shape[0]), dtype=torch.float32, device=o.device)
+    ray_f[OX:OZ + 1] = o.T
+    ray_f[DX:DZ + 1] = d.T
+    ray_f[TM] = time
+    ray_f[TR:TB + 1] = 1.0
+    ray_f[RR:RB + 1] = 0.0
+    ray_f[ACT] = 1.0 if active0 is None else active0.to(torch.float32)
+    return ray_f, torch.stack([pixel_ids, sample_ids]).to(torch.int32)
 
 
 def _sweep_rows(mega):
@@ -95,41 +110,59 @@ def walks(mega, cull=None) -> bool:
     return cull
 
 
-def trace_block(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
+def trace_block(mega, ray_f, ray_i: torch.Tensor, seed: int,
                 b_off: int, *, max_depth: int, background,
                 want_state: bool = True, want_ids: bool = False,
-                depth_cap=None, dep=None, cull=None):
+                depth_cap=None, dep=None, cull=None, camera=None, alive=None):
     """Trace one phase of ``max_depth`` bounces. Returns
     ``(rad (3, n), bounces (n,) i32, state (N_F, n) or None)``, and
     ``ids (max_depth, n) i32`` after them with ``want_ids``. ``cull``
     picks the kernel's search (:func:`walks`); the plain version sweeps.
+
+    ``camera`` (a ``render.camera.CameraStart``) starts every lane from
+    its camera ray in place of ``ray_f``, which must then be None: the
+    kernel computes lane i's ray from ``ray_i[:, i]`` and the seed, bit
+    for bit the ray ``generate_rays`` gives, with unit throughput and zero
+    radiance, alive where ``alive (n,) bool`` is (None: every lane), as
+    :func:`pack_rays` packs them. Each such launch also adds one to
+    :data:`camera_launches`.
 
     ``depth_cap`` (the regenerating pool, ``render/pool.py``) takes
     ``dep (n,) i32``, each ray's segments traced before this launch: its
     bounce ``b`` draws from RNG counter ``(b + b_off + dep)·4 + 2``, and
     it dies, its state kept, once ``dep + b + 1`` reaches ``depth_cap``.
     Pass ``dep`` exactly when ``depth_cap`` is set."""
-    n = ray_f.shape[1]
+    if ray_i.dim() != 2 or ray_i.shape[0] != 2 or ray_i.dtype != torch.int32:
+        raise ValueError(f"ray_i must be (2, n) int32, got {tuple(ray_i.shape)} {ray_i.dtype}")
+    n = ray_i.shape[1]
     if (dep is None) != (depth_cap is None):
         raise ValueError("pass dep exactly when depth_cap is set")
-    if ray_f.shape != (N_F, n) or ray_f.dtype != torch.float32:
-        raise ValueError(f"ray_f must be ({N_F}, n) float32, got {tuple(ray_f.shape)} {ray_f.dtype}")
-    if ray_i.shape != (2, n) or ray_i.dtype != torch.int32:
-        raise ValueError(f"ray_i must be (2, n) int32, got {tuple(ray_i.shape)} {ray_i.dtype}")
+    if camera is None:
+        if alive is not None:
+            raise ValueError("alive belongs to a camera start; ray_f holds the alive flags")
+        if ray_f is None or ray_f.shape != (N_F, n) or ray_f.dtype != torch.float32:
+            raise ValueError(f"ray_f must be ({N_F}, n) float32, got "
+                             f"{None if ray_f is None else (tuple(ray_f.shape), ray_f.dtype)}")
+    elif ray_f is not None:
+        raise ValueError("a camera start computes the lanes' rays: pass ray_f=None")
     if dep is not None and (dep.shape != (n,) or dep.dtype != torch.int32):
         raise ValueError(f"dep must be ({n},) int32, got {tuple(dep.shape)} {dep.dtype}")
+    if alive is not None and (alive.shape != (n,) or alive.dtype != torch.bool):
+        raise ValueError(f"alive must be ({n},) bool, got {tuple(alive.shape)} {alive.dtype}")
     walk = walks(mega, cull)
-    dev = ray_f.device
+    dev = ray_i.device
+    if camera is not None:
+        camera.check(dev)
     tables = (mega.sph_sweep, mega.quad_sweep, mega.table, mega.kid_map, mega.perm, mega.grad,
               mega.atlas, mega.cull_nodes, mega.sph_gid, mega.quad_gid)
-    rays = (ray_f, ray_i) if dep is None else (ray_f, ray_i, dep)
+    rays = tuple(t for t in (ray_f, ray_i, dep, alive) if t is not None)
     if any(t.device != dev for t in (*rays, *tables)):
         raise ValueError("scene tables and ray state must be on one device")
     if dev.type == "cpu":
         return trace_block_torch(mega, ray_f, ray_i, seed, b_off,
                                  max_depth=max_depth, background=background,
                                  want_state=want_state, want_ids=want_ids,
-                                 depth_cap=depth_cap, dep=dep)
+                                 depth_cap=depth_cap, dep=dep, camera=camera, alive=alive)
     if dev.type != "cuda":
         raise ValueError(f"K1 runs on CUDA tensors (kernel) or CPU tensors (plain version), not {dev}")
     if not all(t.is_contiguous() for t in (*rays, *tables)):
@@ -160,7 +193,7 @@ def trace_block(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
             mega.sph_sweep.data_ptr(), n_sph_rows,
             mega.quad_sweep.data_ptr(), n_quad_rows,
             mega.table.data_ptr(), mega.n_prims,
-            ray_f.data_ptr(), ray_i.data_ptr(), n,
+            ray_f.data_ptr() if ray_f is not None else None, ray_i.data_ptr(), n,
             rad.data_ptr(), bounces.data_ptr(),
             state.data_ptr() if want_state else None, mega.kid_map.data_ptr(),
             ids.data_ptr() if want_ids else None, ctypes.c_uint32(seed), ctypes.c_uint32(b_off), max_depth,
@@ -170,8 +203,14 @@ def trace_block(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
             dep.data_ptr() if dep is not None else None,
             depth_cap if depth_cap is not None else 0,
             mega.cull_nodes.data_ptr(), mega.cull_nodes.shape[0], mega.sph_gid.data_ptr(),
-            mega.n_sph_chunks, mega.quad_gid.data_ptr(), *mega.cull_ball, int(walk), stream)
+            mega.n_sph_chunks, mega.quad_gid.data_ptr(), *mega.cull_ball, int(walk),
+            camera.camera.data_ptr() if camera is not None else None,
+            alive.data_ptr() if alive is not None else None,
+            camera.width if camera is not None else 0,
+            camera.flags if camera is not None else 0, stream)
     launches.add(dev)
+    if camera is not None:
+        camera_launches.add(dev)
     if err != 0:
         raise RuntimeError(f"K1 launch failed: {lib.rt_error_string(err).decode()}")
     return out
@@ -441,15 +480,19 @@ def state_out(st):
     return rad, torch.stack([*st[:ACT], st[ACT].to(torch.float32)])
 
 
-def trace_block_torch(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
+def trace_block_torch(mega, ray_f, ray_i: torch.Tensor, seed: int,
                       b_off: int, *, max_depth: int, background,
                       want_state: bool = True, want_ids: bool = False,
-                      depth_cap=None, dep=None):
+                      depth_cap=None, dep=None, camera=None, alive=None):
     """Plain PyTorch K1 with the kernel's inputs, outputs and arithmetic
     (each multiply and add rounded on its own, as the kernel is built with
-    ``-fmad=false``). Runs on any device."""
+    ``-fmad=false``). Runs on any device. A camera start (``camera``,
+    ``ray_f`` None) packs ``camera.rays`` with :func:`pack_rays`."""
     if (dep is None) != (depth_cap is None):
         raise ValueError("pass dep exactly when depth_cap is set")
+    if camera is not None:
+        pix, smp = ray_i[PIX], ray_i[SMP]
+        ray_f = pack_rays(*camera.rays(pix, smp, seed), pix, smp, alive)[0]
     st = list(ray_f.unbind(0))
     st[ACT] = st[ACT] > 0.5
     pix, smp = ray_i[PIX], ray_i[SMP]

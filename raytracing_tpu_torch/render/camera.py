@@ -110,6 +110,13 @@ def derive(cfg: CameraConfig, params: CameraParams) -> DerivedCamera:
     )
 
 
+# DerivedCamera's vectors in the packed camera's order (csrc/rt_camera.cuh CAM_*)
+CAMERA_VECTORS = ("pixel00", "pixel_delta_u", "pixel_delta_v", "center", "defocus_disk_u",
+                  "defocus_disk_v")
+CAMERA_F = 3 * len(CAMERA_VECTORS)
+CAMERA_DEFOCUS, CAMERA_MOTION = 1, 2  # csrc/rt_camera.cuh camera flags
+
+
 def generate_rays(cfg: CameraConfig, cam: DerivedCamera, pixel_ids: torch.Tensor,
                   sample_ids: torch.Tensor, seed, motion_blur: bool = True):
     """Batched camera rays: AA jitter in [-0.5, 0.5)², optional defocus
@@ -117,28 +124,81 @@ def generate_rays(cfg: CameraConfig, cam: DerivedCamera, pixel_ids: torch.Tensor
     left unnormalized.
 
     Returns (origin (B, 3), direction (B, 3), time (B,))."""
-    i = (pixel_ids % cfg.image_width).to(torch.float32)
-    j = torch.div(pixel_ids, cfg.image_width, rounding_mode="floor").to(torch.float32)
+    return _rays([getattr(cam, f) for f in CAMERA_VECTORS], cfg.image_width,
+                 cfg.defocus_angle > 0.0, pixel_ids, sample_ids, seed, motion_blur)
+
+
+def _rays(vectors, width: int, defocus: bool, pixel_ids, sample_ids, seed, motion_blur):
+    pixel00, pixel_delta_u, pixel_delta_v, center, defocus_disk_u, defocus_disk_v = vectors
+    i = (pixel_ids % width).to(torch.float32)
+    j = torch.div(pixel_ids, width, rounding_mode="floor").to(torch.float32)
 
     u4 = rng_mod.uniform4(pixel_ids, sample_ids, rng_mod.STREAM_RAYGEN, seed)
     offset = rng_mod.square_offset(u4)
     pixel_sample = (
-        cam.pixel00[None, :]
-        + (i + offset[:, 0])[:, None] * cam.pixel_delta_u[None, :]
-        + (j + offset[:, 1])[:, None] * cam.pixel_delta_v[None, :]
+        pixel00[None, :]
+        + (i + offset[:, 0])[:, None] * pixel_delta_u[None, :]
+        + (j + offset[:, 1])[:, None] * pixel_delta_v[None, :]
     )
-    if cfg.defocus_angle > 0.0:
+    if defocus:
         disk = rng_mod.unit_disk(u4[:, 2:4])
         origin = (
-            cam.center[None, :]
-            + disk[:, 0:1] * cam.defocus_disk_u[None, :]
-            + disk[:, 1:2] * cam.defocus_disk_v[None, :]
+            center[None, :]
+            + disk[:, 0:1] * defocus_disk_u[None, :]
+            + disk[:, 1:2] * defocus_disk_v[None, :]
         )
     else:
-        origin = cam.center[None, :].expand(pixel_sample.shape)
+        origin = center[None, :].expand(pixel_sample.shape)
     direction = pixel_sample - origin
     if motion_blur:
         time = rng_mod.uniform4(pixel_ids, sample_ids, rng_mod.STREAM_TIME, seed)[:, 0]
     else:
         time = torch.zeros(pixel_ids.shape, dtype=torch.float32, device=pixel_ids.device)
     return origin, direction, time
+
+
+def pack_camera(cam: DerivedCamera) -> torch.Tensor:
+    """The camera as the kernels read it (``csrc/rt_camera.cuh``): the
+    vectors of :data:`CAMERA_VECTORS` as one ``(CAMERA_F,)`` f32 tensor,
+    built on the camera's device from its own tensors."""
+    return torch.cat([getattr(cam, f).detach() for f in CAMERA_VECTORS]).to(torch.float32)
+
+
+@dataclass(frozen=True)
+class CameraStart:
+    """Camera rays computed where they are used, in place of ray tensors:
+    the packed camera (:func:`pack_camera`, on the device, so a replayed
+    program reads the pose its state holds), the image width and the two
+    flags :func:`generate_rays` takes from the config and its caller. K1
+    starts a trace's first phase from it
+    (``ops.megakernel_block.trace_block(camera=...)``) and the gradient
+    replay's rays come from it in one launch
+    (``diff.replay_kernel.replay_rays``), both bit-equal to
+    :func:`generate_rays`; on CPU tensors they run :meth:`rays`."""
+    camera: torch.Tensor  # (CAMERA_F,) f32
+    width: int
+    defocus: bool
+    motion_blur: bool
+
+    @classmethod
+    def of(cls, cfg: CameraConfig, camera: torch.Tensor, motion_blur: bool) -> "CameraStart":
+        return cls(camera, cfg.image_width, cfg.defocus_angle > 0.0, bool(motion_blur))
+
+    @property
+    def flags(self) -> int:
+        return (CAMERA_DEFOCUS if self.defocus else 0) | (CAMERA_MOTION if self.motion_blur else 0)
+
+    def rays(self, pixel_ids: torch.Tensor, sample_ids: torch.Tensor, seed):
+        """:func:`generate_rays` from the packed camera: (o, d, time)."""
+        return _rays(self.camera.view(len(CAMERA_VECTORS), 3).unbind(0), self.width,
+                     self.defocus, pixel_ids, sample_ids, seed, self.motion_blur)
+
+    def check(self, device) -> None:
+        """Raise unless the packed camera is a contiguous ``(CAMERA_F,)``
+        f32 tensor on ``device``."""
+        c = self.camera
+        if c.shape != (CAMERA_F,) or c.dtype != torch.float32 or not c.is_contiguous():
+            raise ValueError(f"the packed camera must be a contiguous ({CAMERA_F},) float32 "
+                             f"tensor, got {tuple(c.shape)} {c.dtype}")
+        if c.device != torch.device(device):
+            raise ValueError(f"the packed camera lies on {c.device}, the rays on {device}")

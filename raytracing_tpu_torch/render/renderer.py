@@ -105,42 +105,54 @@ def launch_shape(cfg: CameraConfig, max_rays_per_launch: int = MAX_RAYS_PER_LAUN
     return n_block, max(1, min(cfg.samples_per_pixel, max_rays_per_launch // n_block))
 
 
-def chunk_rays(cfg: CameraConfig, derived, pixel_start, sample_start,
-               seed: int, *, n_block: int, spp_chunk: int, has_moving: bool, device):
-    """Camera rays of one launch: n_block contiguous pixels × spp_chunk
-    samples, laid out sample-major. Returns (o, d, time, pixel_ids,
-    sample_ids, valid, alive): ``valid`` marks samples below spp,
-    ``alive`` the rays that start alive (padded samples and the clamped
-    duplicates of the last pixel start dead). The starts are ints or 0-d
-    int64 tensors on ``device`` (a replayed launch), with the same ids."""
+def chunk_ids(cfg: CameraConfig, pixel_start, sample_start, *, n_block: int, spp_chunk: int,
+              device):
+    """The rays of one launch: n_block contiguous pixels × spp_chunk
+    samples, laid out sample-major. Returns (pixel_ids, sample_ids, valid,
+    alive): ``valid`` marks samples below spp, ``alive`` the rays that
+    start alive (padded samples and the clamped duplicates of the last
+    pixel start dead). The starts are ints or 0-d int64 tensors on
+    ``device`` (a replayed launch), with the same ids."""
     pix_raw = pixel_start + torch.arange(n_block, device=device)
     pix = torch.clamp(pix_raw, max=cfg.n_pixels - 1)
     pixel_ids = pix.repeat(spp_chunk)
     sample_ids = sample_start + torch.arange(spp_chunk, device=device).repeat_interleave(n_block)
     valid = sample_ids < cfg.samples_per_pixel
     alive = valid & (pix_raw < cfg.n_pixels).repeat(spp_chunk)
+    return pixel_ids, sample_ids, valid, alive
+
+
+def chunk_rays(cfg: CameraConfig, derived, pixel_start, sample_start,
+               seed: int, *, n_block: int, spp_chunk: int, has_moving: bool, device):
+    """Camera rays of one launch (:func:`chunk_ids`). Returns (o, d, time,
+    pixel_ids, sample_ids, valid, alive)."""
+    pixel_ids, sample_ids, valid, alive = chunk_ids(cfg, pixel_start, sample_start,
+                                                    n_block=n_block, spp_chunk=spp_chunk,
+                                                    device=device)
     o, d, t = cam_mod.generate_rays(cfg, derived, pixel_ids, sample_ids, seed,
                                     motion_blur=has_moving)
     return o, d, t, pixel_ids, sample_ids, valid, alive
 
 
-def _render_chunk(mega, cfg: CameraConfig, derived, pixel_start, sample_start,
+def _render_chunk(mega, cfg: CameraConfig, camera: torch.Tensor, pixel_start, sample_start,
                   seed: int, *, n_block: int, spp_chunk: int,
                   has_moving: bool, phases, phase_prefixes=None,
                   want_counts: bool = False, cull=None):
-    """One launch. Returns (radiance summed over the chunk's samples
-    (n_block, 3), segments, ok or None); with ``want_counts`` only the
-    per-ray bounce counts. ``cull`` is K1's search (``trace_megakernel``).
-    Stages (``utils.profiling``): ``camera``, then the trace's own, then
-    ``accumulate``."""
+    """One launch, its rays started from ``camera`` (``camera.pack_camera``
+    of the derived camera): no ray tensor is made where K1 traces the
+    first phase (``trace_megakernel(camera=...)``). Returns (radiance
+    summed over the chunk's samples (n_block, 3), segments, ok or None);
+    with ``want_counts`` only the per-ray bounce counts. ``cull`` is K1's
+    search (``trace_megakernel``). Stages (``utils.profiling``):
+    ``camera`` (the ids), then the trace's own, then ``accumulate``."""
     dev = mega.sph_sweep.device
     with stage("camera", dev):
-        o, d, t, pixel_ids, sample_ids, valid, alive = chunk_rays(
-            cfg, derived, pixel_start, sample_start, seed, n_block=n_block,
-            spp_chunk=spp_chunk, has_moving=has_moving, device=dev)
-    out = trace_megakernel(mega, o, d, t, pixel_ids, sample_ids, cfg.background,
+        pixel_ids, sample_ids, valid, alive = chunk_ids(
+            cfg, pixel_start, sample_start, n_block=n_block, spp_chunk=spp_chunk, device=dev)
+    out = trace_megakernel(mega, None, None, None, pixel_ids, sample_ids, cfg.background,
                            cfg.max_depth, seed, phase_depths=phases, active0=alive,
-                           want_counts=want_counts, phase_prefixes=phase_prefixes, cull=cull)
+                           want_counts=want_counts, phase_prefixes=phase_prefixes, cull=cull,
+                           camera=cam_mod.CameraStart.of(cfg, camera, has_moving))
     if want_counts:
         return out[2]
     with stage("accumulate", dev):
@@ -316,12 +328,13 @@ class Renderer:
         kw = dict(self._chunk_kwargs(scene), want_counts=True)
 
         def make_state():
-            return dict(derived=cam_mod.derive(cfg, CameraParams.from_config(cfg, dev)),
+            derived = cam_mod.derive(cfg, CameraParams.from_config(cfg, dev))
+            return dict(camera=cam_mod.pack_camera(derived),
                         nb_max=torch.zeros(d + 1, dtype=torch.int64, device=dev))
 
         def step(c, st):
             pixel_start, sample_start, _ = self._launch_starts(c)
-            cnt = _render_chunk(mega, cfg, st["derived"], pixel_start, sample_start, seed, **kw)
+            cnt = _render_chunk(mega, cfg, st["camera"], pixel_start, sample_start, seed, **kw)
             with stage("accumulate", dev):
                 torch.maximum(st["nb_max"], rays_past(cnt, d), out=st["nb_max"])
 
@@ -459,7 +472,11 @@ class Renderer:
                 accum = torch.zeros((n_blocks * n_block, 3), dtype=torch.float32, device=dev)
             else:
                 accum = torch.from_numpy(acc_h.copy()).to(dev)
-            return dict(derived=cam_mod.derive(cfg, params), accum=accum,
+            derived = cam_mod.derive(cfg, params)
+            # the integrator generates its rays; the megakernel's K1 computes them
+            camera = (dict(derived=derived) if hit_fn is not None
+                      else dict(camera=cam_mod.pack_camera(derived)))
+            return dict(**camera, accum=accum,
                         segments=torch.zeros((), dtype=torch.int64, device=dev),
                         ok=torch.ones((), dtype=torch.bool, device=dev),
                         background=self._camera(dev)[1])
@@ -478,7 +495,7 @@ class Renderer:
                         background=st["background"])
             else:
                 rad, seg, ok_c = _render_chunk(
-                    mega, cfg, st["derived"], pixel_start, sample_start, seed,
+                    mega, cfg, st["camera"], pixel_start, sample_start, seed,
                     **self._chunk_kwargs(scene), phase_prefixes=self.phase_prefixes,
                     cull=self.cull)
             with stage("accumulate", dev):

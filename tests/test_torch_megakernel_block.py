@@ -4,7 +4,8 @@ all 14 outputs, at phase offset 0 and at b_off > 0. Then the kernel
 source's per-ray math built for the host with g++: both of its searches
 (the sweep and the BVH walk) against the plain version, and the walk's
 closest hits bit for bit against the sweep's on bench, grazing, tied and
-moving-sphere rays.
+moving-sphere rays, and lanes started from the camera against the same
+build fed the packed camera rays.
 
 Bars (tests/test_megakernel.py): radiance max |Δ| < 1e-5 on three_spheres
 and cornell_box, mean |Δ| < 2e-3 on bouncing_spheres; segments within
@@ -153,11 +154,16 @@ extern "C" void host_trace(const float* sph, int n_sph_rows, const float* quad,
     int ns_pad, float bg_r, float bg_g, float bg_b, int moving, int noise, int image,
     const int* perm, const float* grad, const float* atlas, const int* dep, int depth_cap,
     const float* nodes, int n_nodes, const int* sph_gid, int n_sph_chunks,
-    const int* quad_gid, const float* ball, int walk) {
-  const TraceParams p = params(sph, n_sph_rows, quad, n_quad_rows, table, n_res_cols, ray_f,
+    const int* quad_gid, const float* ball, int walk, const float* camera,
+    const unsigned char* alive, uint32_t cam_width, int cam_flags) {
+  TraceParams p = params(sph, n_sph_rows, quad, n_quad_rows, table, n_res_cols, ray_f,
       ray_i, n, out_rad, out_bc, out_state, kid_map, out_ids, seed, b_off, max_depth, ns_pad,
       bg_r, bg_g, bg_b, perm, grad, atlas, dep, depth_cap, nodes, n_nodes, sph_gid,
       n_sph_chunks, quad_gid, ball);
+  p.camera = camera;
+  p.alive = alive;
+  p.cam_width = cam_width;
+  p.cam_flags = cam_flags;
   if (walk) { if (moving) run_tex<true, true>(p, noise, image); else run_tex<false, true>(p, noise, image); }
   else if (moving) run_tex<true, false>(p, noise, image); else run_tex<false, false>(p, noise, image);
 }
@@ -207,7 +213,7 @@ def host_k1(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
     lib.host_trace.argtypes = [P, I, P, I, P, I, P, P, I, P, P, P, P, P, U, U, I, I, F, F, F,
-                               I, I, I, P, P, P, P, I, P, I, P, I, P, P, I]
+                               I, I, I, P, P, P, P, I, P, I, P, I, P, P, I, P, P, U, I]
     lib.host_trace.restype = None
     lib.host_hit.argtypes = [P, I, P, I, I, I, P, I, P, I, P, P, P, I, I, P, P, P]
     lib.host_hit.restype = None
@@ -215,10 +221,12 @@ def host_k1(tmp_path_factory):
 
 
 def _host_trace(lib, mega, f, i, b_off, depth, background, dep=None, depth_cap=None,
-                walk=False):
+                walk=False, camera=None, alive=None):
     """K1's per-ray math built for the host, by the sweep or the walk:
-    (rad, bounces, state, ids)."""
-    n = f.shape[1]
+    (rad, bounces, state, ids). ``camera`` (a ``CameraStart``; ``f``
+    None) starts the lanes from their camera rays, alive where ``alive``
+    is."""
+    n = i.shape[1]
     rad = torch.empty(3, n)
     bc = torch.empty(n, dtype=torch.int32)
     state = torch.empty(mb.N_F, n)
@@ -227,14 +235,18 @@ def _host_trace(lib, mega, f, i, b_off, depth, background, dep=None, depth_cap=N
     n_sph_rows, n_quad_rows = mega.n_sph, mega.n_quad  # the rows the wrapper passes
     lib.host_trace(
         mega.sph_sweep.data_ptr(), n_sph_rows, mega.quad_sweep.data_ptr(), n_quad_rows,
-        mega.table.data_ptr(), mega.n_prims, f.data_ptr(), i.data_ptr(), n,
+        mega.table.data_ptr(), mega.n_prims, None if f is None else f.data_ptr(),
+        i.data_ptr(), n,
         rad.data_ptr(), bc.data_ptr(), state.data_ptr(), mega.kid_map.data_ptr(),
         ids.data_ptr(), SEED, b_off, depth, mega.n_sph_pad, *background, int(mega.moving),
         int(mega.has_noise), int(mega.has_image), mega.perm.data_ptr(), mega.grad.data_ptr(),
         mega.atlas.data_ptr(), None if dep is None else dep.data_ptr(),
         0 if depth_cap is None else depth_cap, mega.cull_nodes.data_ptr(),
         mega.cull_nodes.shape[0], mega.sph_gid.data_ptr(), mega.n_sph_chunks,
-        mega.quad_gid.data_ptr(), ball.data_ptr(), int(walk))
+        mega.quad_gid.data_ptr(), ball.data_ptr(), int(walk),
+        None if camera is None else camera.camera.data_ptr(),
+        None if alive is None else alive.data_ptr(), 0 if camera is None else camera.width,
+        0 if camera is None else camera.flags)
     return rad, bc, state, ids
 
 
@@ -459,6 +471,37 @@ def test_kernel_source_on_the_host_depth_cap(host_k1, walk):
     assert torch.equal(bc, ref[1])
     assert torch.equal(state[mb.ACT], ref[2][mb.ACT])
     assert bool((dep + bc <= 6).all()) and bool(((dep + bc == 6) & (bc > 0)).any())
+
+
+@pytest.mark.parametrize("walk", [False, True], ids=["sweep", "walk"])
+def test_kernel_source_on_the_host_starts_from_the_camera(host_k1, walk):
+    """Lanes started from the camera (``TraceParams::camera``) through the
+    host build of the kernel source equal the same build fed the packed
+    camera rays, bit for bit, at depth 0 (the start state itself) and
+    DEPTH: cornell_box (no defocus, so the host's rays are
+    ``generate_rays``' own) at 30 px, its last 124 lanes clamped and
+    dead, samples 1 and 2 of 2 spp."""
+    from raytracing_tpu_torch import build as pbuild
+    from raytracing_tpu_torch.render import camera as pcam
+    from raytracing_tpu_torch.render.renderer import chunk_ids
+
+    scene, cfg = pbuild("cornell_box", device="cpu", image_width=30, samples_per_pixel=2,
+                        max_depth=DEPTH)
+    mega = pmega(scene)
+    start = pcam.CameraStart.of(cfg, pcam.pack_camera(pcam.derive(
+        cfg, pcam.CameraParams.from_config(cfg, "cpu"))), motion_blur=True)
+    pix, smp, _, alive = chunk_ids(cfg, 0, 1, n_block=1024, spp_chunk=2, device="cpu")
+    f, i = mb.pack_rays(*start.rays(pix, smp, SEED), pix, smp, alive)
+    assert 0 < int(alive.sum()) < alive.numel()
+    for depth in (0, DEPTH):
+        cam = _host_trace(host_k1, mega, None, i, 0, depth, cfg.background, walk=walk,
+                          camera=start, alive=alive)
+        ref = _host_trace(host_k1, mega, f, i, 0, depth, cfg.background, walk=walk)
+        assert all(torch.equal(a, b) for a, b in zip(cam, ref)), depth
+        if depth == 0:  # the start: alive as flagged, unit throughput, no radiance
+            assert torch.equal(cam[2][mb.ACT] > 0, alive)
+            assert bool((cam[2][mb.TR:mb.TB + 1] == 1).all() and (cam[0] == 0).all())
+    assert int(cam[1].sum()) > 0
 
 
 def test_depth_cap_continues_the_rng_stream():

@@ -120,15 +120,14 @@ def test_compacted_ids_with_phase_prefixes_feed_the_replay_exactly():
 
     table = prf.build_replay_table(scene)
     rad_bar = torch.from_numpy(np.random.default_rng(3).normal(size=(B, 3)).astype(np.float32))
-    common = (scene, table, o, d, tm, pix, smp, cfg.background, DEPTH, SEED, rad_bar, cnt_u)
+    common = (scene, table, cfg.background, DEPTH, SEED, rad_bar, cnt_u)
 
-    def regen(i):
-        return o[i], d[i], tm[i], pix[i], smp[i]
+    def regen(i, alive):
+        return rk.pack_replay_rays(o[i], d[i], tm[i], alive), torch.stack([pix[i], smp[i]]).int()
 
-    tb_u, ok_u = rk.replay_grads_sorted(*common[:2], ids_u, *common[2:])
+    tb_u, ok_u = rk.replay_grads_sorted(*common, ids=ids_u, rays=(o, d, tm, pix, smp))
     bundle = dict(ids0=ids0, later=later, perm=perm, counts_c=cnt_c, phase_depths=PHASES)
-    tb_c, ok_c = rk.replay_grads_sorted(*common[:2], None, *common[2:], ray_regen=regen,
-                                        compacted=bundle)
+    tb_c, ok_c = rk.replay_grads_sorted(*common, ray_regen=regen, compacted=bundle)
     assert bool(ok_u) and bool(ok_c) and torch.equal(tb_c, tb_u)
 
 

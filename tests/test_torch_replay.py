@@ -213,13 +213,15 @@ def test_replay_grads_sorted_variants(name):
                                 textures=dataclasses.replace(scene_p.textures, rgb=rgb))
         table = prf.build_replay_table(s)
         bundle = dict(ids0=ids0, later=later, perm=perm, counts_c=cnt_c, phase_depths=phases)
-        ray_regen = ((lambda i: tuple(rays[k][i] for k in ("o", "d", "tm", "pix", "smp")))
+        ray_regen = ((lambda i, alive: (
+            rk.pack_replay_rays(*(rays[k][i] for k in ("o", "d", "tm")), alive),
+            torch.stack([rays["pix"][i], rays["smp"][i]]).int()))
                      if regen or compacted else None)
         tbar, ok = rk.replay_grads_sorted(
-            scene_p, table, None if compacted else ids, rays["o"], rays["d"], rays["tm"],
-            rays["pix"], rays["smp"], cfg.background, DEPTH, SEED, rad_bar, cnt,
-            prefixes=prefixes, ray_regen=ray_regen,
-            compacted=bundle if compacted else None)
+            scene_p, table, cfg.background, DEPTH, SEED, rad_bar, cnt,
+            ids=None if compacted else ids,
+            rays=None if ray_regen else tuple(rays[k] for k in ("o", "d", "tm", "pix", "smp")),
+            ray_regen=ray_regen, prefixes=prefixes, compacted=bundle if compacted else None)
         gc, gr = torch.autograd.grad(table, (c, rgb), tbar)
         return tbar, bool(ok), gc, gr
 

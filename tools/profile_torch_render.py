@@ -168,7 +168,8 @@ def main() -> int:
     d_ms, h_ms = event_ms(lambda: rmod.chunk_rays(cfg, derived, 0, 0, SEED, **chunk))
     print(f"camera rays per launch: device span {d_ms:.3f} ms, host {h_ms:.3f} ms")
     d_ms, h_ms = event_ms(lambda: rmod._render_chunk(
-        mega, cfg, derived, 0, 0, SEED, **r._chunk_kwargs(scene), phase_prefixes=pref,
+        mega, cfg, cam.pack_camera(derived), 0, 0, SEED, **r._chunk_kwargs(scene),
+        phase_prefixes=pref,
         cull=r.cull))
     print(f"whole launch: device span {d_ms:.3f} ms, host {h_ms:.3f} ms")
     return 0

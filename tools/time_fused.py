@@ -67,7 +67,8 @@ def _counters() -> dict:
     from raytracing_tpu_torch.ops import traverse
 
     return dict(K1=mb.launches, K5=mg.launches, K3=rk.fwd_launches, K2=rk.bwd_launches,
-                K4=tg.launches, fold=tg.fold_launches, walk=traverse.launches)
+                K4=tg.launches, fold=tg.fold_launches, walk=traverse.launches,
+                K1_camera=mb.camera_launches, camera_rays=rk.camera_launches)
 
 
 def k_counts() -> dict:

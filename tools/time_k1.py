@@ -8,9 +8,10 @@ with CUDA events over ``--reps`` launches after a warm-up, K1 on:
 
 * one full-width depth-20 launch of the bench scene (bouncing_spheres,
   B = 180,224 camera rays of the bench render's first launch);
-* the same launch of bouncing_spheres_64 (chip_smoke.py's 64x64 grid);
+* the same launch of bouncing_spheres_64 (chip_smoke.py's 64x64 grid)
+  and of perlin_sphere (the marble scene at its registry size, depth 50);
 * a pool-shaped launch of each: the same rays with per-ray depths in
-  [0, 20) drawn from a seed, 2 bounces, depth cap 20.
+  [0, depth) drawn from a seed, 2 bounces, depth cap the scene's depth.
 
 Each search the package's ``trace_block`` offers is timed: the sweep and
 the walk (``cull=False``/``True``) where it takes ``cull``, else its one
@@ -19,9 +20,10 @@ launch and search with the segments traced, so that two checkouts can be
 checked for the same work. With ``--renders N`` it then times the bench
 render (400x225, 100 spp, depth 20, seed 7, u8 transfer) N times in each
 schedule, in turns: the phased one ([2, 2, 3, 4, 9] with planned
-prefixes) and the pool, after a warm-up of each (host clock through the
-copy of the image to the host, as ``RenderResult.seconds``), and prints
-a hash of each schedule's u8 and f32 images.
+prefixes) and the pool, and perlin_sphere's pool render (its registry
+size) beside them, after a warm-up of each (host clock through the copy
+of the image to the host, as ``RenderResult.seconds``), and prints a
+hash of each render's u8 image and of the bench schedules' f32 images.
 """
 from __future__ import annotations
 
@@ -67,8 +69,10 @@ def main() -> int:
                 else {"sweep": {}})
     bench = pkg.build("bouncing_spheres", device=dev, image_width=400, samples_per_pixel=100,
                       max_depth=20)
-    for name, (scene, cfg) in (("bench", bench), ("bouncing_spheres_64",
-                                                  smoke.bouncing_spheres_64(dev))):
+    marble = pkg.build("perlin_sphere", device=dev)
+    for name, (scene, cfg) in (("bench", bench),
+                               ("bouncing_spheres_64", smoke.bouncing_spheres_64(dev)),
+                               ("perlin_sphere", marble)):
         mega = mk.build_mega_scene(scene)
         r = pkg.Renderer(cfg, max_rays_per_launch=1 << 18)
         _, (ray_f, ray_i) = smoke.first_launch(scene, cfg, r.n_block, r.spp_chunk, dev)
@@ -92,16 +96,18 @@ def main() -> int:
         kw = dict(max_rays_per_launch=1 << 18, transfer="u8")
         phased = dict(kw, phase_depths=[2, 2, 3, 4, cfg.max_depth - 11])
         pref = pkg.Renderer(cfg, **phased).plan_phase_prefixes(scene, seed=SEED)
-        renderers = {"phased": pkg.Renderer(cfg, **phased, phase_prefixes=pref),
-                     "pool": pkg.Renderer(cfg, **kw, schedule="pool")}
+        renderers = {"phased": (pkg.Renderer(cfg, **phased, phase_prefixes=pref), scene),
+                     "pool": (pkg.Renderer(cfg, **kw, schedule="pool"), scene),
+                     "perlin_sphere pool": (pkg.Renderer(marble[1], transfer="u8",
+                                                         schedule="pool"), marble[0])}
         seconds = {k: [] for k in renderers}
-        segments = {k: r.render(scene, seed=SEED).segments for k, r in renderers.items()}
+        segments = {k: r.render(sc, seed=SEED).segments for k, (r, sc) in renderers.items()}
         for _ in range(args.renders):
-            for k, r in renderers.items():
-                seconds[k].append(r.render(scene, seed=SEED).seconds)
+            for k, (r, sc) in renderers.items():
+                seconds[k].append(r.render(sc, seed=SEED).seconds)
         # the images' bytes, u8 and f32, for two checkouts to compare
-        sha = {k: hashlib.sha256(r.render(scene, seed=SEED).u8.tobytes()).hexdigest()[:16]
-               for k, r in renderers.items()}
+        sha = {k: hashlib.sha256(r.render(sc, seed=SEED).u8.tobytes()).hexdigest()[:16]
+               for k, (r, sc) in renderers.items()}
         sha_f32 = {k: hashlib.sha256(pkg.Renderer(cfg, **{**kw, **extra, "transfer": "f32"})
                                      .render(scene, seed=SEED).radiance.tobytes()).hexdigest()[:16]
                    for k, extra in (("phased", dict(phased, phase_prefixes=pref)),
