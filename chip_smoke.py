@@ -211,6 +211,9 @@ fed packed rays. Phase 4 also traces its phased launch started from the
 camera, bit-equal to the rays' trace; phases 3, 6, 24, 25, 28, 31 and 32
 count the camera starts (one a launch or chunk) and the replay's camera
 launches (one a sweep chunk).
+Phase 35 holds K1 with participating media (next_week_final, the
+MEDIUM instantiation) against its plain version at that cell's launch
+shape and times K1 on that launch with and without the media.
 
 Kernels shorter than their wrappers' host time (K3, K4, the fold, the
 BVH walk and the PyTorch calls beside them) are timed with their launches
@@ -712,6 +715,74 @@ def camera_times(torch, dev, reps=20):
             k1_packed_ms=cuda_ms(torch, lambda: mb.trace_block(mega, ray_f, ray_i, SEED, 0, **kw),
                                  5))
     return rows
+
+
+MEDIUM_SHAPE = dict(samples_per_pixel=250)  # next_week_final as its cell runs it (800x800, depth 40)
+
+
+def medium_phase(torch, dev, card, reps=3):
+    """Phase 35: K1 with participating media on next_week_final (the
+    MEDIUM instantiation, with motion, marble, image and the walk) against
+    its plain version at the cell's launch shape, bit for bit with the
+    medium scatters counted equal: the first launch's first phase of 2
+    bounces from the camera, then its other 38 bounces from that state.
+    Then K1 on the full first launch (40 bounces from the camera) timed
+    with the media and on the same scene built without them (``media=
+    False``), back to back, and one small render through Renderer's
+    defaults, whose launches must be K1's alone. Prints a line a check;
+    returns ``(ok, row)``."""
+    from raytracing_tpu_torch import Renderer, build
+    from raytracing_tpu_torch.ops import megakernel_block as mb
+    from raytracing_tpu_torch.ops.megakernel import build_mega_scene
+    from raytracing_tpu_torch.render import camera as cam
+    from raytracing_tpu_torch.render.renderer import chunk_ids
+
+    zero_counts, counts, only = launch_counts()
+    row, ok = {}, True
+    starts = {}
+    for media in (True, False):
+        scene, cfg = build("next_week_final", device=dev, media=media, **MEDIUM_SHAPE)
+        r = Renderer(cfg)
+        mega = build_mega_scene(scene)
+        start = cam.CameraStart.of(cfg, cam.pack_camera(cam.derive(
+            cfg, cam.CameraParams.from_config(cfg, dev))), scene.flags.has_moving)
+        pix, smp, _, alive = chunk_ids(cfg, 0, 0, n_block=r.n_block, spp_chunk=r.spp_chunk,
+                                       device=dev)
+        starts[media] = (mega, start, torch.stack([pix, smp]).to(torch.int32), alive, cfg)
+    mega, start, ray_i, alive, cfg = starts[True]
+    outs = {}
+    for name, fn in (("kernel", mb.trace_block), ("plain", mb.trace_block_torch)):
+        mb.medium_scatters.reset()
+        first = fn(mega, None, ray_i, SEED, 0, max_depth=2, background=cfg.background,
+                   camera=start, alive=alive)
+        rest = fn(mega, first[2], ray_i, SEED, 2, max_depth=cfg.max_depth - 2,
+                  background=cfg.background)
+        torch.cuda.synchronize()
+        outs[name] = (*first, *rest, int(mb.medium_scatters))
+    k, p = outs["kernel"], outs["plain"]
+    row["bit_equal"] = all(torch.equal(a, b) for a, b in zip(k[:-1], p[:-1]))
+    row["B"], row["segments"] = ray_i.shape[1], int(k[1].sum() + k[4].sum())
+    row["medium_scatters"], row["plain_medium_scatters"] = k[-1], p[-1]
+    ok &= row["bit_equal"] and k[-1] == p[-1] > 0
+    for media, (mega_m, start_m, ray_i_m, alive_m, cfg_m) in starts.items():
+        def run(mega_m=mega_m, start_m=start_m, ray_i_m=ray_i_m, alive_m=alive_m, cfg_m=cfg_m):
+            return mb.trace_block(mega_m, None, ray_i_m, SEED, 0, max_depth=cfg_m.max_depth,
+                                  background=cfg_m.background, camera=start_m, alive=alive_m)
+
+        key = "with_media" if media else "without_media"
+        row[f"k1_ms_{key}"] = cuda_ms(torch, run, reps)
+        row[f"segments_{key}"] = int(run()[1].sum())
+        row[f"ns_per_segment_{key}"] = 1e6 * row[f"k1_ms_{key}"] / row[f"segments_{key}"]
+    scene, cfg = build("next_week_final", device=dev, image_width=160, samples_per_pixel=4)
+    zero_counts()
+    res = Renderer(cfg).render(scene, seed=SEED)
+    c = counts()
+    row["render_160"] = dict(segments=res.segments, counts=c)
+    ok &= (c == only(K1=c["K1"], K1_camera=c["K1_camera"]) and c["K1"] > 0
+           and c["K1"] == 3 * c["K1_camera"] and res.segments > 0)
+    print(f"phase 35 next_week_final K1 with media: {'ok' if ok else 'FAIL'} {json.dumps(row)} "
+          f"[{card}]")
+    return bool(ok), row
 
 
 def main() -> int:
@@ -2743,6 +2814,12 @@ def main() -> int:
     if not ok34:
         failures.append("phase 34 camera rays")
 
+    # ---- phase 35: participating media in K1, at next_week_final's launch shape ----
+    torch.cuda.empty_cache()
+    ok35, row35 = medium_phase(torch, dev, card)
+    if not ok35:
+        failures.append("phase 35 K1 with media")
+
     print(f"card: {card}")  # again near the end, inside a tail of the output
     print(json.dumps({"kernels": [
         {"name": "K1 megakernel_block (BVH walk; the guarded sweep below CULL_MIN_PRIMS)",
@@ -2768,7 +2845,10 @@ def main() -> int:
          "bound_sweep_ms": k1_sweep_bound[0], "bound_sweep_by": k1_sweep_bound[1],
          "library_ms": None, "bouncing_spheres_64_full_width": k1_64,
          "bouncing_spheres_64_pool_shaped": k1_pool64,
-         **{f"{k}_full_width": v["k1"] for k, v in tex_rows.items()}},
+         **{f"{k}_full_width": v["k1"] for k, v in tex_rows.items()},
+         "next_week_final_first_launch": {k: row35[k] for k in (
+             "k1_ms_with_media", "k1_ms_without_media", "ns_per_segment_with_media",
+             "ns_per_segment_without_media", "bit_equal")}},
         {"name": "K3 replay_fwd", "route": "cuda",
          "source": "raytracing_tpu_torch/csrc/replay_kernel.cu",
          "replaces": "raytracing_tpu/diff/replay_kernel.py:594",

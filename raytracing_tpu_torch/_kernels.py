@@ -41,28 +41,26 @@ class Kernels:
 _loaded: Kernels | None = None
 
 
-class LaunchCount:
-    """A kernel wrapper's launches, counted on the device that runs them.
-
-    :meth:`add` adds one to a 0-d int64 counter on the launch's device, on
-    the stream the kernel was launched on, right beside the launch: an
-    eager launch adds one when it runs, and a launch captured into a CUDA
-    graph adds one on every replay of the graph (the capture itself runs
-    nothing, so it adds nothing). ``int()`` reads the total (a host sync);
-    :meth:`reset` zeroes every counter in place, so graphs captured before
-    go on adding to it."""
+class DeviceCount:
+    """A count kept on the device that adds to it: a 0-d int64 counter a
+    device, made at its first use, which kernels add to on their stream
+    (:meth:`tensor` gives a kernel its address). A kernel captured into a
+    CUDA graph adds on every replay of the graph. ``int()`` reads the total
+    (a host sync); :meth:`reset` zeroes every counter in place, so graphs
+    captured before go on adding to it."""
 
     def __init__(self):
         self._counts: dict[torch.device, torch.Tensor] = {}
 
-    def add(self, dev: torch.device) -> None:
+    def tensor(self, dev: torch.device) -> torch.Tensor:
+        """The counter on ``dev``, made outside any capture."""
         count = self._counts.get(dev)
         if count is None:
-            if torch.cuda.is_current_stream_capturing():
+            if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
                 raise RuntimeError("a kernel's first launch on a device is under CUDA graph "
                                    "capture: launch it once eagerly (a warm-up) first")
             count = self._counts[dev] = torch.zeros((), dtype=torch.int64, device=dev)
-        count.add_(1)
+        return count
 
     def reset(self) -> None:
         for count in self._counts.values():
@@ -72,7 +70,20 @@ class LaunchCount:
         return sum(int(count) for count in self._counts.values())
 
     def __repr__(self) -> str:
-        return f"LaunchCount({int(self)})"
+        return f"{type(self).__name__}({int(self)})"
+
+
+class LaunchCount(DeviceCount):
+    """A kernel wrapper's launches, counted on the device that runs them.
+
+    :meth:`add` adds one to the launch device's counter, on the stream the
+    kernel was launched on, right beside the launch: an eager launch adds
+    one when it runs, and a launch captured into a CUDA graph adds one on
+    every replay of the graph (the capture itself runs nothing, so it adds
+    nothing)."""
+
+    def add(self, dev: torch.device) -> None:
+        self.tensor(dev).add_(1)
 
 
 def _nvcc() -> str:
@@ -88,7 +99,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
     lib.rt_trace_block.argtypes = [P, I, P, I, P, I, P, P, I, P, P, P, P, P, U, U, I, I,
                                    F, F, F, I, I, I, P, P, P, P, I, P, I, P, I, P, F, F, F, F, F, I,
-                                   P, P, U, I, P]
+                                   P, P, U, I, P, I, P, P]
     lib.rt_trace_block.restype = ctypes.c_int
     lib.rt_trace_group.argtypes = [P, I, I, P, I, P, P, I, P, P, P, P, I, P, P, P, U, U, I,
                                    F, F, F, I, I, I, P, P, P, P]

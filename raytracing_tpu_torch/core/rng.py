@@ -24,6 +24,7 @@ import torch
 STREAM_RAYGEN = 0    # pixel jitter (x, y), defocus disk (z, w)
 STREAM_TIME = 1      # motion-blur ray time
 STREAM_SCATTER = 2   # scatter direction (x, y), Fresnel coin (z)
+STREAM_MEDIUM = 3    # lane k: medium k's free path (scene/builder.py MAX_MEDIA = 4)
 N_STREAMS = 4
 
 _MASK = 0xFFFFFFFF

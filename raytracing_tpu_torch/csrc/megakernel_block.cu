@@ -67,9 +67,21 @@
 // * the winner's fields are per-ray divergent reads, served from global
 //   memory through the read-only cache (__ldg), and so are image texels;
 // * a noise scene also stages the 6 KB of Perlin tables in shared memory;
-// * marble, image, the depth cap and the walk are template switches (as
-//   motion is), so a scene without them runs the code it would run
-//   without them existing, with the same registers;
+// * marble, image, the depth cap, the walk and participating media are
+//   template switches (as motion is), so a scene without them runs the
+//   code it would run without them existing, with the same registers;
+// * media (MEDIUM; The Next Week's constant_medium) are tested against
+//   every ray, beside the surfaces: at most MAX_MEDIA spheres, each with both
+//   roots (the entry clamped to T_MIN, the exit to the closest hit), one
+//   PCG4D draw a bounce for all of them (lane k, medium k, stream
+//   STREAM_MEDIUM) and the free path -ln(u)/density with the log in
+//   double, rounded to float, so that the card, the host and PyTorch agree
+//   on it. A fog around the whole scene would hold every node of the BVH,
+//   so media stay out of it. The media's scatter point is found before the
+//   walk, which then culls every box beyond it: a ray random-walking in a
+//   dense medium visits only the nodes around its short free path. Each
+//   thread counts the bounces media win, and a warp adds its sum to one
+//   device counter once, at its end;
 // * a ray leaves the bounce loop as soon as it dies; the renderer compacts
 //   live rays to the front between phases so warps stay full.
 //
@@ -94,6 +106,12 @@
 #include "rt_camera.cuh"
 #include "rt_shade.cuh"
 
+#if defined(__CUDACC__) && !defined(RT_K1_MEDIUM_UNIT)
+// megakernel_medium.cu: the MEDIUM instantiations' launches
+extern "C" int rt_k1_launch_medium(const void* params, int moving, int noise, int image,
+                                   int walk, void* stream);
+#endif
+
 namespace {
 
 using rt::BIG;
@@ -109,6 +127,8 @@ constexpr float CULL_MARGIN = 1.0f + 1.0f / 64.0f;
 // origin's and the distance's coordinates.
 constexpr float WIDE_ROOT = 1.0f / 1024.0f;
 constexpr float WIDE_COORD = 1.0f / 524288.0f;
+// media a scene may hold: one PCG4D draw has a lane for each (scene/builder.py)
+constexpr int MAX_MEDIA = 4;
 
 struct TraceParams {
   const float* sph;      // sphere rows (8 floats): cx cy cz vx vy vz r2 0
@@ -146,6 +166,9 @@ struct TraceParams {
   const unsigned char* alive;  // camera start: (n,) flags of the lanes that start alive, or null
   uint32_t cam_width;    // camera start: the image width
   int cam_flags;         // camera start: rt::CAMERA_DEFOCUS | rt::CAMERA_MOTION
+  int n_media;           // MEDIUM: media (at most MAX_MEDIA)
+  const float* media;    // MEDIUM: (n_media, 8) cx cy cz r2 -1/density ar ag ab
+  unsigned long long* medium_scatters;  // MEDIUM: the launch's medium bounces are added here
 };
 
 // One segment's ray, with the terms both searches share.
@@ -261,9 +284,12 @@ RT_DEVICE float safe_inv(float v) {
 // when strictly nearer than the sphere winner, as in the sweep. `nodes` is
 // the staged or the global node table. Adds the nodes visited, the sphere
 // and quad rows tested and the wide rays to `counts` when it is not null.
-template <bool MOVING>
+// With LIMIT the bound starts from `limit` (a medium's scatter point), so
+// the walk finds the winner wherever it lies below `limit` and may return
+// any hit, or none, where it does not.
+template <bool MOVING, bool LIMIT = false>
 RT_DEVICE void walk_hit(const TraceParams& p, const float4* nodes, const HitRay& g, float& t,
-                        int& ib, long long* counts) {
+                        int& ib, long long* counts, float limit = BIG) {
   const float4* sph = reinterpret_cast<const float4*>(p.sph);
   const float4* quad = reinterpret_cast<const float4*>(p.quad);
   const float ivx = safe_inv(g.dx), ivy = safe_inv(g.dy), ivz = safe_inv(g.dz);
@@ -275,7 +301,7 @@ RT_DEVICE void walk_hit(const TraceParams& p, const float4* nodes, const HitRay&
   int is = -1;
   float tq = BIG;  // quad best, t space
   int iq = -1;
-  float bound = BIG;
+  float bound = LIMIT ? limit * CULL_MARGIN : BIG;
   int node = p.n_nodes > 0 ? 0 : -1;
   while (node >= 0) {
     // b0 = bminx bminy bminz bmaxx, b1 = bmaxy bmaxz miss leaf
@@ -334,13 +360,62 @@ RT_DEVICE void walk_hit(const TraceParams& p, const float4* nodes, const HitRay&
         if (counts) ++counts[2];
       }
     }
-    bound = fminf(is >= 0 ? sb * g.inv_a : BIG, tq) * CULL_MARGIN;
+    if (LIMIT)
+      bound = fminf(fminf(is >= 0 ? sb * g.inv_a : BIG, tq), limit) * CULL_MARGIN;
+    else
+      bound = fminf(is >= 0 ? sb * g.inv_a : BIG, tq) * CULL_MARGIN;
   }
   t = is >= 0 ? sb * g.inv_a : BIG;
   ib = is;
   if (iq >= 0 && tq < t) {
     t = tq;
     ib = iq + p.ns_pad;
+  }
+}
+
+// The media's scatter point, before the surfaces are searched: medium k
+// offers t1 + free / |d| (its entry t1 clamped to T_MIN, its free path
+// -ln(u)/density, u lane k of the bounce's STREAM_MEDIUM draw) where that
+// lies below its exit; tm and im = -2 - k are the nearest offer (the
+// lowest k among equal ones), BIG and -1 where none. The medium wins the
+// bounce when tm lies below the surfaces' closest hit, which is the plain
+// version's order (ops/megakernel_block.py _media_hit: surfaces, then
+// each medium with its exit clamped to the hit so far) with the same
+// result, and lets the walk stop at tm. Boundary roots as a sphere's, in
+// a*t space. The draw is made once, for the first medium the ray crosses.
+RT_DEVICE void media_first(const TraceParams& p, const HitRay& g, const rt::Ray& r, int b,
+                           float& tm, int& im) {
+  const float4* media = reinterpret_cast<const float4*>(p.media);
+  uint32_t w0 = r.pix, w1 = r.smp, w3 = p.seed;
+  uint32_t w2 = ((uint32_t)b + p.b_off) * rt::N_STREAMS + rt::STREAM_MEDIUM;
+  bool drawn = false;
+  tm = BIG;
+  im = -1;
+#pragma unroll
+  for (int k = 0; k < MAX_MEDIA; ++k) {
+    if (k >= p.n_media) break;
+    const float4 m0 = RT_LDG(media + 2 * k);  // cx cy cz r2
+    const float ocx = g.ox - m0.x, ocy = g.oy - m0.y, ocz = g.oz - m0.z;
+    const float half_b = ocx * g.dx + ocy * g.dy + ocz * g.dz;
+    const float cq = ocx * ocx + ocy * ocy + (ocz * ocz - m0.w);
+    const float disc = half_b * half_b - g.a * cq;
+    if (!(disc >= 0.0f)) continue;
+    const float sq = sqrtf(disc);
+    const float nhb = -half_b;
+    const float t1 = fmaxf((nhb - sq) * g.inv_a, T_MIN);
+    const float t2 = (nhb + sq) * g.inv_a;
+    if (!(t1 < t2)) continue;
+    if (!drawn) {
+      rt::pcg4d(w0, w1, w2, w3);
+      drawn = true;
+    }
+    const uint32_t w = k == 0 ? w0 : (k == 1 ? w1 : (k == 2 ? w2 : w3));
+    const float free = RT_LDG(p.media + 8 * k + 4) * (float)log((double)rt::u01(w));
+    const float tk = t1 + free / sqrtf(g.a);
+    if (tk < t2 && tk < tm) {
+      tm = tk;
+      im = -2 - k;
+    }
   }
 }
 
@@ -365,10 +440,11 @@ RT_DEVICE void camera_state(const TraceParams& p, int i, float* st) {
 
 // Trace ray i through one phase. The sweep reads the staged sweep tables
 // sph/quad (float4 rows: 2 per sphere, 4 per quad), the walk the node
-// table `nodes`; perm/grad point at the noise tables.
-template <bool MOVING, bool NOISE, bool IMAGE, bool CAP, bool WALK>
-RT_DEVICE void trace_ray(const TraceParams& p, const float4* sph, const float4* quad,
-                         const float4* nodes, const int* perm, const float* grad, int i) {
+// table `nodes`; perm/grad point at the noise tables. Returns the bounces
+// a medium won (0 without MEDIUM).
+template <bool MOVING, bool NOISE, bool IMAGE, bool CAP, bool WALK, bool MEDIUM = false>
+RT_DEVICE int trace_ray(const TraceParams& p, const float4* sph, const float4* quad,
+                        const float4* nodes, const int* perm, const float* grad, int i) {
   const int n = p.n;
   // a camera start goes through the thread's stack and is loaded back as
   // a ray_f start is (see the note at the top)
@@ -385,24 +461,37 @@ RT_DEVICE void trace_ray(const TraceParams& p, const float4* sph, const float4* 
   if (CAP) r.dep = p.dep[i];
   const rt::ShadeParams sp{p.table,   p.n_res_cols, p.ns_pad, p.seed, p.b_off, p.bg_r, p.bg_g,
                            p.bg_b,    perm,         grad,     p.atlas, p.depth_cap};
-  int bounces = 0;
+  int bounces = 0, scatters = 0;
 
   for (int b = 0; b < p.max_depth && r.active; ++b) {
     ++bounces;
     const HitRay g = hit_ray(r);
-    float t;
-    int ib;
+    float t, tm = BIG;
+    int ib, im = -1;
+    if (MEDIUM) media_first(p, g, r, b, tm, im);
     if (WALK)
-      walk_hit<MOVING>(p, nodes, g, t, ib, nullptr);
+      walk_hit<MOVING, MEDIUM>(p, nodes, g, t, ib, nullptr, tm);
     else
       sweep_hit<MOVING>(p, sph, quad, g, t, ib);
-    if (p.out_ids) p.out_ids[(size_t)b * n + i] = t < BIG ? RT_LDG(p.kid_map + ib) : -1;
-    r.active = rt::shade<NOISE, IMAGE, CAP>(r, t, ib, b, sp);
+    if (MEDIUM && tm < t) {
+      t = tm;
+      ib = im;
+    }
+    if (p.out_ids)
+      p.out_ids[(size_t)b * n + i] = t < BIG && (!MEDIUM || ib >= 0) ? RT_LDG(p.kid_map + ib) : -1;
+    if (MEDIUM && ib < -1) {
+      const float* m = p.media + 8 * (-2 - ib);
+      rt::scatter_medium(r, t, b, RT_LDG(m + 5), RT_LDG(m + 6), RT_LDG(m + 7), sp);
+      ++scatters;
+    } else {
+      r.active = rt::shade<NOISE, IMAGE, CAP>(r, t, ib, b, sp);
+    }
   }
 
   rt::store_ray(r, bounces, p.out_rad, p.out_bc, p.out_state, n, i);
   if (p.out_ids)  // one id was written per bounce the ray entered alive
     for (int b = bounces; b < p.max_depth; ++b) p.out_ids[(size_t)b * n + i] = -1;
+  return scatters;
 }
 
 #ifdef __CUDACC__
@@ -423,8 +512,9 @@ constexpr int MIN_BLOCKS = NOISE && CAP && !WALK ? 8 : 0;
 
 // Shared memory of one block: the sweep tables (or, walking, the node
 // table when it is staged), then with NOISE the permutations (3 x 256 int)
-// and gradients (256 x 3 float), 6 KB.
-template <bool MOVING, bool NOISE, bool IMAGE, bool CAP, bool WALK>
+// and gradients (256 x 3 float), 6 KB. With MEDIUM each warp adds the
+// bounces its rays lost to media to the launch's counter, once.
+template <bool MOVING, bool NOISE, bool IMAGE, bool CAP, bool WALK, bool MEDIUM>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS<NOISE, WALK, CAP>)
     k1_trace_block(const TraceParams p, int staged4) {
   extern __shared__ float4 smem[];
@@ -451,18 +541,25 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS<NOISE, WALK, CAP>)
   }
   __syncthreads();
   const int i = blockIdx.x * THREADS + threadIdx.x;
+  int scatters = 0;
   if (i < p.n)
-    trace_ray<MOVING, NOISE, IMAGE, CAP, WALK>(p, sph, quad, nodes, s_perm, s_grad, i);
+    scatters =
+        trace_ray<MOVING, NOISE, IMAGE, CAP, WALK, MEDIUM>(p, sph, quad, nodes, s_perm, s_grad, i);
+  if (MEDIUM) {
+    const unsigned warp_sum = __reduce_add_sync(0xffffffffu, (unsigned)scatters);
+    if ((threadIdx.x & 31) == 0 && warp_sum != 0)
+      atomicAdd(p.medium_scatters, (unsigned long long)warp_sum);
+  }
 }
 
-template <bool MOVING, bool NOISE, bool IMAGE, bool CAP, bool WALK>
+template <bool MOVING, bool NOISE, bool IMAGE, bool CAP, bool WALK, bool MEDIUM = false>
 cudaError_t launch(const TraceParams& p, cudaStream_t stream) {
   // float4s staged before the noise tables
   int staged4 = 2 * p.n_sph_rows + 4 * p.n_quad_rows;
   if (WALK) staged4 = (size_t)p.n_nodes * 8 * sizeof(float) <= NODE_SMEM_BYTES ? 2 * p.n_nodes : 0;
   const size_t smem =
       (size_t)staged4 * sizeof(float4) + (NOISE ? 6 * rt::NOISE_POINTS * sizeof(float) : 0);
-  auto kernel = k1_trace_block<MOVING, NOISE, IMAGE, CAP, WALK>;
+  auto kernel = k1_trace_block<MOVING, NOISE, IMAGE, CAP, WALK, MEDIUM>;
   if (smem > DEFAULT_SHARED) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -473,9 +570,52 @@ cudaError_t launch(const TraceParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The instantiation for the search, the scene's motion, textures and cap.
+#ifdef RT_K1_MEDIUM_UNIT
+
+// The MEDIUM instantiation for the search, the scene's motion and
+// textures (without the cap: the pool, which caps, refuses media).
+template <bool MOVING, bool NOISE, bool IMAGE>
+cudaError_t launch_medium(const TraceParams& p, bool walk, cudaStream_t s) {
+  return walk ? launch<MOVING, NOISE, IMAGE, false, true, true>(p, s)
+              : launch<MOVING, NOISE, IMAGE, false, false, true>(p, s);
+}
+
+}  // namespace
+
+// The MEDIUM launches, built in their own translation unit
+// (megakernel_medium.cu includes this file), which nvcc compiles beside
+// this one: `params` is the TraceParams rt_trace_block made, whose layout
+// both units take from this one definition.
+extern "C" int rt_k1_launch_medium(const void* params, int moving, int noise, int image,
+                                   int walk, void* stream) {
+  const TraceParams& p = *static_cast<const TraceParams*>(params);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool w = walk != 0;
+  cudaError_t e;
+  if (moving)
+    e = noise ? (image ? launch_medium<true, true, true>(p, w, s)
+                       : launch_medium<true, true, false>(p, w, s))
+              : (image ? launch_medium<true, false, true>(p, w, s)
+                       : launch_medium<true, false, false>(p, w, s));
+  else
+    e = noise ? (image ? launch_medium<false, true, true>(p, w, s)
+                       : launch_medium<false, true, false>(p, w, s))
+              : (image ? launch_medium<false, false, true>(p, w, s)
+                       : launch_medium<false, false, false>(p, w, s));
+  return (int)e;
+}
+
+#else
+
+// The instantiation for the search, the scene's motion, textures and cap;
+// a scene with media goes to the MEDIUM unit (rt_k1_launch_medium), which
+// has no cap.
 template <bool MOVING, bool NOISE, bool IMAGE>
 cudaError_t launch_cap(const TraceParams& p, bool walk, cudaStream_t s) {
+  if (p.n_media > 0) {
+    if (p.dep) return cudaErrorInvalidValue;
+    return (cudaError_t)rt_k1_launch_medium(&p, MOVING, NOISE, IMAGE, walk, s);
+  }
   if (walk)
     return p.dep ? launch<MOVING, NOISE, IMAGE, true, true>(p, s)
                  : launch<MOVING, NOISE, IMAGE, false, true>(p, s);
@@ -500,7 +640,8 @@ cudaError_t launch_textures(const TraceParams& p, bool noise, bool image, bool w
 // no depth cap. `walk` nonzero: the BVH walk (nodes, sph_gid, quad_gid,
 // the ball and band of mega_bvh.cull_ball), else the sweep. `camera` not
 // null: every lane starts from its camera ray (ray_f is not read) and
-// `alive` (null: every lane) says which start alive.
+// `alive` (null: every lane) says which start alive. `n_media` > 0: the
+// MEDIUM instantiation, with the media table and the scatter counter.
 extern "C" int rt_trace_block(const float* sph, int n_sph_rows, const float* quad,
                               int n_quad_rows, const float* table, int n_res_cols,
                               const float* ray_f, const int* ray_i, int n, float* out_rad,
@@ -513,15 +654,18 @@ extern "C" int rt_trace_block(const float* sph, int n_sph_rows, const float* qua
                               int n_sph_chunks, const int* quad_gid, float ball_x,
                               float ball_y, float ball_z, float ball_r2, float band_k,
                               int walk, const float* camera, const unsigned char* alive,
-                              uint32_t cam_width, int cam_flags, void* stream) {
+                              uint32_t cam_width, int cam_flags, void* stream, int n_media,
+                              const float* media, unsigned long long* medium_scatters) {
   if (n <= 0) return 0;
+  if (n_media < 0 || n_media > MAX_MEDIA) return (int)cudaErrorInvalidValue;
   const TraceParams p{sph,     n_sph_rows, quad,    n_quad_rows, table,     n_res_cols,
                       ray_f,   ray_i,      n,       out_rad,     out_bc,    out_state,
                       kid_map, out_ids,    seed,    b_off,       max_depth, ns_pad,
                       bg_r,    bg_g,       bg_b,    perm,        grad,      atlas,
                       dep,     depth_cap,  nodes,   n_nodes,     sph_gid,   n_sph_chunks,
                       quad_gid, ball_x,    ball_y,  ball_z,      ball_r2,   band_k,
-                      camera,  alive,      cam_width, cam_flags};
+                      camera,  alive,      cam_width, cam_flags, n_media, media,
+                      medium_scatters};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool w = walk != 0;
   return (int)(moving ? launch_textures<true>(p, noise, image, w, s)
@@ -531,6 +675,8 @@ extern "C" int rt_trace_block(const float* sph, int n_sph_rows, const float* qua
 extern "C" const char* rt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#endif  // RT_K1_MEDIUM_UNIT
 
 #else
 }  // namespace

@@ -25,6 +25,7 @@ constexpr float TWO_PI = 6.28318530717958647692f;
 constexpr float INV_2_24 = 1.0f / 16777216.0f;
 constexpr uint32_t N_STREAMS = 4u;       // core/rng.py N_STREAMS
 constexpr uint32_t STREAM_SCATTER = 2u;  // core/rng.py STREAM_SCATTER
+constexpr uint32_t STREAM_MEDIUM = 3u;   // core/rng.py STREAM_MEDIUM: lane k, medium k
 
 // PCG4D (Jarzynski & Olano 2020), bit-exact with core/rng.py pcg4d.
 RT_DEVICE void pcg4d(uint32_t& v0, uint32_t& v1, uint32_t& v2, uint32_t& v3) {

@@ -340,4 +340,31 @@ RT_DEVICE bool shade(Ray& r, float t, int ib, int b, const ShadeParams& s) {
   return true;
 }
 
+// Bounce b of ray r won by a participating medium at t (K1's MEDIUM): the
+// ray moves to the scatter point and leaves it in a uniform direction
+// from the bounce's scatter draw (the lambertian's unit vector), with the
+// medium's albedo (ar, ag, ab) as attenuation; it lives on. The book's
+// isotropic phase function.
+RT_DEVICE void scatter_medium(Ray& r, float t, int b, float ar, float ag, float ab,
+                              const ShadeParams& s) {
+  const float px = r.ox + t * r.dx;
+  const float py = r.oy + t * r.dy;
+  const float pz = r.oz + t * r.dz;
+  uint32_t v0 = r.pix, v1 = r.smp, v3 = s.seed;
+  uint32_t v2 = ((uint32_t)b + s.b_off) * N_STREAMS + STREAM_SCATTER;
+  pcg4d(v0, v1, v2, v3);
+  const float zdir = 1.0f - 2.0f * u01(v0);
+  const float rho = sqrtf(fmaxf(0.0f, 1.0f - zdir * zdir));
+  const float phi = TWO_PI * u01(v1);
+  r.tr = r.tr * ar;
+  r.tg = r.tg * ag;
+  r.tb = r.tb * ab;
+  r.ox = px;
+  r.oy = py;
+  r.oz = pz;
+  r.dx = rho * cosf(phi);
+  r.dy = rho * sinf(phi);
+  r.dz = zdir;
+}
+
 }  // namespace rt

@@ -38,7 +38,7 @@ from ..render.camera import CameraConfig, CameraParams
 from ..render.integrator import _bounce_once, initial_state, run_bounce
 from ..render.renderer import chunk_rays
 from ..scene import flatten as fl
-from ..scene.types import Scene
+from ..scene.types import Scene, refuse_media
 
 
 def record_decisions(scene: Scene, o: torch.Tensor, d: torch.Tensor, time: torch.Tensor,
@@ -50,6 +50,7 @@ def record_decisions(scene: Scene, o: torch.Tensor, d: torch.Tensor, time: torch
     already dead records whatever its frozen state hits; the replay never
     reads it). ``return_active`` also returns the ``(max_depth, B)`` bool
     mask of rays alive entering each bounce. Runs without autograd."""
+    refuse_media(scene, "the decision pass of the replay")
     background = torch.as_tensor(background, dtype=torch.float32, device=o.device)
     ids, act = [], []
     with torch.no_grad():
@@ -118,6 +119,7 @@ def replay_trace(scene: Scene, ids: torch.Tensor, o: torch.Tensor, d: torch.Tens
     integrator's bounce body with the closest-hit search replaced by the
     winner's recompute; liveness replays from the same RNG streams, so the
     segments are the traced ones."""
+    refuse_media(scene, "the gradient replay")
     background = torch.as_tensor(background, dtype=torch.float32, device=o.device)
     st = initial_state(o, d, time, pixel_ids, sample_ids, active0)
 

@@ -33,7 +33,7 @@ from ..ops.scatter import schlick_reflectance
 from ..ops.table_gather import table_lookup
 from ..render.integrator import run_bounce
 from ..scene.types import (MAT_DIELECTRIC, MAT_DIFFUSE_LIGHT, MAT_METAL, TEX_CHECKER,
-                           TEX_SOLID, Scene)
+                           TEX_SOLID, Scene, refuse_media)
 
 # packed field slots
 _F_ISQUAD = 0
@@ -69,7 +69,9 @@ def table_rows(n_primitives: int) -> int:
 def build_replay_table(scene: Scene) -> torch.Tensor:
     """``(L, N_FIELDS)`` f32 packed per-global-primitive table on the
     scene's device, differentiable in the scene's float tensors. Padding
-    rows are zero except ior = 1."""
+    rows are zero except ior = 1. Refuses a scene with media, which no
+    replay traces."""
+    refuse_media(scene, "the gradient replay")
     sph, qd = scene.spheres, scene.quads
     mats, tex = scene.materials, scene.textures
     n_sph, n_quad = scene.n_spheres, scene.n_quads

@@ -1,5 +1,7 @@
 """The scene registry: the counterpart of ``raytracing_tpu.models.scenes``,
-all nine scenes. The constants are the JAX package's, ``bouncing_spheres``
+all nine scenes, and The Next Week's final scene (``next_week_final``),
+which the JAX package does not have: its participating media render
+through K1 alone. The constants are the JAX package's, ``bouncing_spheres``
 draws from the same ``np.random.default_rng(seed)`` stream, the Perlin
 tables from the same seed and ``earth`` loads the same image, so both
 packages build identical tables; the integrator's BVH is built where the
@@ -120,21 +122,25 @@ def quads(device=DEFAULT_DEVICE, use_bvh: bool = False, **cam_overrides):
     return b.compile(device, use_bvh=use_bvh), _cfg(cfg, cam_overrides)
 
 
+def _earth_texture(b: SceneBuilder, image: str) -> int:
+    """The first found of ``image`` (the reference's asset, for exact
+    parity with it), the repository's ``images/earthmap.ppm`` (a
+    procedurally generated stand-in) and the in-memory generator."""
+    if assets.find_image(image) is not None:
+        return b.image(image)
+    if assets.find_image("earthmap.ppm") is not None:
+        return b.image("earthmap.ppm")
+    return b.image(assets.generate_earthlike())
+
+
 @register("earth")
 def earth(device=DEFAULT_DEVICE, use_bvh: bool = False, image: str = "earthmap.jpg",
           **cam_overrides):
-    """An image-textured globe. The image is the first found of ``image``
-    (the reference's asset, for exact parity with it), the repository's
-    ``images/earthmap.ppm`` (a procedurally generated stand-in) and the
-    in-memory generator, as in the JAX package."""
+    """An image-textured globe. The image is the first found of ``image``,
+    ``images/earthmap.ppm`` and the in-memory generator, as in the JAX
+    package."""
     b = SceneBuilder()
-    if assets.find_image(image) is not None:
-        tex = b.image(image)
-    elif assets.find_image("earthmap.ppm") is not None:
-        tex = b.image("earthmap.ppm")
-    else:
-        tex = b.image(assets.generate_earthlike())
-    b.sphere((0.0, 0.0, 0.0), 2.0, b.lambertian(tex))
+    b.sphere((0.0, 0.0, 0.0), 2.0, b.lambertian(_earth_texture(b, image)))
     cfg = CameraConfig(
         aspect_ratio=16.0 / 9.0, image_width=400, samples_per_pixel=100,
         max_depth=50, background=SKY, vfov=20.0, lookfrom=(0.0, 0.0, 12.0),
@@ -228,5 +234,57 @@ def three_spheres(device=DEFAULT_DEVICE, use_bvh: bool = False, **cam_overrides)
         aspect_ratio=16.0 / 9.0, image_width=400, samples_per_pixel=64,
         max_depth=16, background=SKY, vfov=90.0, lookfrom=(0.0, 0.0, 0.0),
         lookat=(0.0, 0.0, -1.0), defocus_angle=0.0, focus_dist=1.0,
+    )
+    return b.compile(device, use_bvh=use_bvh), _cfg(cfg, cam_overrides)
+
+
+@register("next_week_final")
+def next_week_final(device=DEFAULT_DEVICE, seed: int = 42, use_bvh: bool = False,
+                    image: str = "earthmap.jpg", media: bool = True, **cam_overrides):
+    """The Next Week's final scene (§10, ``final_scene(800, 10000, 40)``):
+    20×20 ground boxes of seeded random height (2,400 quads), a light
+    quad, a moving sphere, glass and fuzzy-metal spheres, a glass sphere
+    filled with a blue medium, a thin fog around everything, an earth
+    (``image``, as in ``earth``), a marble sphere and a cluster of 1,000
+    white spheres, 1,006 spheres and 2,401 quads in all. Box heights, then
+    the cluster's centres, draw from ``np.random.default_rng(seed)``. The
+    book turns the cluster by ``rotate_y(15)`` about its own origin before
+    the translate and rotates each ray instead; a sphere is unchanged by a
+    rotation about its centre, so here the turn and the translate are
+    baked into the centres. ``media=False`` leaves the two media out
+    (the scene without them, to time what they cost). The BVH is off by
+    default: the integrator, its only user, refuses media."""
+    b = SceneBuilder()
+    rng = np.random.default_rng(seed)
+    ground = b.lambertian((0.48, 0.83, 0.53))
+    w = 100.0
+    for i in range(20):
+        for j in range(20):
+            x0, z0 = -1000.0 + i * w, -1000.0 + j * w
+            b.box((x0, 0.0, z0), (x0 + w, rng.uniform(1.0, 101.0), z0 + w), ground)
+    light = b.diffuse_light((7.0, 7.0, 7.0))
+    b.quad((123.0, 554.0, 147.0), (300.0, 0.0, 0.0), (0.0, 0.0, 265.0), light)
+    center1 = np.array([400.0, 400.0, 200.0])
+    b.sphere(tuple(center1), 50.0, b.lambertian((0.7, 0.3, 0.1)),
+             center2=tuple(center1 + np.array([30.0, 0.0, 0.0])))
+    b.sphere((260.0, 150.0, 45.0), 50.0, b.dielectric(1.5))
+    b.sphere((0.0, 150.0, 145.0), 50.0, b.metal((0.8, 0.8, 0.9), 1.0))
+    b.sphere((360.0, 150.0, 145.0), 70.0, b.dielectric(1.5))
+    if media:
+        b.constant_medium((360.0, 150.0, 145.0), 70.0, 0.2, (0.2, 0.4, 0.9))
+        b.constant_medium((0.0, 0.0, 0.0), 5000.0, 1e-4, (1.0, 1.0, 1.0))
+    b.sphere((400.0, 200.0, 400.0), 100.0, b.lambertian(_earth_texture(b, image)))
+    b.sphere((220.0, 280.0, 300.0), 80.0, b.lambertian(b.noise(0.2)))
+    white = b.lambertian((0.73, 0.73, 0.73))
+    th = np.radians(15.0)
+    cos_t, sin_t = np.cos(th), np.sin(th)
+    for _ in range(1000):
+        x, y, z = rng.uniform(0.0, 165.0, 3)
+        b.sphere((cos_t * x + sin_t * z - 100.0, y + 270.0, -sin_t * x + cos_t * z + 395.0),
+                 10.0, white)
+    cfg = CameraConfig(
+        aspect_ratio=1.0, image_width=800, samples_per_pixel=10000, max_depth=40,
+        background=(0.0, 0.0, 0.0), vfov=40.0, lookfrom=(478.0, 278.0, -600.0),
+        lookat=(278.0, 278.0, 0.0), vup=(0.0, 1.0, 0.0), defocus_angle=0.0,
     )
     return b.compile(device, use_bvh=use_bvh), _cfg(cfg, cam_overrides)

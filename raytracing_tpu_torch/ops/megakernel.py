@@ -9,7 +9,9 @@ arithmetic and result. The group layout is K5 (ops/megakernel_group.py),
 whose closest hit is a walk of the same BVH in its own arithmetic or a
 dense sweep of the unified table. By default a scene of more than
 ``BVH_MIN_CHUNKS`` chunks of 8 primitives walks the BVH in the group
-layout, and every other scene takes the block layout.
+layout, and every other scene takes the block layout. A scene with
+participating media always takes the block layout: only K1 traces them
+(its MEDIUM instantiations), and K5 refuses them.
 
 A trace runs its phases in turn, each one kernel launch of
 ``phase_depths[k]`` bounces. Between phases the rays are compacted
@@ -69,6 +71,8 @@ class MegaScene:
     moving: bool              # any sphere with nonzero velocity
     has_noise: bool           # any primitive with a noise texture
     has_image: bool           # any primitive with an image texture
+    media: torch.Tensor       # (M, 8) f32 media (scene/flatten.py media_table; one zero row without)
+    n_media: int              # participating media, tested by K1 against every ray
 
     @property
     def resolve(self) -> torch.Tensor:
@@ -120,6 +124,7 @@ def build_mega_scene(scene: Scene, device=None) -> MegaScene:
     else:
         perm, grad = np.zeros((3, 256), np.int32), np.zeros((256, 3), np.float32)
     atlas = fl.atlas_texels(scene) if has_image else np.zeros((1, 3), np.float32)
+    media = fl.media_table(scene)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -134,6 +139,8 @@ def build_mega_scene(scene: Scene, device=None) -> MegaScene:
         perm=t(perm), grad=t(grad), atlas=t(atlas),
         n_sph=n_sph, n_quad=n_quad, n_sph_pad=ns_pad,
         moving=bool(np.any(sph[:, 3:6] != 0.0)), has_noise=has_noise, has_image=has_image,
+        media=t(media if len(media) else np.zeros((1, fl.MEDIUM_FIELDS), np.float32)),
+        n_media=len(media),
     )
 
 
@@ -141,7 +148,14 @@ def select_layout(mega: MegaScene, layout=None, use_bvh=None):
     """``(layout, use_bvh)`` of a trace, as the JAX ``trace_megakernel``
     selects them: ``use_bvh=None`` walks the BVH iff the scene has more
     than ``BVH_MIN_CHUNKS`` chunks, and ``layout=None`` is the group layout
-    iff the walk is chosen. The block layout has no walk."""
+    iff the walk is chosen. The block layout has no walk (K5's; K1 has a
+    walk of its own, ``cull``). A scene with media takes the block layout:
+    ``layout=None`` picks it, and the group layout raises."""
+    if mega.n_media:
+        if layout == "group" or use_bvh:
+            raise ValueError(f"the group layout (K5) does not trace participating media, and "
+                             f"this scene has {mega.n_media}: trace it with layout='block' (K1)")
+        return "block", False
     resolved = use_bvh if use_bvh is not None else mega.n_prims // CHUNK > BVH_MIN_CHUNKS
     if layout is None:
         layout = "group" if resolved else "block"

@@ -14,6 +14,18 @@ also records, per bounce, the global scene id of the winner (through
 regenerating pool, ``render/pool.py``) every ray carries its own depth
 ``dep``, which offsets its RNG counter and caps its path.
 
+Participating media (``MegaScene.media``, The Next Week's
+``constant_medium``; K1's MEDIUM instantiations) are tested after the
+surfaces, against every ray: medium k draws its free path -ln(u)/density
+from lane k of the PCG4D draw keyed on (pix, smp, (b + b_off)·4 + 3,
+seed), clamps its entry root to T_MIN, and wins the bounce when the
+entry plus the free path over |d| lies below both its exit and the
+closest hit so far; the ray then scatters there into a uniform direction
+(the scatter draw's first two lanes) with the medium's albedo as
+attenuation. Such a bounce is a segment, and adds one to
+:data:`medium_scatters`. Media take neither ``want_ids`` (the replay
+does not trace them) nor ``depth_cap``.
+
 Two implementations compute it:
 
 * ``csrc/megakernel_block.cu``, a CUDA C++ kernel for sm_90a, one thread
@@ -78,6 +90,9 @@ PLAIN_CHUNK = 128
 launches = _kernels.LaunchCount()  # K1 kernel launches (plain-version calls excluded)
 # K1 launches whose lanes start from the camera (``camera=``), among ``launches``
 camera_launches = _kernels.LaunchCount()
+# bounces won by a participating medium, kernel and plain version alike (a
+# launch's threads add theirs once a warp at its end)
+medium_scatters = _kernels.DeviceCount()
 
 
 def pack_rays(o, d, time, pixel_ids, sample_ids, active0=None):
@@ -98,6 +113,15 @@ def _sweep_rows(mega):
     n_sph_rows = mega.sph_sweep.shape[0] if mega.n_sph > 0 else 0
     n_quad_rows = mega.quad_sweep.shape[0] if mega.n_quad > 0 else 0
     return n_sph_rows, n_quad_rows
+
+
+def _media_options(mega, want_ids, depth_cap) -> None:
+    """Media are traced without ``want_ids`` (no replay traces them) and
+    without a depth cap (the pool): refuse either on a scene with media."""
+    if mega.n_media and (want_ids or depth_cap is not None):
+        raise ValueError(f"this scene has {mega.n_media} participating media, which K1 traces "
+                         f"without want_ids (the replay does not trace them) and without a "
+                         f"depth cap (the pool)")
 
 
 def walks(mega, cull=None) -> bool:
@@ -149,12 +173,13 @@ def trace_block(mega, ray_f, ray_i: torch.Tensor, seed: int,
         raise ValueError(f"dep must be ({n},) int32, got {tuple(dep.shape)} {dep.dtype}")
     if alive is not None and (alive.shape != (n,) or alive.dtype != torch.bool):
         raise ValueError(f"alive must be ({n},) bool, got {tuple(alive.shape)} {alive.dtype}")
+    _media_options(mega, want_ids, depth_cap)
     walk = walks(mega, cull)
     dev = ray_i.device
     if camera is not None:
         camera.check(dev)
     tables = (mega.sph_sweep, mega.quad_sweep, mega.table, mega.kid_map, mega.perm, mega.grad,
-              mega.atlas, mega.cull_nodes, mega.sph_gid, mega.quad_gid)
+              mega.atlas, mega.cull_nodes, mega.sph_gid, mega.quad_gid, mega.media)
     rays = tuple(t for t in (ray_f, ray_i, dep, alive) if t is not None)
     if any(t.device != dev for t in (*rays, *tables)):
         raise ValueError("scene tables and ray state must be on one device")
@@ -207,7 +232,9 @@ def trace_block(mega, ray_f, ray_i: torch.Tensor, seed: int,
             camera.camera.data_ptr() if camera is not None else None,
             alive.data_ptr() if alive is not None else None,
             camera.width if camera is not None else 0,
-            camera.flags if camera is not None else 0, stream)
+            camera.flags if camera is not None else 0, stream, mega.n_media,
+            mega.media.data_ptr(),
+            medium_scatters.tensor(dev).data_ptr() if mega.n_media else None)
     launches.add(dev)
     if camera is not None:
         camera_launches.add(dev)
@@ -315,14 +342,48 @@ def image_texel(mega, ib, px, py, pz, own_x, own_y, own_z):
     return flat.long(), x, y
 
 
+def _media_hit(mega, st, t, ib, b: int, b_off: int, seed: int, pix, smp):
+    """``(t, ib)`` after the media (``ib = -2 - k`` where medium k wins),
+    with the kernel's arithmetic: each medium's boundary roots in a·t
+    space, the entry clamped to T_MIN and the exit to the closest hit so
+    far, and the free path ``(-1/density)·ln(u)``, u lane k of the
+    STREAM_MEDIUM draw (the log in float64, rounded to float32)."""
+    ox, oy, oz, dx, dy, dz = st[OX:DZ + 1]
+    a = dx * dx + dy * dy + dz * dz
+    inv_a = 1.0 / a
+    length = torch.sqrt(a)
+    ctr = torch.full_like(pix, (b + b_off) * rng_mod.N_STREAMS + rng_mod.STREAM_MEDIUM,
+                          dtype=torch.int64)
+    words = rng_mod.pcg4d(pix, smp, ctr, torch.full_like(pix, seed, dtype=torch.int64))
+    for k in range(mega.n_media):
+        m = mega.media[k]
+        ocx, ocy, ocz = ox - m[fl.M_CX], oy - m[fl.M_CY], oz - m[fl.M_CZ]
+        half_b = ocx * dx + ocy * dy + ocz * dz
+        cq = ocx * ocx + ocy * ocy + (ocz * ocz - m[fl.M_R2])
+        disc = half_b * half_b - a * cq
+        sq = torch.sqrt(disc)  # NaN on a miss: every comparison below fails
+        nhb = -half_b
+        t1 = torch.clamp((nhb - sq) * inv_a, min=T_MIN)
+        t2 = torch.minimum((nhb + sq) * inv_a, t)
+        u = rng_mod.to_unit_float(words[k])
+        free = m[fl.M_NID] * torch.log(u.double()).float()
+        tm = t1 + free / length
+        win = (disc >= 0.0) & (t1 < t2) & (tm < t2)
+        t = torch.where(win, tm, t)
+        ib = torch.where(win, -2 - k, ib)
+    return t, ib
+
+
 def shade(mega, st, t, ib, b: int, b_off: int, seed: int, pix, smp, background,
           dep=None, depth_cap=None):
     """One bounce after the closest hit ``(t, ib)`` (``t == BIG`` on a miss),
     shared by K1's and K5's plain versions: background on a miss, the
     winner's fields from the unified table, solid, checker, marble or image
     albedo, emission, and the scatter of a lambertian, metal or dielectric
-    surface. ``st`` is the ray state as a list in ``ray_f``'s row order,
-    with a bool ``active`` last; returns the state after the bounce. With
+    surface, or of a medium (``ib <= -2``, :func:`_media_hit`): a uniform
+    direction, its albedo as attenuation. ``st`` is the ray state as a
+    list in ``ray_f``'s row order, with a bool ``active`` last; returns
+    the state after the bounce. With
     ``depth_cap``, ``dep (n,) i32`` holds each ray's segments before this
     phase: its RNG counter gains ``dep·4`` and the ray dies after segment
     ``depth_cap``."""
@@ -366,9 +427,16 @@ def shade(mega, st, t, ib, b: int, b_off: int, seed: int, pix, smp, background,
     ar = torch.where(use2, at[fl.U_A2R], at[fl.U_AR])
     ag = torch.where(use2, at[fl.U_A2G], at[fl.U_AG])
     ab = torch.where(use2, at[fl.U_A2B], at[fl.U_AB])
+    # a medium's bounce reads its albedo from the media table
+    is_med = ib <= -2
+    if mega.n_media:
+        med = mega.media[(-2 - ib).clamp(min=0, max=mega.n_media - 1)].T
+        ar = torch.where(is_med, med[fl.M_AR], ar)
+        ag = torch.where(is_med, med[fl.M_AG], ag)
+        ab = torch.where(is_med, med[fl.M_AB], ab)
     # marble and image albedo, evaluated only on the rays that hit them
     # (a miss's hit point may be infinite)
-    shaded = active & hit
+    shaded = active & hit & ~is_med
     if mega.has_noise:
         # scene/perlin.py's marble, in the kernels' operation order
         sel = torch.nonzero(shaded & (at[fl.U_TKIND] == fl.TK_NOISE)).flatten()
@@ -443,12 +511,12 @@ def shade(mega, st, t, ib, b: int, b_off: int, seed: int, pix, smp, background,
     gdy = torch.where(use_reflect, udy - 2.0 * u_dot_n * ny, rpy + par * ny)
     gdz = torch.where(use_reflect, udz - 2.0 * u_dot_n * nz, rpz + par * nz)
 
-    is_metal = mt == MT_METAL
-    is_diel = mt == MT_DIELECTRIC
-    is_light = mt == MT_LIGHT
-    ndx = torch.where(is_diel, gdx, torch.where(is_metal, mdx, ldx))
-    ndy = torch.where(is_diel, gdy, torch.where(is_metal, mdy, ldy))
-    ndz = torch.where(is_diel, gdz, torch.where(is_metal, mdz, ldz))
+    is_metal = (mt == MT_METAL) & ~is_med
+    is_diel = (mt == MT_DIELECTRIC) & ~is_med
+    is_light = (mt == MT_LIGHT) & ~is_med
+    ndx = torch.where(is_diel, gdx, torch.where(is_metal, mdx, torch.where(is_med, rux, ldx)))
+    ndy = torch.where(is_diel, gdy, torch.where(is_metal, mdy, torch.where(is_med, ruy, ldy)))
+    ndz = torch.where(is_diel, gdz, torch.where(is_metal, mdz, torch.where(is_med, ruz, ldz)))
     att_r = torch.where(is_diel, 1.0, ar)
     att_g = torch.where(is_diel, 1.0, ag)
     att_b = torch.where(is_diel, 1.0, ab)
@@ -490,6 +558,7 @@ def trace_block_torch(mega, ray_f, ray_i: torch.Tensor, seed: int,
     ``ray_f`` None) packs ``camera.rays`` with :func:`pack_rays`."""
     if (dep is None) != (depth_cap is None):
         raise ValueError("pass dep exactly when depth_cap is set")
+    _media_options(mega, want_ids, depth_cap)
     if camera is not None:
         pix, smp = ray_i[PIX], ray_i[SMP]
         ray_f = pack_rays(*camera.rays(pix, smp, seed), pix, smp, alive)[0]
@@ -499,15 +568,21 @@ def trace_block_torch(mega, ray_f, ray_i: torch.Tensor, seed: int,
     bounces = torch.zeros(ray_f.shape[1], dtype=torch.int32, device=ray_f.device)
     ids = (torch.full((max_depth, ray_f.shape[1]), -1, dtype=torch.int32, device=ray_f.device)
            if want_ids else None)
+    scatters = torch.zeros((), dtype=torch.int64, device=ray_f.device)
     for b in range(max_depth):
         active = st[ACT]
         if not bool(active.any()):
             break
         t, ib = _closest_hit(mega, *st[OX:TM + 1])
+        if mega.n_media:
+            t, ib = _media_hit(mega, st, t, ib, b, b_off, seed, pix, smp)
+            scatters += (active & (ib <= -2)).sum()
         if want_ids:
             ids[b] = torch.where(active & (t < BIG), mega.kid_map[ib.clamp(min=0)], -1)
         st = shade(mega, st, t, ib, b, b_off, seed, pix, smp, background, dep, depth_cap)
         bounces = bounces + active.to(torch.int32)
+    if mega.n_media:
+        medium_scatters.tensor(ray_f.device).add_(scatters)
 
     rad, state = state_out(st)
     if not want_state:

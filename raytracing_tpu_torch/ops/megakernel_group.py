@@ -72,7 +72,14 @@ PROBE_COUNTS = ("visits", "sphere_tests", "quad_tests", "box_issues", "box_lanes
                 "member_issues", "member_lanes")
 
 
+def _refuse_media(mega):
+    if mega.n_media:
+        raise ValueError(f"K5 does not trace participating media, and this scene has "
+                         f"{mega.n_media}: trace it through K1 (the block layout)")
+
+
 def _check(mega, ray_f, ray_i):
+    _refuse_media(mega)
     n = ray_f.shape[1]
     if ray_f.shape != (mb.N_F, n) or ray_f.dtype != torch.float32:
         raise ValueError(f"ray_f must be ({mb.N_F}, n) float32, got {tuple(ray_f.shape)} {ray_f.dtype}")
@@ -360,6 +367,7 @@ def trace_group_torch(mega, ray_f: torch.Tensor, ray_i: torch.Tensor, seed: int,
     tests and quad member tests over the phase, pads not counted (for the
     dense sweep: no visits, and every sphere and quad column once per
     segment)."""
+    _refuse_media(mega)
     st = list(ray_f.unbind(0))
     st[mb.ACT] = st[mb.ACT] > 0.5
     pix, smp = ray_i[mb.PIX], ray_i[mb.SMP]

@@ -31,7 +31,7 @@ from torch.utils.checkpoint import checkpoint
 from ..core import rng as rng_mod
 from ..ops.intersect import T_MIN, HitBatch, closest_hit_brute
 from ..ops.scatter import scatter_and_emit
-from ..scene.types import Scene, float_leaves, with_leaves
+from ..scene.types import Scene, float_leaves, refuse_media, with_leaves
 
 HitFn = Callable[..., HitBatch]  # (scene, o, d, time, t_min) -> HitBatch
 
@@ -173,6 +173,7 @@ def trace(scene: Scene, o: torch.Tensor, d: torch.Tensor, time: torch.Tensor,
     changes without it."""
     if mode not in ("scan", "while"):
         raise ValueError(f"mode must be 'scan' or 'while', got {mode!r}")
+    refuse_media(scene, "the wavefront integrator")
     background = torch.as_tensor(background, dtype=torch.float32, device=o.device)
     state = initial_state(o, d, time, pixel_ids, sample_ids, active0)
     leaves = ({p: v for p, v in float_leaves(scene) if v.requires_grad}

@@ -77,6 +77,9 @@ class Pool:
         if total >= MAX_POOL_STREAM:
             raise ValueError(f"a pool stream of {total} paths needs gids of more than "
                              f"{GID_BITS} bits: split the samples into windows")
+        if mega.n_media:
+            raise ValueError(f"the pool's depth cap has no K1 with media, and this scene has "
+                             f"{mega.n_media}: render it with schedule='phased'")
         if cfg.max_depth >= MAX_POOL_DEPTH:
             raise ValueError(f"max_depth {cfg.max_depth}: the pool packs a ray's depth in "
                              f"{32 - GID_BITS} bits above its gid (below {MAX_POOL_DEPTH})")

@@ -17,11 +17,13 @@ import torch
 
 from ..core.device import DEFAULT_DEVICE, resolve
 from ..ops.bvh import build_bvh
+from ..utils.profiling import annotate
 from . import assets, perlin
 from .types import (
     BVH,
     MAT_DIELECTRIC,
     MAT_DIFFUSE_LIGHT,
+    MAT_ISOTROPIC,
     MAT_LAMBERTIAN,
     MAT_METAL,
     TEX_CHECKER,
@@ -30,6 +32,7 @@ from .types import (
     TEX_SOLID,
     ImageAtlas,
     Materials,
+    Media,
     Quads,
     Scene,
     SceneFlags,
@@ -38,6 +41,10 @@ from .types import (
 )
 
 Color = Union[Tuple[float, float, float], Sequence[float], np.ndarray]
+
+# media a scene may hold: each draws its free path from one lane of the
+# PCG4D draw of stream STREAM_MEDIUM (core/rng.py), which has four
+MAX_MEDIA = 4
 
 
 def _pad_to(n: int, multiple: int) -> int:
@@ -66,6 +73,10 @@ class SceneBuilder:
     quad_u: List[np.ndarray] = field(default_factory=list)
     quad_v: List[np.ndarray] = field(default_factory=list)
     quad_mat: List[int] = field(default_factory=list)
+    med_center: List[np.ndarray] = field(default_factory=list)
+    med_radius: List[float] = field(default_factory=list)
+    med_density: List[float] = field(default_factory=list)
+    med_mat: List[int] = field(default_factory=list)
 
     # ----------------------------- textures ------------------------------
     def _add_texture_row(self, ttype, rgb=(0, 0, 0), scale=1.0, child=(0, 0), image=-1) -> int:
@@ -122,6 +133,18 @@ class SceneBuilder:
     def diffuse_light(self, tex_or_rgb: Union[int, Color]) -> int:
         return self._add_material_row(MAT_DIFFUSE_LIGHT, self._as_tex(tex_or_rgb))
 
+    def isotropic(self, albedo: Color) -> int:
+        """A medium's phase function: it scatters into a uniform direction
+        with ``albedo`` as attenuation. Only :meth:`constant_medium` takes
+        it; a surface refuses it."""
+        return self._add_material_row(MAT_ISOTROPIC, self.solid(albedo))
+
+    def _surface(self, mat: int) -> int:
+        if 0 <= mat < len(self.mat_type) and self.mat_type[mat] == MAT_ISOTROPIC:
+            raise ValueError("an isotropic material is a medium's phase function: give it to "
+                             "constant_medium, not to a surface")
+        return mat
+
     # ----------------------------- geometry ------------------------------
     def sphere(self, center: Color, radius: float, mat: int, center2: Optional[Color] = None) -> int:
         """Static sphere, or a moving one that travels center → center2
@@ -131,15 +154,37 @@ class SceneBuilder:
         vel = np.zeros(3, np.float32) if center2 is None else np.asarray(center2, np.float32) - c
         self.sph_velocity.append(vel)
         self.sph_radius.append(float(radius))
-        self.sph_mat.append(mat)
+        self.sph_mat.append(self._surface(mat))
         return len(self.sph_radius) - 1
 
     def quad(self, q: Color, u: Color, v: Color, mat: int) -> int:
         self.quad_q.append(np.asarray(q, np.float32))
         self.quad_u.append(np.asarray(u, np.float32))
         self.quad_v.append(np.asarray(v, np.float32))
-        self.quad_mat.append(mat)
+        self.quad_mat.append(self._surface(mat))
         return len(self.quad_mat) - 1
+
+    def constant_medium(self, center: Color, radius: float, density: float,
+                        albedo: Union[int, Color]) -> int:
+        """A constant-density medium inside the sphere (``center``,
+        ``radius``), The Next Week's ``constant_medium``: a ray crossing
+        it scatters after a free path of -ln(u)/density, isotropically,
+        with ``albedo`` (a color, or an :meth:`isotropic` material) as
+        attenuation. The boundary is not a surface: add a sphere of its
+        own for one. Returns the medium's index."""
+        if self.n_media >= MAX_MEDIA:
+            raise ValueError(f"a scene holds at most {MAX_MEDIA} media")
+        if not (radius > 0 and density >= 0):
+            raise ValueError(f"a medium needs radius > 0 and density >= 0, got {radius}, "
+                             f"{density}")
+        mat = albedo if isinstance(albedo, int) else self.isotropic(albedo)
+        if self.mat_type[mat] != MAT_ISOTROPIC or self.tex_type[self.mat_tex[mat]] != TEX_SOLID:
+            raise ValueError("a medium's material must be isotropic() with a solid albedo")
+        self.med_center.append(np.asarray(center, np.float32))
+        self.med_radius.append(float(radius))
+        self.med_density.append(float(density))
+        self.med_mat.append(mat)
+        return self.n_media - 1
 
     def box(self, a: Color, b: Color, mat: int) -> None:
         """Axis-aligned box as 6 quads from two opposite corners."""
@@ -158,8 +203,9 @@ class SceneBuilder:
         self.quad([mn[0], mn[1], mn[2]], dx, dz, mat)    # bottom
 
     def translate(self, offset: Color):
-        """Primitives added inside ``with b.translate(offset):`` are shifted
-        by ``offset`` (sphere centers and quad corners; nestable)."""
+        """Primitives and media added inside ``with b.translate(offset):``
+        are shifted by ``offset`` (sphere and medium centers, quad corners;
+        nestable)."""
         return _TranslateScope(self, np.asarray(offset, np.float32))
 
     # ----------------------------- compile -------------------------------
@@ -171,6 +217,10 @@ class SceneBuilder:
     def n_quads(self) -> int:
         return len(self.quad_mat)
 
+    @property
+    def n_media(self) -> int:
+        return len(self.med_radius)
+
     def compile(self, device=DEFAULT_DEVICE, perlin_seed: int = 0,
                 image_bilinear: bool = False, use_bvh: bool = True) -> Scene:
         """Lower the builder state to a :class:`Scene` on ``device`` (default:
@@ -180,8 +230,13 @@ class SceneBuilder:
         are drawn from ``perlin_seed``. With ``use_bvh`` the integrator's
         BVH is built on the host over the *real* primitives, indexing the
         padded global id space (spheres first, then quads at offset
-        n_sphere_rows)."""
-        device = resolve(device)
+        n_sphere_rows); media are kept out of it. With the port's tracing
+        switch on (``utils.profiling``) the compile is the span
+        ``rt.scene.compile``."""
+        with annotate("rt.scene.compile"):
+            return self._compile(resolve(device), perlin_seed, image_bilinear, use_bvh)
+
+    def _compile(self, device, perlin_seed: int, image_bilinear: bool, use_bvh: bool) -> Scene:
         n_sph = _pad_to(max(self.n_spheres, 1), 8)
         n_quad = _pad_to(max(self.n_quads, 1), 8)
 
@@ -256,9 +311,16 @@ class SceneBuilder:
                       bbox_max=torch.from_numpy(flat.bbox_max).to(device),
                       prim=torch.from_numpy(flat.prim).to(device),
                       miss=torch.from_numpy(flat.miss).to(device))
+        media = None
+        if self.med_radius:
+            media = Media(center=torch.from_numpy(np.stack(self.med_center)).to(device),
+                          radius=col(self.med_radius, np.float32),
+                          density=col(self.med_density, np.float32),
+                          mat_id=col(self.med_mat, np.int32))
         return Scene(spheres=spheres, quads=quads, materials=materials,
                      textures=textures, atlas=atlas,
-                     perlin=perlin.make_tables(perlin_seed, device), bvh=bvh, flags=flags)
+                     perlin=perlin.make_tables(perlin_seed, device), bvh=bvh, flags=flags,
+                     media=media)
 
 
 class _TranslateScope:
@@ -272,6 +334,7 @@ class _TranslateScope:
     def __enter__(self):
         self._s0 = self.builder.n_spheres
         self._q0 = self.builder.n_quads
+        self._m0 = self.builder.n_media
         return self.builder
 
     def __exit__(self, exc_type, exc, tb):
@@ -282,4 +345,6 @@ class _TranslateScope:
             b.sph_center[i] = b.sph_center[i] + self.offset
         for j in range(self._q0, b.n_quads):
             b.quad_q[j] = b.quad_q[j] + self.offset
+        for k in range(self._m0, b.n_media):
+            b.med_center[k] = b.med_center[k] + self.offset
         return False

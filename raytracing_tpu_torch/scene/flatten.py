@@ -14,6 +14,7 @@ and the same values.
 * ``atlas_texels``: every image's texels row-major, one image after
   another, ``(T, 3) f32``; an image texture's ``A2R`` holds its first
   texel.
+* ``media_table``: one row of 8 per participating medium, ``(M, 8) f32``.
 
 Materials and textures are folded into each primitive's row. The TPU
 package replicates the resolve, noise and atlas tables eight times for its
@@ -55,6 +56,10 @@ U_QX, U_QY, U_QZ, U_UX, U_UY, U_UZ, U_VX, U_VY, U_VZ = range(17, 26)
 U_FIELDS = 32
 # the resolve table is rows [0, RESOLVE_FIELDS) of the unified table
 RESOLVE_FIELDS = 17
+
+# media_table rows: the boundary sphere, -1/density and the solid albedo
+M_CX, M_CY, M_CZ, M_R2, M_NID, M_AR, M_AG, M_AB = range(8)
+MEDIUM_FIELDS = 8
 
 # the atlas base texel is stored in an f32 column, exact below 2^24
 MAX_ATLAS_TEXELS = 1 << 24
@@ -298,3 +303,21 @@ def atlas_texels(scene: Scene) -> np.ndarray:
     if not parts:
         return np.zeros((1, 3), np.float32)
     return np.ascontiguousarray(np.concatenate(parts).astype(np.float32))
+
+
+def media_table(scene: Scene) -> np.ndarray:
+    """The scene's media as K1 reads them: ``(M, MEDIUM_FIELDS) f32``
+    rows ``cx cy cz r² -1/density ar ag ab`` (r² and -1/density computed
+    in f32; a density of 0 gives -inf, a free path that never ends),
+    ``(0, MEDIUM_FIELDS)`` without media."""
+    out = np.zeros((scene.n_media, MEDIUM_FIELDS), np.float32)
+    if scene.n_media:
+        m = scene.media
+        r = _np(m.radius).astype(np.float32)
+        out[:, M_CX:M_CZ + 1] = _np(m.center)
+        out[:, M_R2] = r * r
+        with np.errstate(divide="ignore"):
+            out[:, M_NID] = np.float32(-1.0) / _np(m.density).astype(np.float32)
+        tex = _np(scene.materials.tex_id)[_np(m.mat_id)]
+        out[:, M_AR:M_AB + 1] = _np(scene.textures.rgb)[tex]
+    return out

@@ -5,7 +5,9 @@ Geometry is flat per-primitive columns (spheres, quads); materials and
 textures are integer-tagged parameter tables; the Perlin tables feed the
 marble texture. The tags and the field
 layout are the JAX package's, so a scene converts between the two field
-by field (scene/convert.py).
+by field (scene/convert.py). Participating media (:class:`Media`,
+The Next Week's ``constant_medium``) are the port's own: the JAX package
+has none, and only K1 traces them (:func:`refuse_media`).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ MAT_LAMBERTIAN = 0
 MAT_METAL = 1
 MAT_DIELECTRIC = 2
 MAT_DIFFUSE_LIGHT = 3
+MAT_ISOTROPIC = 4  # a medium's phase function: a uniform direction, albedo as attenuation
 
 # Texture type tags
 TEX_SOLID = 0
@@ -49,6 +52,18 @@ class Quads:
     u: torch.Tensor       # (M, 3) f32
     v: torch.Tensor       # (M, 3) f32
     mat_id: torch.Tensor  # (M,)  i32
+
+
+@dataclass
+class Media:
+    """Constant-density media, each bounded by a sphere that is not itself
+    a primitive (a boundary that should also refract is added as a
+    dielectric sphere beside it). ``mat_id`` is an ``MAT_ISOTROPIC`` row
+    with a solid albedo."""
+    center: torch.Tensor   # (M, 3) f32
+    radius: torch.Tensor   # (M,)  f32
+    density: torch.Tensor  # (M,)  f32, per unit length
+    mat_id: torch.Tensor   # (M,)  i32
 
 
 @dataclass
@@ -123,6 +138,7 @@ class Scene:
     perlin: PerlinTables
     bvh: Optional[BVH] = None
     flags: SceneFlags = SceneFlags()
+    media: Optional[Media] = None
 
     @property
     def n_spheres(self) -> int:
@@ -135,6 +151,20 @@ class Scene:
     @property
     def n_primitives(self) -> int:
         return self.n_spheres + self.n_quads
+
+    @property
+    def n_media(self) -> int:
+        return 0 if self.media is None else self.media.radius.shape[0]
+
+
+def refuse_media(scene: "Scene", what: str) -> None:
+    """Raise ValueError when ``scene`` holds participating media, which
+    only K1 traces (the megakernel's block layout, phased schedule):
+    ``what`` names the path that would render the scene without them."""
+    if scene.n_media:
+        raise ValueError(f"{what} does not trace participating media, and this scene has "
+                         f"{scene.n_media} (constant_medium): render it through "
+                         f"Renderer(hit_method='auto' or 'mega'), schedule='phased'")
 
 
 def float_leaves(obj, path=()):

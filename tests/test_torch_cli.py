@@ -61,10 +61,12 @@ def test_render_checkpoint_and_auto_prefix(tmp_path):
 
 
 def test_scenes_lists_the_jax_names(capsys):
+    """Every JAX scene, and the port's own next_week_final (participating
+    media, which the JAX package does not have)."""
     from raytracing_tpu.models.scenes import SCENES as JSCENES
 
     assert cli.main(["scenes"]) == 0
-    assert capsys.readouterr().out.split() == sorted(JSCENES)
+    assert capsys.readouterr().out.split() == sorted([*JSCENES, "next_week_final"])
 
 
 @pytest.mark.parametrize("flags,why", [

@@ -13,7 +13,10 @@ hide the compiler's report). Prints one line per kernel instantiation
 (``chip_smoke.ptxas_summary``), those whose name holds ``--kernel`` (all
 without it), under a heading per tree, then one JSON line with the
 instantiations whose registers, stack or spills differ between the first
-tree and each other one. Needs ``nvcc`` (the machine with the card).
+tree and each other one. An instantiation of another tree is matched to
+this tree's with the same switches or, where this tree's template has
+gained a last switch, with that switch off (``<1,0,0,0,1>`` is
+``<1,0,0,0,1,0>``). Needs ``nvcc`` (the machine with the card).
 """
 from __future__ import annotations
 
@@ -72,10 +75,14 @@ def main(argv=None) -> int:
             print(f"  {x}")
         tables[str(tree)] = {x.split(":", 1)[0]: numbers(x) for x in lines}
     base = tables[str(ROOT)]
+
+    def this(key):
+        return base.get(key, base.get(key[:-1] + ",0>") if key.endswith(">") else None)
+
     diff = {}
     for tree, table in list(tables.items())[1:]:
-        diff[tree] = {k: {"this": base.get(k), "other": v} for k, v in table.items()
-                      if base.get(k) != v}
+        diff[tree] = {k: {"this": this(k), "other": v} for k, v in table.items()
+                      if this(k) != v}
     print(json.dumps({"fields": ["registers", "stack", "spill_stores", "spill_loads"],
                       "differs_from_this_tree": diff}))
     return 0

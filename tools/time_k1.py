@@ -11,7 +11,12 @@ with CUDA events over ``--reps`` launches after a warm-up, K1 on:
 * the same launch of bouncing_spheres_64 (chip_smoke.py's 64x64 grid)
   and of perlin_sphere (the marble scene at its registry size, depth 50);
 * a pool-shaped launch of each: the same rays with per-ray depths in
-  [0, depth) drawn from a seed, 2 bounces, depth cap the scene's depth.
+  [0, depth) drawn from a seed, 2 bounces, depth cap the scene's depth;
+* the first launch of next_week_final as its benchmark cell renders it
+  (800x800, 250 spp: B = 262,144, depth 40, the walk), with its two
+  participating media and built without them, so that the media's cost
+  shows alone (full width only: the pool refuses media; skipped where the
+  package has no such scene).
 
 Each search the package's ``trace_block`` offers is timed: the sweep and
 the walk (``cull=False``/``True``) where it takes ``cull``, else its one
@@ -91,6 +96,26 @@ def main() -> int:
                 ms = smoke.cuda_ms(torch, run, args.reps)
                 print(json.dumps(dict(scene=name, launch=shape, search=search, B=B,
                                       segments=seg, ms=ms, card=card)))
+    final = None
+    try:
+        final = {media: pkg.build("next_week_final", device=dev, samples_per_pixel=250,
+                                  media=media) for media in (True, False)}
+    except KeyError:
+        print(json.dumps(dict(scene="next_week_final", skipped="not in this package's registry")))
+    for media, (scene, cfg) in (final or {}).items():
+        mega = mk.build_mega_scene(scene)
+        r = pkg.Renderer(cfg)
+        _, (ray_f, ray_i) = smoke.first_launch(scene, cfg, r.n_block, r.spp_chunk, dev)
+
+        def run():
+            return mb.trace_block(mega, ray_f, ray_i, SEED, 0, background=cfg.background,
+                                  max_depth=cfg.max_depth)
+
+        seg = int(run()[1].sum())
+        ms = smoke.cuda_ms(torch, run, args.reps)
+        print(json.dumps(dict(scene="next_week_final" if media else "next_week_final no media",
+                              launch="full width", search="walk", B=ray_f.shape[1],
+                              segments=seg, ms=ms, ns_per_segment=1e6 * ms / seg, card=card)))
     if args.renders:
         scene, cfg = bench
         kw = dict(max_rays_per_launch=1 << 18, transfer="u8")
